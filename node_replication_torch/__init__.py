@@ -1,0 +1,59 @@
+"""node_replication_torch: the node-replication framework on PyTorch and
+CUDA for an NVIDIA H100.
+
+The port of `node_replication_tpu` (which stays the reference): the same
+`Dispatch` / shared-log / replica semantics, bit-identical to the
+reference on the same op streams, with the reference's Pallas TPU
+kernels rewritten by hand for Hopper (`csrc/`). This package imports
+torch and never jax.
+
+Entry points run on the card unless the caller asks for another
+device: `device=None` means `torch.device("cuda")` and raises without
+one; pass `device="cpu"` for the CPU.
+
+Ported so far (ROADMAP.md queue 1 lists the rest): the hashmap model,
+the log, the lock-step step, `NodeReplicated`, and the replay and
+fused-round kernels.
+"""
+
+from node_replication_torch.core.log import (
+    DEFAULT_LOG_ENTRIES,
+    GC_FROM_HEAD,
+    LogSpec,
+    LogState,
+    is_replica_synced_for_reads,
+    log_append,
+    log_exec_all,
+    log_init,
+    log_reset,
+    log_space,
+)
+from node_replication_torch.core.replica import (
+    MAX_PENDING_OPS,
+    MAX_THREADS_PER_REPLICA,
+    NodeReplicated,
+    ReplicaToken,
+)
+from node_replication_torch.core.step import make_step
+from node_replication_torch.models.hashmap import (
+    HM_GET,
+    HM_PUT,
+    HM_REMOVE,
+    make_hashmap,
+)
+from node_replication_torch.ops.encoding import (
+    NOOP,
+    Dispatch,
+    apply_read,
+    apply_write,
+    encode_ops,
+)
+
+__all__ = [
+    "DEFAULT_LOG_ENTRIES", "GC_FROM_HEAD", "LogSpec", "LogState",
+    "is_replica_synced_for_reads", "log_append", "log_exec_all",
+    "log_init", "log_reset", "log_space", "MAX_PENDING_OPS",
+    "MAX_THREADS_PER_REPLICA", "NodeReplicated", "ReplicaToken",
+    "make_step", "HM_GET", "HM_PUT", "HM_REMOVE", "make_hashmap", "NOOP",
+    "Dispatch", "apply_read", "apply_write", "encode_ops",
+]

@@ -1,0 +1,1154 @@
+"""Replica runtime: flat-combining batching + lock-step replay (PyTorch).
+
+The port of `node_replication_tpu/core/replica.py` (see its docstring
+for the mapping from the reference's `Replica`). `NodeReplicated` keeps
+the same surface and the same host protocol: per-thread `Context`
+rings drained into one append batch per combiner round, replay rounds
+until the combiner's own ops are applied, reads gated on the completed
+tail, the help-GC-before-append rule, fencing, the split round, and the
+fused one-launch tier with its winner-selection calibration.
+
+Not in this package yet (ROADMAP.md queue 1): `grow_fleet`, the WAL
+(`attach_wal`), `checkpoint`/`restore`/`recover`, and `mesh=`.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import os
+import statistics
+import time
+from collections import deque
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from node_replication_torch.analysis.locks import make_rlock
+from node_replication_torch.core.log import (
+    LogSpec,
+    WARN_ROUNDS,
+    log_append,
+    log_catchup_all,
+    log_exec_all,
+    log_init,
+    log_space,
+)
+from node_replication_torch.fault.inject import fault_hook
+from node_replication_torch.obs.metrics import COUNT_BUCKETS, get_registry
+from node_replication_torch.ops.context import MAX_PENDING_OPS, Context
+from node_replication_torch.ops.encoding import (
+    Dispatch,
+    apply_read,
+    encode_ops,
+)
+from node_replication_torch.utils.checks import debug_checks
+from node_replication_torch.utils.device import resolve_device
+from node_replication_torch.utils.trace import get_tracer, span
+from node_replication_torch.utils.tree import tree_leaves, tree_map
+
+__all__ = [
+    "MAX_PENDING_OPS", "MAX_THREADS_PER_REPLICA", "DEFAULT_EXEC_WINDOW",
+    "NodeReplicated", "ReplicaToken", "ReplicaFencedError",
+    "LogTooSmallError", "replicate_state", "states_equal",
+]
+
+logger = logging.getLogger("node_replication_torch")
+
+# Max logical threads per replica (`nr/src/replica.rs:56`).
+MAX_THREADS_PER_REPLICA = 256
+
+# Default replay window per device round.
+DEFAULT_EXEC_WINDOW = 256
+
+# Fused-tier winner selection (`engine='auto'` + a fused-capable
+# dispatch): per tier, the first WARMUP eligible rounds are off the
+# books, the next SAMPLES rounds are timed, and the tier with the lower
+# median commits. Both tiers run real rounds with identical results.
+FUSED_CAL_WARMUP = 1
+FUSED_CAL_SAMPLES = 2
+
+# Reserved context key for `execute_mut_batch` response sinks.
+BATCH_TID = -1
+
+
+class _BatchSink:
+    """Response sink for caller-assembled batches (`execute_mut_batch`):
+    the response half of `Context` without the 32-slot pending ring."""
+
+    __slots__ = ("_resps", "_inflight")
+
+    def __init__(self) -> None:
+        self._resps: list = []
+        self._inflight = 0
+
+    def expect(self, n: int) -> None:
+        self._inflight += n
+
+    def enqueue_resps(self, resps) -> None:
+        self._inflight -= len(resps)
+        self._resps.extend(resps)
+
+    def take(self) -> list:
+        out = self._resps
+        self._resps = []
+        return out
+
+    def reset(self) -> None:
+        """Discard delivered responses and the expectation count."""
+        self._resps = []
+        self._inflight = 0
+
+
+class _PendingRound:
+    """One combiner round between `begin` and `finish` (the split round
+    protocol). After `begin` the batch is APPENDED; `finish` replays to
+    the target (chain tier) or reads back the fused launch's responses.
+    `done` marks a round `begin` already completed."""
+
+    __slots__ = ("rid", "tids", "n", "pos0", "target", "batch",
+                 "fused_resps", "done", "t_chain", "pad", "fkey", "tier")
+
+    def __init__(self, rid: int, tids: list[int], n: int, pos0: int,
+                 batch: bool = False):
+        self.rid = rid
+        self.tids = tids
+        self.n = n
+        self.pos0 = pos0
+        self.target = pos0 + n
+        self.batch = batch
+        #: device tensor of the fused launch awaiting readback
+        self.fused_resps = None
+        self.done = False
+        self.t_chain: float | None = None
+        self.pad = 0
+        self.fkey: tuple = ()
+        self.tier: str | None = None
+
+
+class ReplicaToken(NamedTuple):
+    """Registration handle (`ReplicaToken`, `nr/src/replica.rs:27-30`)."""
+
+    rid: int
+    tid: int
+
+
+class LogTooSmallError(RuntimeError):
+    """A single batch exceeds the log's appendable capacity."""
+
+
+class ReplicaFencedError(RuntimeError):
+    """The operation targets a fenced (quarantined) replica."""
+
+    def __init__(self, rid: int):
+        super().__init__(
+            f"replica {rid} is fenced (quarantined); repair and "
+            f"unfence it before routing operations to it"
+        )
+        self.rid = rid
+
+
+def _locked(fn):
+    """Run a method under the instance's reentrant combiner lock,
+    timing contended acquisitions into `nr.lock.wait_s` when metrics
+    are on (the reference's `_locked`)."""
+    reg = get_registry()
+    m_wait = reg.histogram("nr.lock.wait_s")
+
+    @functools.wraps(fn)
+    def inner(self, *args, **kwargs):
+        lock = self._lock
+        if not reg.enabled:
+            with lock:
+                return fn(self, *args, **kwargs)
+        if not lock.acquire(blocking=False):
+            t0 = time.monotonic()
+            lock.acquire()
+            m_wait.observe(time.monotonic() - t0)
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            lock.release()
+
+    return inner
+
+
+def replicate_state(state, n_replicas: int):
+    """Stack one replica state into an [R, ...] lock-step fleet: R real
+    copies (never a broadcast view, which would alias every replica)."""
+    return tree_map(
+        lambda x: x.unsqueeze(0).expand((n_replicas,) + tuple(x.shape))
+        .clone(memory_format=torch.contiguous_format),
+        state,
+    )
+
+
+def states_equal(states) -> bool:
+    """All replicas of an [R, ...] state tree are bit-identical."""
+    return all(bool((leaf == leaf[0:1]).all())
+               for leaf in tree_leaves(states))
+
+
+class _FusedTier:
+    """Fused-tier plumbing (the reference's `_FusedTier`): lazy
+    spec-bound engine construction, the calibration sampler, and the
+    winner-selection state machine. All methods run under the host's
+    combiner lock."""
+
+    def _fused_log_spec(self) -> LogSpec:
+        return self.spec
+
+    def _fused_fence_key(self) -> tuple:
+        """Calibration key for the CURRENT quarantine mask: the sorted
+        fenced rids (empty when none). Fused and chain timings are only
+        comparable under the same mask."""
+        f = getattr(self, "_fenced", None)
+        if f is None:
+            return ()
+        return tuple(int(r) for r in np.where(f)[0])
+
+    def _init_fused_tier(self, engine: str, dispatch, reg, prefix: str,
+                         debug: bool = False) -> None:
+        """`engine='pallas'` FORCES the tier (the model must carry a
+        `fused_factory`; debug checks have no fused twin);
+        `engine='auto'` with a fused-capable dispatch arms the measured
+        calibration on a CUDA device (the reference arms it on a TPU;
+        NR_TPU_FUSED_CAL=1 is the CPU-test hook); otherwise off."""
+        self._fused = None
+        self._fused_spec = None
+        self._fused_mode = "off"
+        self._fused_choice: bool | None = False
+        self._fused_verdicts: dict[tuple, bool] = {}
+        self._fused_tier_name = "pallas_fused"
+        self._fused_samples: dict[str, dict[tuple, list]] = {
+            "pallas_fused": {}, "chain": {},
+        }
+        self._fused_rounds = 0
+        self.last_round_tier: str | None = None
+        self._tier_by_rid: dict[int, str] = {}
+        self._pos_by_rid: dict[int, int] = {}
+        self._m_engine_fused = reg.counter(
+            f"{prefix}.exec.engine.pallas_fused"
+        )
+        self._m_fused_fallback = reg.counter(
+            f"{prefix}.exec.engine.fused_fallback"
+        )
+        if engine == "pallas":
+            if dispatch.fused_factory is None:
+                raise ValueError(
+                    f"engine='pallas' but {dispatch.name} has no "
+                    f"fused_factory (no fused kernel for this model)"
+                )
+            if debug:
+                raise ValueError(
+                    "engine='pallas' has no debug-check twin; use "
+                    "debug=False (the fused round replays inside the "
+                    "kernel, outside the checks' reach)"
+                )
+            spec = self._fused_log_spec()
+            self._fused = self._build_fused_engine(spec)
+            self._fused_spec = spec
+            self._fused_mode = "forced"
+            self._fused_choice = True
+        elif (
+            engine == "auto"
+            and dispatch.fused_factory is not None
+            and not debug
+            and (self.device.type == "cuda"
+                 or os.environ.get("NR_TPU_FUSED_CAL") == "1")
+        ):
+            self._fused_mode = "auto"
+            self._fused_choice = None  # calibration pending
+
+    def _build_fused_engine(self, spec: LogSpec):
+        return self.dispatch.fused_factory(spec, device=self.device)
+
+    def _fused_engine(self):
+        """Lazily (re)build the tier's engine for the CURRENT spec; a
+        factory rejection degrades the tier to off with a warning."""
+        if self._fused_mode == "off":
+            return None
+        spec = self._fused_log_spec()
+        if self._fused is None or self._fused_spec != spec:
+            try:
+                self._fused = self._build_fused_engine(spec)
+                self._fused_spec = spec
+            except ValueError as e:
+                logger.warning(
+                    "fused engine rejected spec (%s); falling back to "
+                    "the ordinary chain", e
+                )
+                self._fused_mode = "off"
+                self._fused_choice = False
+                return None
+        return self._fused
+
+    def _fused_calibrating(self, fkey: tuple | None = None) -> bool:
+        """Auto mode with no committed verdict for the CURRENT fence
+        mask. A fenced mask whose engine has no fenced variant commits
+        `chain` at once (nothing to measure)."""
+        if self._fused_mode != "auto":
+            return False
+        if fkey is None:
+            fkey = self._fused_fence_key()
+        if self._fused_verdicts.get(fkey) is not None:
+            return False
+        if fkey:
+            eng = self._fused_engine()
+            if eng is None or not eng.supports_fenced:
+                self._fused_verdicts[fkey] = False
+                get_tracer().emit(
+                    "fused-calibration", window=0, fenced=list(fkey),
+                    tier=self._fused_tier_name,
+                    devices=getattr(eng, "devices", 1),
+                    fused_s=0.0, chain_s=0.0, winner="chain",
+                    reason="no-fenced-variant",
+                )
+                return False
+        return True
+
+    def _fused_tier_wanted(self, pad: int, fkey: tuple | None = None):
+        """The engine to route a `pad`-window round through, or None
+        for the ordinary chain. During calibration the chain goes first
+        at each (window, fence-mask) key."""
+        if self._fused_mode == "off" or self._fused_choice is False:
+            return None
+        if self._fused_mode == "auto":
+            if fkey is None:
+                fkey = self._fused_fence_key()
+            verdict = self._fused_verdicts.get(fkey)
+            if verdict is False:
+                return None
+            if verdict is None:
+                need = FUSED_CAL_WARMUP + FUSED_CAL_SAMPLES
+                chain = self._fused_samples["chain"].get(
+                    (pad, fkey), ()
+                )
+                if len(chain) < need:
+                    return None
+        return self._fused_engine()
+
+    def _note_fused_sample(self, tier: str, pad: int, dt: float,
+                           fkey: tuple = ()) -> None:
+        need = FUSED_CAL_WARMUP + FUSED_CAL_SAMPLES
+        key = (pad, tuple(fkey))
+        samples = self._fused_samples[tier].setdefault(key, [])
+        if len(samples) < need:
+            samples.append(dt)
+        chain = self._fused_samples["chain"].get(key, ())
+        fused = self._fused_samples["pallas_fused"].get(key, ())
+        if len(chain) < need or len(fused) < need:
+            return
+        med_c = statistics.median(chain[FUSED_CAL_WARMUP:])
+        med_f = statistics.median(fused[FUSED_CAL_WARMUP:])
+        verdict = med_f <= med_c
+        self._fused_verdicts[tuple(fkey)] = verdict
+        get_tracer().emit(
+            "fused-calibration", window=pad, fenced=list(fkey),
+            tier=self._fused_tier_name,
+            devices=getattr(self._fused, "devices", 1),
+            fused_s=med_f, chain_s=med_c,
+            winner=(self._fused_tier_name if verdict else "chain"),
+        )
+
+    def round_tier(self, rid: int) -> str | None:
+        """The engine tier that served replica `rid`'s latest round."""
+        return self._tier_by_rid.get(rid)
+
+    def round_pos(self, rid: int) -> int | None:
+        """The log position replica `rid`'s latest round appended at."""
+        return self._pos_by_rid.get(rid)
+
+    def _fused_tier_state(self) -> str:
+        if self._fused_mode == "off":
+            return "off"
+        if self._fused_mode == "forced":
+            return "forced"
+        verdict = self._fused_verdicts.get(self._fused_fence_key())
+        if verdict is None:
+            return "calibrating"
+        return (
+            f"auto:{self._fused_tier_name}" if verdict else "auto:chain"
+        )
+
+
+class NodeReplicated(_FusedTier):
+    """N replicas of one `Dispatch` data structure behind a shared log.
+
+    `device=None` runs on the card (`torch.device("cuda")`) and raises
+    without one; pass `device="cpu"` to run on the CPU.
+    """
+
+    def __init__(
+        self,
+        dispatch: Dispatch,
+        n_replicas: int = 1,
+        log_entries: int | None = None,
+        gc_slack: int | None = None,
+        exec_window: int = DEFAULT_EXEC_WINDOW,
+        gc_callback: Callable[[int, int], None] | None = None,
+        debug: bool | None = None,
+        engine: str = "auto",
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        kw = {}
+        if log_entries is not None:
+            kw["capacity"] = log_entries
+        if gc_slack is not None:
+            kw["gc_slack"] = gc_slack
+        self.spec = LogSpec(
+            n_replicas=n_replicas, arg_width=dispatch.arg_width, **kw
+        )
+        self.dispatch = dispatch
+        self.exec_window = int(exec_window)
+        self.gc_callback = gc_callback
+        # `debug` arms the host-side cursor invariants (utils/checks.py)
+        # around every append and replay call; None defers to the
+        # NR_TPU_DEBUG env var
+        if debug is None:
+            from node_replication_torch.utils.checks import debug_default
+
+            debug = debug_default()
+        self.debug = bool(debug)
+
+        self.log = log_init(self.spec, self.device)
+        self.states = replicate_state(dispatch.init_state(self.device),
+                                      n_replicas)
+
+        self._lock = make_rlock("NodeReplicated._lock")
+        self._contexts: dict[tuple[int, int], Context] = {}
+        self._threads_per_replica = [0] * n_replicas
+        # appended-but-unanswered ops per replica: deque[(pos, tid)]
+        self._inflight: list[deque] = [deque() for _ in range(n_replicas)]
+        # at most ONE begun-but-unfinished split round per replica
+        self._pending_batch: dict[int, _PendingRound] = {}
+        # quarantine mask: None until the first fence_replica
+        self._fenced: np.ndarray | None = None
+        self._exec_rounds = 0
+        self._idle_rounds = 0
+
+        reg = get_registry()
+        self._m_rounds = reg.counter("nr.exec.rounds")
+        self._m_idle = reg.counter("nr.exec.idle_rounds")
+        self._m_batch = reg.histogram("nr.combine.batch_size",
+                                      buckets=COUNT_BUCKETS)
+        self._m_stalls = reg.counter("nr.watchdog.stalls")
+        self._m_lag = reg.histogram("nr.replica.lag",
+                                    buckets=COUNT_BUCKETS)
+
+        if engine not in ("auto", "combined", "scan", "pallas"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if (dispatch.window_plan is None) != (
+            dispatch.window_merge is None
+        ):
+            raise ValueError(
+                f"{dispatch.name}: window_plan and window_merge come "
+                f"as a pair (got only one)"
+            )
+        has_any_combined = (
+            dispatch.window_apply is not None
+            or dispatch.window_plan is not None
+        )
+        if engine == "combined" and not has_any_combined:
+            raise ValueError(
+                f"engine='combined' but {dispatch.name} has no "
+                f"window_apply or window_plan"
+            )
+        auto_combined = (
+            dispatch.window_apply is not None
+            or (dispatch.window_plan is not None
+                and dispatch.window_canonical)
+        )
+        use_combined = (
+            auto_combined if engine in ("auto", "pallas")
+            else engine == "combined"
+        )
+        self.engine = "combined" if use_combined else "scan"
+        # engine='combined' asserts the union-tier contract; 'auto'
+        # defers to the model's own window_canonical opt-in
+        self._union = True if engine == "combined" else None
+        self._m_engine = reg.counter(f"nr.exec.engine.{self.engine}")
+        self._init_fused_tier(engine, dispatch, reg, "nr",
+                              debug=self.debug)
+
+    # ------------------------------------------------------------ calls
+
+    def _exec_call(self, fenced):
+        """One replay round over the fleet (the reference's
+        `_exec_jit`/`_exec_fenced_jit`)."""
+        if self.engine == "combined":
+            return log_catchup_all(
+                self.spec, self.dispatch, self.log, self.states,
+                self.exec_window, union=self._union, fenced=fenced,
+                idle_check=False,
+            )
+        return log_exec_all(self.spec, self.dispatch, self.log,
+                            self.states, self.exec_window, fenced=fenced)
+
+    def _append_call(self, opcodes, args, n):
+        return log_append(self.spec, self.log, opcodes, args, n)
+
+    # -------------------------------------------------------------- API
+
+    @property
+    def n_replicas(self) -> int:
+        return self.spec.n_replicas
+
+    def _ltails_host(self) -> np.ndarray:
+        return self.log.ltails.cpu().numpy()
+
+    @_locked
+    def ltail(self, rid: int) -> int:
+        """Replica `rid`'s applied cursor (host int)."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        return int(self._ltails_host()[rid])
+
+    @_locked
+    def register(self, rid: int = 0) -> ReplicaToken:
+        """Register a logical thread on replica `rid`."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        tid = self._threads_per_replica[rid]
+        if tid >= MAX_THREADS_PER_REPLICA:
+            raise RuntimeError(
+                f"replica {rid} already has {MAX_THREADS_PER_REPLICA} "
+                f"threads"
+            )
+        self._threads_per_replica[rid] = tid + 1
+        self._contexts[(rid, tid)] = Context()
+        return ReplicaToken(rid, tid)
+
+    # --------------------------------------------------------- fencing
+
+    def _is_fenced(self, rid: int) -> bool:
+        f = self._fenced
+        return f is not None and bool(f[rid])
+
+    @property
+    def fenced_rids(self) -> list[int]:
+        f = self._fenced
+        return [] if f is None else [int(r) for r in np.where(f)[0]]
+
+    @_locked
+    def fence_replica(self, rid: int) -> None:
+        """Fence `rid` out of the fleet: its replay freezes and GC skips
+        it; its in-flight responses are dropped (crash semantics).
+        Idempotent."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        if self._fenced is None:
+            self._fenced = np.zeros(self.n_replicas, bool)
+        if self._fenced[rid]:
+            return
+        self._fenced[rid] = True
+        self._inflight[rid] = deque()
+        sink = self._contexts.get((rid, BATCH_TID))
+        if sink is not None:
+            sink.reset()
+        stale = self._pending_batch.pop(rid, None)
+        if stale is not None:
+            stale.done = True
+            stale.fused_resps = None
+        get_tracer().emit(
+            "fault-fence", rid=rid, ltail=int(self._ltails_host()[rid]),
+        )
+
+    @_locked
+    def unfence_replica(self, rid: int) -> None:
+        """Readmit `rid` to replay and GC accounting (re-seat it with
+        `clone_replica_from` first). Idempotent."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        if self._fenced is None or not self._fenced[rid]:
+            return
+        self._fenced[rid] = False
+        if not self._fenced.any():
+            self._fenced = None  # restore the no-mask hot path
+        get_tracer().emit("fault-unfence", rid=rid)
+
+    @_locked
+    def clone_replica_from(self, rid: int,
+                           donor: int | None = None) -> tuple[int, int]:
+        """Overwrite replica `rid`'s state and cursor with a copy of a
+        healthy donor's (default: the most caught-up unfenced replica).
+        Returns `(donor, donor_ltail)`."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        ltails = self._ltails_host()
+        eligible = np.ones(self.n_replicas, bool)
+        eligible[rid] = False
+        if self._fenced is not None:
+            eligible &= ~self._fenced
+        if donor is None:
+            if not eligible.any():
+                raise RuntimeError(
+                    "no healthy donor replica available (all fenced)"
+                )
+            masked = np.where(eligible, ltails, -1)
+            donor = int(np.argmax(masked))
+        elif donor == rid or not 0 <= donor < self.n_replicas:
+            raise ValueError(f"bad donor replica {donor}")
+        elif self._is_fenced(donor):
+            raise ReplicaFencedError(donor)
+        donor_ltail = int(ltails[donor])
+
+        def copy_row(x):
+            x = x.clone()
+            x[rid] = x[donor]
+            return x
+
+        self.states = tree_map(copy_row, self.states)
+        lt = self.log.ltails.clone()
+        lt[rid] = donor_ltail
+        self.log = self.log._replace(ltails=lt)
+        self._inflight[rid] = deque()
+        get_tracer().emit(
+            "fault-clone", rid=rid, donor=donor, donor_ltail=donor_ltail,
+        )
+        return donor, donor_ltail
+
+    # ---------------------------------------------------- writes/reads
+
+    @_locked
+    def execute_mut(self, op: tuple, token: ReplicaToken):
+        """Stage one write op, combine, and return its response."""
+        ctx = self._contexts[(token.rid, token.tid)]
+        if not ctx.enqueue(op[0], tuple(op[1:])):
+            self.combine(token.rid)
+            ctx.enqueue(op[0], tuple(op[1:]))
+        self.combine(token.rid)
+        return ctx.res_newest()
+
+    @_locked
+    def enqueue_mut(self, op: tuple, token: ReplicaToken) -> None:
+        """Stage a write without combining (combines first if this
+        thread's 32-slot ring is full)."""
+        ctx = self._contexts[(token.rid, token.tid)]
+        if not ctx.enqueue(op[0], tuple(op[1:])):
+            self.combine(token.rid)
+            ctx.enqueue(op[0], tuple(op[1:]))
+
+    @_locked
+    def flush(self, rid: int | None = None) -> None:
+        """Combine pending batches (all replicas by default)."""
+        for r in range(self.n_replicas) if rid is None else [rid]:
+            self.combine(r)
+
+    @_locked
+    def responses(self, token: ReplicaToken) -> list:
+        """Drain delivered responses for this thread, in enqueue order."""
+        ctx = self._contexts[(token.rid, token.tid)]
+        out = []
+        r = ctx.res()
+        while r is not None:
+            out.append(r)
+            r = ctx.res()
+        return out
+
+    @_locked
+    def execute(self, op: tuple, token: ReplicaToken):
+        """Read path: wait until this replica has replayed up to the
+        completed tail (helping replay while waiting), then dispatch
+        locally."""
+        rid = token.rid
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        fault_hook("read-sync", rid, self)
+        ctail = int(self.log.ctail)
+        rounds = 0
+        while int(self._ltails_host()[rid]) < ctail:
+            self._exec_round()
+            rounds = self._watchdog(rounds, "read-sync")
+        return self._dispatch_read(rid, op)
+
+    def _dispatch_read(self, rid: int, op: tuple) -> int:
+        """Pack args and answer one read against replica `rid`'s state.
+        Caller holds the combiner lock and has fence-checked."""
+        args = np.zeros((1, self.spec.arg_width), np.int32)
+        args[0, : len(op) - 1] = op[1:]
+        state = tree_map(lambda a: a[rid:rid + 1], self.states)
+        resp = apply_read(
+            self.dispatch, state,
+            torch.tensor([op[0]], dtype=torch.int32, device=self.device),
+            torch.from_numpy(args).to(self.device),
+        )
+        return int(resp[0])
+
+    @_locked
+    def read_lag(self, rid: int) -> int:
+        """Positions the completed tail leads replica `rid`'s cursor."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        ctail = int(self.log.ctail)
+        return max(0, ctail - int(self._ltails_host()[rid]))
+
+    @_locked
+    def execute_stale(self, op: tuple, token: ReplicaToken):
+        """Bounded-staleness read: dispatch against this replica's
+        CURRENT state with no read-sync."""
+        rid = token.rid
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        return self._dispatch_read(rid, op)
+
+    @_locked
+    def execute_stale_bounded(self, op: tuple, token: ReplicaToken,
+                              max_lag: int):
+        """`execute_stale` with the staleness bound checked atomically:
+        `(value, lag)` when `lag <= max_lag`, else None."""
+        rid = token.rid
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        ctail = int(self.log.ctail)
+        lag = max(0, ctail - int(self._ltails_host()[rid]))
+        if lag > int(max_lag):
+            return None
+        return self._dispatch_read(rid, op), lag
+
+    @_locked
+    def combine(self, rid: int) -> None:
+        """Drain this replica's thread contexts (thread order), append
+        the batch, and replay until this replica applied its own ops."""
+        ops: list[tuple] = []
+        tids: list[int] = []
+        for tid in range(self._threads_per_replica[rid]):
+            for opcode, args in self._contexts[(rid, tid)].ops():
+                ops.append((opcode, *args))
+                tids.append(tid)
+        if not ops:
+            self._exec_round()  # combine with nothing staged still helps
+            return
+        self._append_and_replay(ops, rid, tids)
+
+    @_locked
+    def _try_fused_round(self, ops, rid, tids, n, pos0, pad,
+                         opcodes, args, pending=None,
+                         fkey: tuple = ()) -> bool:
+        """Route one combiner round through the fused engine when
+        eligible (every live cursor at the pre-append tail, no
+        in-flight responses owed, a supported window); False falls
+        back to the append+exec chain. Results are bit-identical
+        either way. With `pending` the kernel is launched here and the
+        response readback waits for `_finish_round`."""
+        eng = self._fused_tier_wanted(pad, fkey)
+        if eng is None:
+            return False
+        if self._fenced is not None and not eng.supports_fenced:
+            self._m_fused_fallback.inc()
+            return False
+        if not eng.supports(pad):
+            self._m_fused_fallback.inc()
+            return False
+        if any(self._inflight):
+            self._m_fused_fallback.inc()
+            return False
+        cur = torch.cat([self.log.ltails,
+                         self.log.tail.reshape(1)]).cpu().numpy()
+        lts, tail = cur[:-1], int(cur[-1])
+        live = lts if self._fenced is None else lts[~self._fenced]
+        if not (live.size
+                and int(live.min()) == tail == int(live.max())):
+            self._m_fused_fallback.inc()
+            return False
+        timing = self._fused_calibrating(fkey)
+        t0 = time.perf_counter()
+        fenced = self._fenced
+        extra = {"deferred": True} if pending is not None else {}
+        with span("fused-round", rid=rid, n=n, pos0=pos0,
+                  window=pad, **extra) as sp:
+            self.log, self.states, resps = eng.round(
+                self.log, self.states, opcodes, args, n, fenced=fenced
+            )
+            if pending is None:
+                # the response readback is also the round's host
+                # fence; only replica `rid`'s row is delivered
+                resps_np = resps[rid, :n].cpu().numpy()
+                sp.fence(self.log, self.states)
+        if timing:
+            self._note_fused_sample(
+                "pallas_fused", pad, time.perf_counter() - t0, fkey
+            )
+        self._fused_rounds += 1
+        self._m_engine_fused.inc()
+        if pending is not None:
+            pending.fused_resps = resps
+            pending.tier = eng.tier
+            return True
+        for j, tid in enumerate(tids):
+            self._contexts[(rid, tid)].enqueue_resps([int(resps_np[j])])
+        self.last_round_tier = eng.tier
+        self._tier_by_rid[rid] = eng.tier
+        self._pos_by_rid[rid] = pos0
+        return True
+
+    @_locked
+    def _begin_round(self, ops: list[tuple], rid: int,
+                     tids: list[int], batch: bool = False,
+                     defer: bool = False) -> _PendingRound:
+        """First half of the combiner-round protocol: fence guard,
+        append-site fault hook, help GC until the batch fits, encode +
+        append (or launch the fused round), record in-flight response
+        destinations. `defer=True` leaves the replay-to-target (or the
+        fused readback) for `_finish_round`; calibration rounds ignore
+        it."""
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        fault_hook("append", rid, self)
+        n = len(ops)
+        max_batch = self.spec.capacity - self.spec.gc_slack
+        if n > max_batch:
+            raise LogTooSmallError(
+                f"batch of {n} exceeds appendable capacity {max_batch}"
+            )
+        self._m_batch.observe(n)
+        rounds = 0
+        while int(log_space(self.spec, self.log)) < n:
+            self._exec_round()
+            rounds = self._watchdog(rounds, "append-gc")
+
+        pos0 = int(self.log.tail)
+        pad = 1 << (max(n, 1) - 1).bit_length()
+        opcodes, args, _ = encode_ops(
+            ops, self.spec.arg_width, pad_to=pad, device=self.device
+        )
+        fkey = self._fused_fence_key()
+        timing = self._fused_calibrating(fkey)
+        defer = defer and not timing
+        pending = _PendingRound(rid, list(tids), n, pos0, batch=batch)
+        pending.pad = pad
+        pending.fkey = fkey
+        if self._try_fused_round(ops, rid, tids, n, pos0, pad,
+                                 opcodes, args,
+                                 pending if defer else None,
+                                 fkey=fkey):
+            if pending.fused_resps is None:
+                pending.done = True  # ran eagerly end-to-end
+            return pending
+        if timing:
+            pending.t_chain = time.perf_counter()
+        extra = {"batch": True} if batch else {}
+        with span("append", rid=rid, n=n, pos0=pos0, **extra) as sp:
+            with debug_checks(self.debug):
+                self.log = self._append_call(opcodes, args, n)
+            sp.fence(self.log)
+        inflight = self._inflight[rid]
+        for j, tid in enumerate(tids):
+            inflight.append((pos0 + j, tid))
+        return pending
+
+    @_locked
+    def _finish_round(self, pending: _PendingRound) -> None:
+        """Second half of the protocol: replay until replica `rid` has
+        applied its own ops (chain tier), or read back and deliver the
+        fused launch's responses."""
+        if pending.done:
+            return
+        pending.done = True
+        rid = pending.rid
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        if pending.fused_resps is not None:
+            resps_np = pending.fused_resps[rid, :pending.n].cpu().numpy()
+            pending.fused_resps = None
+            for j, tid in enumerate(pending.tids):
+                self._contexts[(rid, tid)].enqueue_resps(
+                    [int(resps_np[j])]
+                )
+            tier = pending.tier or "pallas_fused"
+            self.last_round_tier = tier
+            self._tier_by_rid[rid] = tier
+            self._pos_by_rid[rid] = pending.pos0
+            return
+        target = pending.target
+        rounds = 0
+        with span("combine-replay", rid=rid, target=target) as sp:
+            while int(self._ltails_host()[rid]) < target:
+                self._exec_round()
+                rounds = self._watchdog(rounds, "combine-replay")
+            sp.fence(self.log, self.states)
+        self.last_round_tier = self.engine
+        self._tier_by_rid[rid] = self.engine
+        self._pos_by_rid[rid] = pending.pos0
+        if pending.t_chain is not None:
+            self._note_fused_sample("chain", pending.pad,
+                                    time.perf_counter()
+                                    - pending.t_chain, pending.fkey)
+
+    @_locked
+    def _append_and_replay(self, ops: list[tuple], rid: int,
+                           tids: list[int], batch: bool = False) -> None:
+        """`_begin_round` + `_finish_round` back-to-back."""
+        self._finish_round(
+            self._begin_round(ops, rid, tids, batch=batch)
+        )
+
+    @_locked
+    def _drop_batch_inflight(self, rid: int) -> None:
+        """Failed-batch hygiene: drop the batch's pending deliveries and
+        reset its sink (the ops stay in the log and WILL replay)."""
+        self._inflight[rid] = deque(
+            (p, t) for p, t in self._inflight[rid] if t != BATCH_TID
+        )
+        self._contexts[(rid, BATCH_TID)].reset()
+
+    @_locked
+    def begin_mut_batch(self, ops: list[tuple],
+                        rid: int = 0) -> _PendingRound:
+        """Split-round batch entry, first half: GC-wait, encode, append
+        (on the fused tier: launch). At most ONE begun-but-unfinished
+        round per replica."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        if self._pending_batch.get(rid) is not None:
+            raise RuntimeError(
+                f"replica {rid} already has a round in flight; "
+                f"finish_mut_batch it before beginning another "
+                f"(at most one split round per replica)"
+            )
+        n = len(ops)
+        sink = self._contexts.get((rid, BATCH_TID))
+        if sink is None:
+            sink = _BatchSink()
+            self._contexts[(rid, BATCH_TID)] = sink
+        if n == 0:
+            pending = _PendingRound(rid, [], 0, int(self.log.tail),
+                                    batch=True)
+            pending.done = True
+            self._pending_batch[rid] = pending
+            return pending
+        sink.expect(n)
+        try:
+            pending = self._begin_round(
+                list(ops), rid, [BATCH_TID] * n, batch=True, defer=True,
+            )
+        except BaseException:
+            self._drop_batch_inflight(rid)
+            raise
+        self._pending_batch[rid] = pending
+        return pending
+
+    @_locked
+    def finish_mut_batch(self, pending: _PendingRound) -> list:
+        """Split-round batch entry, second half: complete the round and
+        return its responses in op order."""
+        rid = pending.rid
+        if self._pending_batch.get(rid) is not pending:
+            raise RuntimeError(
+                f"pending round for replica {rid} is not this "
+                f"replica's in-flight round (already finished?)"
+            )
+        sink = self._contexts[(rid, BATCH_TID)]
+        try:
+            self._finish_round(pending)
+            resps = sink.take()
+            if len(resps) != pending.n:
+                raise RuntimeError(
+                    f"round delivered {len(resps)} responses for "
+                    f"{pending.n} ops"
+                )
+            return resps
+        except BaseException:
+            self._drop_batch_inflight(rid)
+            raise
+        finally:
+            self._pending_batch.pop(rid, None)
+
+    @_locked
+    def abort_mut_batch(self, pending: _PendingRound) -> None:
+        """Abandon a begun-but-unfinished split round (its ops stay in
+        the log; its responses are dropped). Idempotent."""
+        rid = pending.rid
+        if self._pending_batch.get(rid) is not pending:
+            return
+        self._pending_batch.pop(rid, None)
+        pending.done = True
+        pending.fused_resps = None
+        self._drop_batch_inflight(rid)
+
+    @_locked
+    def execute_mut_batch(self, ops: list[tuple], rid: int = 0) -> list:
+        """Execute a caller-assembled batch of write ops as ONE
+        combiner round (`begin_mut_batch` + `finish_mut_batch`)."""
+        return self.finish_mut_batch(self.begin_mut_batch(ops, rid))
+
+    @_locked
+    def sync(self, rid: int | None = None) -> None:
+        """Catch replicas up with the log tail; `rid=None` syncs every
+        UNFENCED replica."""
+        if rid is not None and self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        rounds = 0
+        while True:
+            ltails = self._ltails_host()
+            tail = int(self.log.tail)
+            if rid is None:
+                live = (
+                    ltails if self._fenced is None
+                    else ltails[~self._fenced]
+                )
+                done = all(int(lt) >= tail for lt in live)
+            else:
+                done = int(ltails[rid]) >= tail
+            if done:
+                return
+            self._exec_round()
+            rounds = self._watchdog(rounds, "sync")
+
+    @_locked
+    def stats(self) -> dict:
+        """Flat observability counters."""
+        ltails = self._ltails_host()
+        tail = int(self.log.tail)
+        return {
+            "appended": tail,
+            "head": int(self.log.head),
+            "ctail": int(self.log.ctail),
+            "min_ltail": int(ltails.min()),
+            "exec_rounds": self._exec_rounds,
+            "idle_rounds": self._idle_rounds,
+            "ring_rounds": 0,
+            "engine": self.engine,
+            "fused_rounds": self._fused_rounds,
+            "fused_tier": self._fused_tier_state(),
+            "mesh_devices": 0,
+            "max_lag": tail - int(ltails.min()),
+        }
+
+    @_locked
+    def snapshot(self) -> dict:
+        """Structured observability snapshot (JSON-safe)."""
+        ltails = self._ltails_host()
+        tail = int(self.log.tail)
+        head = int(self.log.head)
+        lags = [tail - int(lt) for lt in ltails]
+        return {
+            "log": {
+                "tail": tail,
+                "head": head,
+                "ctail": int(self.log.ctail),
+                "capacity": self.spec.capacity,
+                "occupancy": (tail - head) / self.spec.capacity,
+                "space": int(log_space(self.spec, self.log)),
+            },
+            "replicas": {
+                "n": self.n_replicas,
+                "ltails": [int(lt) for lt in ltails],
+                "lag": lags,
+                "max_lag": max(lags) if lags else 0,
+                "threads": list(self._threads_per_replica),
+                "inflight": [len(q) for q in self._inflight],
+                "fenced": self.fenced_rids,
+            },
+            "exec": {
+                "engine": self.engine,
+                "window": self.exec_window,
+                "rounds": self._exec_rounds,
+                "idle_rounds": self._idle_rounds,
+                "ring_rounds": 0,
+                "fused_rounds": self._fused_rounds,
+                "fused_tier": self._fused_tier_state(),
+            },
+            "mesh": None,
+            "device": str(self.device),
+            "metrics": get_registry().snapshot(),
+        }
+
+    @_locked
+    def verify(self, fn: Callable[[Any], Any], rid: int = 0):
+        """Force-sync, then hand replica `rid`'s state (numpy) to `fn`."""
+        self.sync()
+        state = tree_map(lambda a: a[rid].cpu().numpy(), self.states)
+        return fn(state)
+
+    @_locked
+    def replicas_equal(self) -> bool:
+        """All replicas converged to identical state."""
+        return states_equal(self.states)
+
+    # ------------------------------------------------------- internals
+
+    @_locked
+    def _exec_round(self) -> bool:
+        """One replay round for every replica, plus response
+        distribution; skipped (counted idle) when every live cursor is
+        already at the tail. Returns True if any replica progressed."""
+        fault_hook("replay", -1, self)
+        fenced = self._fenced
+        cur = torch.cat([self.log.ltails,
+                         self.log.tail.reshape(1)]).cpu().numpy()
+        ltails_before, tail = cur[:-1], int(cur[-1])
+        live = (
+            ltails_before if fenced is None
+            else ltails_before[~fenced]
+        )
+        idle = bool(
+            live.size
+            and int(live.min()) >= tail
+            and int(live.max()) <= tail
+        )
+        if idle and fenced is not None:
+            idle = int(self.log.head) >= int(live.min())
+        if idle:
+            self._idle_rounds += 1
+            self._m_idle.inc()
+            return False
+        self._exec_rounds += 1
+        self._m_rounds.inc()
+        self._m_engine.inc()
+        tracer = get_tracer()
+        t0 = time.perf_counter() if tracer.enabled else 0.0
+        f_arr = (None if fenced is None
+                 else torch.from_numpy(fenced).to(self.device))
+        with debug_checks(self.debug):
+            self.log, self.states, resps = self._exec_call(f_arr)
+        ltails_after = self._ltails_host()
+        self._m_lag.observe(tail - int(ltails_after.min()))
+        resps_np = resps.cpu().numpy()
+        for r in range(self.n_replicas):
+            q = self._inflight[r]
+            while q and q[0][0] < int(ltails_after[r]):
+                pos, tid = q.popleft()
+                self._contexts[(r, tid)].enqueue_resps(
+                    [int(resps_np[r, pos - int(ltails_before[r])])]
+                )
+        progressed = bool(np.any(ltails_after > ltails_before))
+        if tracer.enabled:
+            if tracer.fence_spans:
+                from node_replication_torch.utils.fence import fence
+
+                fence(self.log, self.states)
+            tracer.emit(
+                "exec-round",
+                duration_s=time.perf_counter() - t0,
+                fenced=tracer.fence_spans,
+                engine=self.engine,
+                window=self.exec_window,
+                progressed=progressed,
+                advanced=int((ltails_after - ltails_before).sum()),
+            )
+        return progressed
+
+    def _watchdog(self, rounds: int, where: str) -> int:
+        rounds += 1
+        # re-warn every WARN_ROUNDS (`nr/src/log.rs:43`)
+        if rounds % WARN_ROUNDS == 0:
+            self._m_stalls.inc()
+            ltails = self._ltails_host()
+            dormant = int(np.argmin(ltails))
+            ltail = int(ltails[dormant])
+            tail = int(self.log.tail)
+            logger.warning(
+                "replay stalled in %s after %d rounds; most dormant "
+                "replica=%d (ltail=%d, tail=%d)",
+                where, rounds, dormant, ltail, tail,
+            )
+            get_tracer().emit(
+                "watchdog", where=where, rounds=rounds, dormant=dormant,
+                ltail=ltail, tail=tail,
+            )
+            if self.gc_callback is not None:
+                self.gc_callback(0, dormant)
+        return rounds

@@ -30,3 +30,8 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 budgeted run (-m 'not slow'); "
         "still runs in the unfiltered CI test job",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (kernel-vs-plain checks of the "
+        "torch port); skips with a reason where there is none",
+    )
