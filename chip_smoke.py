@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about a minute
+    python3 chip_smoke.py            # needs one CUDA card; a few minutes
 
-The replicated hashmap at the flagship width (R = 4096 replicas, K =
-10000 keys, random ops from a numpy seed), end to end:
+Two models, end to end, from numpy seeds. The replicated hashmap at the
+flagship width (R = 4096 replicas, K = 10000 keys):
 
-1. build the CUDA kernels from `node_replication_torch/csrc/`;
+1. build every CUDA source under `node_replication_torch/csrc/` (one
+   nvcc per source, all at once);
 2. the replay kernel (K2) against its plain PyTorch version, W = 4096;
 3. the fused combiner-round kernel (K1), fenced and unfenced, against
    its plain version over rounds of W = 256 that wrap a 2^16 ring;
@@ -16,13 +17,30 @@ The replicated hashmap at the flagship width (R = 4096 replicas, K =
    batched rounds of 256 writes plus cross-replica reads, identical to
    each other and to a plain dict model of the map.
 
+The flat vspace (NrOS page table) at the long-log deployment of
+`benches/vspace.py` (P = 2^18 pages, max_span = 64, MAP:UNMAP = 3:1,
+npages = 1 + pframe % 64), at R = 256:
+
+6. the span replay kernel (K4) against its plain version, W = 4096,
+   with negative vpages, vpages near 2^31 and inert opcodes;
+7. the step paths: 24 steps of W = 4096 (the 2^16 ring wraps) through
+   `make_pallas_vspace_step` (K4), `make_pallas_vspace_plan_step` (K7a)
+   and `make_step(combined=True)`, bit-identical; then K7a against its
+   plain version;
+8. `NodeReplicated(make_vspace(2^18, 64), 256)` with `engine='pallas'`
+   (K5) and `'combined'`: 72 rounds of 1024 writes (the ring wraps)
+   plus cross-replica IDENTIFY/RESOLVED reads, a few rounds with one
+   replica fenced (they take the chain), identical to each other and
+   to a numpy page table; then K5 against its plain version.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
-are zeroed just before each main-path phase (4, 5) and read just
-after; a kernel that path never launched fails the run. The last two
-lines are a `{"kernels": [...]}` summary and `{"ok": true, "device":
-...}`; any failure exits non-zero before them. Without a CUDA device,
-or without the package beside this script, it exits non-zero at once.
-Details of the run go to `chiprun_out/chip_smoke.json`.
+are zeroed just before each main-path phase (4, 5, 7, 8) and read just
+after; a kernel that its path never launched fails the run. The last
+two lines are a `{"kernels": [...]}` summary and `{"ok": true,
+"device": ...}`; any failure exits non-zero before them. Without a
+CUDA device, or without the package beside this script, it exits
+non-zero at once. Details of the run go to
+`chiprun_out/chip_smoke.json`.
 """
 
 from __future__ import annotations
@@ -41,6 +59,9 @@ SEED = 20261016
 R, K = 4096, 10000
 W_STEP = R          # K2's window on the step path: one write per replica
 W_ROUND = 256       # K1's window: one combiner round of 256 ops
+VS_P, VS_SPAN, VS_R = 1 << 18, 64, 256  # flat vspace, long-log config
+VS_BW = 16          # writes per replica per step: W = 4096 a step
+VS_ROUND = 1024     # ops per NodeReplicated round
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -92,16 +113,18 @@ def random_planes(gen, dev, kp: int):
 
 
 def phase_build() -> dict:
-    from node_replication_torch.ops import replay
+    from node_replication_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
-    replay.build_library(force=True)
+    kernel_lib.build_all(force=True)
     secs = time.perf_counter() - t0
-    log(f"phase 1: built {replay.SOURCE.name} in {secs:.2f} s")
-    for line in replay.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    return {"build_s": secs, "ptxas": replay.BUILD_LOG}
+    names = [p.name for p in kernel_lib.sources()]
+    log(f"phase 1: built {', '.join(names)} in {secs:.2f} s")
+    for name in names:
+        for line in kernel_lib.BUILD_LOG[name].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    return {"build_s": secs, "ptxas": dict(kernel_lib.BUILD_LOG)}
 
 
 def phase_replay(dev, rng, gen) -> dict:
@@ -385,6 +408,372 @@ def phase_replica(dev, rng, rounds: int = 36) -> dict:
             "fused_rounds": sk["fused_rounds"]}
 
 
+# ------------------------------------------------------- flat vspace
+
+
+def vs_window(rng, W, inert=False):
+    """A window of the long-log mix: MAP:UNMAP = 3:1, vpage in [-P, 2P),
+    pframe in [1, 2^31), npages = 1 + pframe % 64 (UNMAP's span rides
+    args[1], as in the bench). `inert` adds NOOP and unknown opcodes,
+    vpages near 2^31 and spans of n <= 0."""
+    opc = rng.choice(np.array([1, 1, 1, 2], np.int32), W)
+    args = np.zeros((W, 3), np.int32)
+    args[:, 0] = rng.integers(-VS_P, 2 * VS_P, W)
+    args[:, 1] = rng.integers(1, 1 << 31, W)
+    args[:, 2] = 1 + args[:, 1] % VS_SPAN
+    if inert:
+        at = rng.choice(W, W // 8, replace=False)
+        k = len(at) // 4
+        opc[at[:k]] = rng.choice(np.array([0, 3, -1], np.int32), k)
+        args[at[k:2 * k], 0] = 2 ** 31 - 1 - rng.integers(0, VS_SPAN, k)
+        args[at[2 * k:3 * k], 2] = rng.integers(-2, 1, k)
+        args[at[3 * k:], 1] = 2 ** 31 - 1 - rng.integers(0, VS_SPAN,
+                                                         len(at) - 3 * k)
+    return opc, args
+
+
+def vs_bytes(R, W, extra=0):
+    """Bytes K4/K7a/K5 must move: the int32 [R, P] state in and out, the
+    window (opcode + 3 args) and the [W] responses, plus `extra`."""
+    return 4 * (2 * R * VS_P + 4 * W + W) + extra
+
+
+def vs_ops(args_np, opc_np, R):
+    """Integer operations the window needs: about 4 per acting page
+    (load, compare, count, store) on each replica."""
+    is_un = opc_np == 2
+    n = np.where(is_un, args_np[:, 1], args_np[:, 2]).clip(0, VS_SPAN)
+    n = np.where((opc_np == 1) | is_un, n, 0)
+    return 4 * int(n.sum()) * R
+
+
+def random_frames(gen, dev, R):
+    import torch
+
+    vals = torch.randint(1, 1 << 30, (R, VS_P), generator=gen, device=dev,
+                         dtype=torch.int32)
+    keep = torch.randint(0, 2, (R, VS_P), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return vals * keep
+
+
+def phase_vspace_replay(dev, rng, gen) -> dict:
+    """K4 against its plain version: one W = 4096 window over random
+    frames (R = 256, P = 2^18, kernel layout [R, ROWS, 128])."""
+    import torch
+
+    from node_replication_torch.ops.vspace import (
+        grid_rows,
+        vspace_replay,
+        vspace_replay_plain,
+    )
+
+    W = VS_R * VS_BW
+    opc_np, args_np = vs_window(rng, W, inert=True)
+    opc = torch.from_numpy(opc_np).to(dev)
+    args = torch.from_numpy(args_np).to(dev)
+    frames = random_frames(gen, dev, VS_R).reshape(
+        VS_R, grid_rows(VS_P), 128)
+    call = (opc, args, frames, VS_P, VS_SPAN)
+    got = vspace_replay(*call)
+    want = vspace_replay_plain(*call)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K4 disagrees with its plain version: {err}")
+    del got, want
+    ms = cuda_ms(lambda: vspace_replay(*call), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: vspace_replay_plain(*call), reps=2)
+    # where the kernel's time goes: the state copy alone (an empty
+    # window), then the copy plus staging and scanning an all-NOOP one
+    empty = (opc[:0], args[:0], frames, VS_P, VS_SPAN)
+    copy_ms = cuda_ms(lambda: vspace_replay(*empty), reps=10, warmup=2)
+    noop = (torch.zeros_like(opc), args, frames, VS_P, VS_SPAN)
+    noop_ms = cuda_ms(lambda: vspace_replay(*noop), reps=10, warmup=2)
+    n_bytes, n_ops = vs_bytes(VS_R, W), vs_ops(args_np, opc_np, VS_R)
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 6: K4 R={VS_R} P={VS_P} span={VS_SPAN} W={W}: "
+        f"bit-identical; kernel {ms:.4f} ms (state copy alone "
+        f"{copy_ms:.4f} ms, all-NOOP window {noop_ms:.4f} ms), plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "copy_ms": copy_ms, "noop_window_ms": noop_ms,
+            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
+            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W}
+
+
+def _vs_step_batches(rng, dev, steps):
+    import torch
+
+    out = []
+    for _ in range(steps):
+        opc, args = vs_window(rng, VS_R * VS_BW)
+        rd_opc = rng.choice(np.array([1, 2], np.int32), (VS_R, 1))
+        rd_args = np.zeros((VS_R, 1, 3), np.int32)
+        rd_args[..., 0] = rng.integers(-VS_P, 2 * VS_P, (VS_R, 1))
+        rd_args[..., 1] = rng.integers(1, VS_SPAN + 1, (VS_R, 1))
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            opc.reshape(VS_R, VS_BW), args.reshape(VS_R, VS_BW, 3),
+            rd_opc, rd_args)))
+    return out
+
+
+def phase_vspace_step(dev, rng, card: str, steps: int = 24) -> dict:
+    """The three flat vspace step paths at R = 256, P = 2^18: K4's step,
+    K7a's plan step and the combined torch step, bit-identical; then
+    K7a against its plain version."""
+    import torch
+
+    from node_replication_torch import LogSpec, log_init, make_step
+    from node_replication_torch.core.replica import replicate_state
+    from node_replication_torch.models import make_vspace
+    from node_replication_torch.ops import vspace as vs
+
+    d = make_vspace(VS_P, max_span=VS_SPAN)
+    spec = LogSpec(n_replicas=VS_R, arg_width=3)
+    paths = {
+        "pallas": (vs.make_pallas_vspace_step(
+            VS_P, spec, VS_BW, 1, VS_SPAN, radix=False),
+            lambda: vs.pallas_vspace_state(VS_P, VS_R, False, device=dev)),
+        "plan": (vs.make_pallas_vspace_plan_step(
+            VS_P, spec, VS_BW, 1, VS_SPAN, radix=False, dispatch=d),
+            lambda: replicate_state(d.init_state(dev), VS_R)),
+        "combined": (make_step(d, spec, VS_BW, 1, combined=True),
+                     lambda: replicate_state(d.init_state(dev), VS_R)),
+    }
+    batches = _vs_step_batches(rng, dev, steps)
+    for step, init in paths.values():  # warm each path on throwaway state
+        step(log_init(spec, dev), init(), *batches[0])
+    torch.cuda.synchronize()
+    out = {}
+    for name, (step, init) in paths.items():
+        lg, states, resps = log_init(spec, dev), init(), []
+        vs.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            lg, states, wr, rd = step(lg, states, *b)
+            resps.append((wr, rd))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in (
+            vs.REPLAY_KERNEL, vs.PLAN_KERNEL, vs.FUSED_KERNEL)}
+        if name == "pallas":
+            states = vs.model_view(states, VS_P, False)
+        out[name] = (lg, states, resps, secs, launches)
+    if out["pallas"][4]["vspace_replay"] == 0:
+        raise AssertionError("the K4 step path never launched K4")
+    if out["plan"][4]["vspace_plan_replay"] == 0:
+        raise AssertionError("the plan step path never launched K7a")
+    lc, sc, rc = out["combined"][:3]
+    for name in ("pallas", "plan"):
+        lk, sk, rk = out[name][:3]
+        for f in lk._fields:
+            if not torch.equal(getattr(lk, f), getattr(lc, f)):
+                raise AssertionError(f"{name} step: log field {f} differs")
+        if not torch.equal(sk["frames"], sc["frames"]):
+            raise AssertionError(f"{name} step: replica states differ")
+        for i, (a, b) in enumerate(zip(rk, rc)):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{name} step: responses of step {i} "
+                                     f"differ")
+    n_disp = steps * VS_R * (VS_BW + 1)
+    rates = {k: n_disp / v[3] for k, v in out.items()}
+    launches = {k: v[4] for k, v in out.items()}
+    log(f"phase 7: vspace step paths R={VS_R} P={VS_P} span={VS_SPAN} "
+        f"{VS_BW}w+1r x {steps} steps (ring {spec.capacity}, tail "
+        f"{int(lc.tail)}): bit-identical; dispatches/s (fenced) K4 step "
+        f"{rates['pallas']:.6g}, K7a plan step {rates['plan']:.6g}, "
+        f"combined step {rates['combined']:.6g}, on {card}; launches "
+        f"{launches}")
+    del out, lc, sc, rc
+    # K7a alone against its plain version: one canonical row, W = 4096
+    W = VS_R * VS_BW
+    opc_np, args_np = vs_window(rng, W, inert=True)
+    opc = torch.from_numpy(opc_np).to(dev)
+    args = torch.from_numpy(args_np).to(dev)
+    frames = random_frames(torch.Generator(device=dev).manual_seed(SEED),
+                           dev, 1)
+    touched = (frames % 7 == 0).to(torch.int32)
+    call = (opc, args, frames, touched, VS_P, VS_SPAN)
+    got = vs.vspace_plan_replay(*call)
+    want = vs.vspace_plan_replay_plain(*call)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K7a disagrees with its plain version: {err}")
+    ms = cuda_ms(lambda: vs.vspace_plan_replay(*call), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: vs.vspace_plan_replay_plain(*call), reps=2)
+    # one row of frames and of the touched plane, in and out
+    n_bytes = 4 * (4 * VS_P + 4 * W + W)
+    n_ops = vs_ops(args_np, opc_np, 1)
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 7: K7a R=1 P={VS_P} W={W}: bit-identical; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes} bytes)")
+    return {"steps": steps, "dispatches": n_disp,
+            "dispatches_per_s": rates, "launches": launches,
+            "plan_kernel": {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bytes": n_bytes,
+                            "ops": n_ops, "bound_ms": bound_ms,
+                            "bound_by": by, "W": W}}
+
+
+def np_vspace_apply(frames, op) -> int:
+    """The numpy page table: one write op, in place; its response."""
+    lanes = np.arange(VS_SPAN, dtype=np.int64)
+    is_map = op[0] == 1
+    n = min(max(op[3] if is_map else op[2], 0), VS_SPAN)
+    raw = (op[1] + lanes[:n] + 2 ** 31) % 2 ** 32 - 2 ** 31
+    ok = raw < VS_P
+    pages = raw[ok] % VS_P
+    if is_map:
+        resp = int((frames[pages] == 0).sum())
+        frames[pages] = (op[2] + lanes[:n][ok] + 2 ** 31) % 2 ** 32 - 2 ** 31
+    else:
+        resp = int((frames[pages] != 0).sum())
+        frames[pages] = 0
+    return resp
+
+
+def np_vspace_read(frames, op) -> int:
+    if op[0] == 1:
+        f = int(frames[op[1] % VS_P])
+        return -1 if f == 0 else f
+    lanes = np.arange(min(max(op[2], 0), VS_SPAN), dtype=np.int64)
+    raw = (op[1] + lanes + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return int((frames[raw[raw < VS_P] % VS_P] != 0).sum())
+
+
+def phase_vspace_replica(dev, rng, rounds: int = 72) -> dict:
+    """`NodeReplicated` over the flat vspace at R = 256, P = 2^18: the
+    fused tier (K5) against the combined tier and a numpy page table,
+    with replica R/4 fenced for rounds 30-35; then K5 against its plain
+    version."""
+    import torch
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.models import make_vspace
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops import vspace as vs
+    from node_replication_torch.ops.encoding import encode_ops
+
+    reg = get_registry()
+    reg.enable()
+    fallback = reg.counter("nr.exec.engine.fused_fallback")
+
+    def fleet(engine):
+        return NodeReplicated(make_vspace(VS_P, max_span=VS_SPAN), VS_R,
+                              engine=engine, device=dev)
+
+    vs.reset_launch_counts()
+    nk, nc = fleet("pallas"), fleet("combined")
+    readers = [1, VS_R // 2 - 1, VS_R // 2, VS_R - 1]
+    fenced_rid = VS_R // 4
+    tk = [nk.register(r) for r in readers]
+    tc = [nc.register(r) for r in readers]
+    model = np.zeros(VS_P, np.int64)
+    lat = {"pallas": [], "combined": []}
+    fenced_rounds, fb0 = range(30, 36), fallback.value
+    for rnd in range(rounds):
+        if rnd == fenced_rounds[0]:
+            for nr in (nk, nc):
+                nr.fence_replica(fenced_rid)
+        if rnd == fenced_rounds[-1] + 1:
+            if fallback.value - fb0 < len(fenced_rounds):
+                raise AssertionError("fenced rounds did not take the chain")
+            for nr in (nk, nc):
+                nr.clone_replica_from(fenced_rid, donor=0)
+                nr.unfence_replica(fenced_rid)
+        opc, args = vs_window(rng, VS_ROUND)
+        ops = [(1, int(a[0]), int(a[1]), int(a[2])) if o == 1
+               else (2, int(a[0]), int(a[1])) for o, a in zip(opc, args)]
+        want = [np_vspace_apply(model, op) for op in ops]
+        rid = int(rng.integers(VS_R))
+        if rid == fenced_rid and rnd in fenced_rounds:
+            rid = 0
+        got = {}
+        for name, nr in (("pallas", nk), ("combined", nc)):
+            t0 = time.perf_counter()
+            got[name] = nr.execute_mut_batch(ops, rid)
+            lat[name].append(time.perf_counter() - t0)
+        if not got["pallas"] == got["combined"] == want:
+            raise AssertionError(f"round {rnd}: responses differ")
+        want_tier = "combined" if rnd in fenced_rounds else "pallas_fused"
+        if nk.last_round_tier != want_tier:
+            raise AssertionError(f"round {rnd}: tier {nk.last_round_tier}")
+        for i, r in enumerate(readers):
+            a = args[(rnd + i) % VS_ROUND]
+            op = (1, int(a[0])) if i % 2 else (2, int(a[0]), int(a[2]))
+            x, y = nk.execute(op, tk[i]), nc.execute(op, tc[i])
+            if not x == y == np_vspace_read(model, op):
+                raise AssertionError(f"round {rnd}: read {op} on replica "
+                                     f"{r} differs")
+    launches = {k.name: k.launches for k in (
+        vs.REPLAY_KERNEL, vs.PLAN_KERNEL, vs.FUSED_KERNEL)}
+    nk.sync()
+    nc.sync()
+    if launches["vspace_fused_round"] == 0:
+        raise AssertionError("NodeReplicated never launched K5")
+    sk, sc = nk.stats(), nc.stats()
+    if sk["fused_rounds"] != launches["vspace_fused_round"] \
+            or sk["fused_rounds"] != rounds - len(fenced_rounds):
+        raise AssertionError(f"{sk['fused_rounds']} fused rounds but "
+                             f"{launches} launches")
+    for f in ("appended", "head", "ctail", "min_ltail", "max_lag"):
+        if sk[f] != sc[f]:
+            raise AssertionError(f"stats field {f}: {sk[f]} != {sc[f]}")
+    if not torch.equal(nk.log.ltails, nc.log.ltails):
+        raise AssertionError("replica cursors differ")
+    if not torch.equal(nk.states["frames"], nc.states["frames"]):
+        raise AssertionError("replica states differ")
+    if not (nk.replicas_equal() and nc.replicas_equal()):
+        raise AssertionError("replicas did not converge")
+    if not np.array_equal(nk.states["frames"][0].cpu().numpy(), model):
+        raise AssertionError("final frames differ from the numpy model")
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in lat.items()}
+    log(f"phase 8: NodeReplicated vspace R={VS_R} P={VS_P} span="
+        f"{VS_SPAN}: {rounds} rounds of {VS_ROUND} ops + {len(readers)} "
+        f"reads each (ring {nk.spec.capacity}, tail {sk['appended']}), "
+        f"rounds {fenced_rounds[0]}-{fenced_rounds[-1]} fenced on the "
+        f"chain; identical to each other and the numpy page table; round "
+        f"latency (median, fenced by the response readback) pallas "
+        f"{med['pallas']:.3f} ms, combined {med['combined']:.3f} ms; "
+        f"launches {launches}")
+    # K5 alone against its plain version, on the fleet's own log/state
+    opc_np, args_np = vs_window(rng, VS_ROUND, inert=True)
+    opcodes, args, count = encode_ops(
+        [(int(o), *map(int, a)) for o, a in zip(opc_np, args_np)], 3,
+        device=dev)
+    lg, frames = nk.log, nk.states["frames"]
+    call = (nk.spec, lg.tail, count, opcodes, args, lg.opcodes, lg.args,
+            frames, VS_P, VS_SPAN)
+    got = vs.vspace_fused_round(*call)
+    want = vs.vspace_fused_round_plain(*call)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K5 disagrees with its plain version: {err}")
+    del got, want
+    ms = cuda_ms(lambda: vs.vspace_fused_round(*call), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: vs.vspace_fused_round_plain(*call), reps=2)
+    L = nk.spec.capacity
+    n_bytes = vs_bytes(VS_R, VS_ROUND, extra=4 * 2 * L * 4)
+    n_ops = vs_ops(args_np, opc_np, VS_R)
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 8: K5 R={VS_R} P={VS_P} W={VS_ROUND} ring={L}: "
+        f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    return {"rounds": rounds, "round_ms": med, "launches": launches,
+            "fused_rounds": sk["fused_rounds"],
+            "fused_fallback": fallback.value - fb0,
+            "fused_kernel": {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bytes": n_bytes,
+                             "ops": n_ops, "bound_ms": bound_ms,
+                             "bound_by": by, "W": VS_ROUND,
+                             "capacity": L}}
+
+
 def main() -> int:
     import torch
 
@@ -418,27 +807,44 @@ def main() -> int:
         res["step"] = phase_step(dev, rng, smi)
         torch.cuda.empty_cache()
         res["replica"] = phase_replica(dev, rng)
+        torch.cuda.empty_cache()
+        res["vspace_replay"] = phase_vspace_replay(dev, rng, gen)
+        torch.cuda.empty_cache()
+        res["vspace_step"] = phase_vspace_step(dev, rng, smi)
+        torch.cuda.empty_cache()
+        res["vspace_replica"] = phase_vspace_replica(dev, rng)
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    src = "node_replication_torch/csrc/hashmap_replay.cu"
-    ref = "node_replication_tpu/ops/pallas_replay.py"
-    kernels = []
-    for kname, phase, line in (("hashmap_replay", "replay", 79),
-                               ("hashmap_fused_round", "fused", 284)):
-        p = res[phase]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src,
-            "replaces": f"{ref}:{line}",
-            "launches": (res["step"]["launches"][kname]
-                         + res["replica"]["launches"][kname]),
-            "max_abs_err": p["max_abs_err"], "ms": p["ms"],
-            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-            "bound_by": p["bound_by"], "library_ms": None,
-        })
+    hm_src = "node_replication_torch/csrc/hashmap_replay.cu"
+    hm_ref = "node_replication_tpu/ops/pallas_replay.py"
+    vs_src = "node_replication_torch/csrc/vspace_replay.cu"
+    vs_ref = "node_replication_tpu/ops/pallas_vspace.py"
+    hm_launches = lambda k: (res["step"]["launches"][k]
+                             + res["replica"]["launches"][k])
+    table = [
+        ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
+         hm_launches("hashmap_replay")),
+        ("hashmap_fused_round", hm_src, f"{hm_ref}:284", res["fused"],
+         hm_launches("hashmap_fused_round")),
+        ("vspace_replay", vs_src, f"{vs_ref}:114", res["vspace_replay"],
+         res["vspace_step"]["launches"]["pallas"]["vspace_replay"]),
+        ("vspace_plan_replay", vs_src, f"{vs_ref}:126",
+         res["vspace_step"]["plan_kernel"],
+         res["vspace_step"]["launches"]["plan"]["vspace_plan_replay"]),
+        ("vspace_fused_round", vs_src, f"{vs_ref}:901",
+         res["vspace_replica"]["fused_kernel"],
+         res["vspace_replica"]["launches"]["vspace_fused_round"]),
+    ]
+    kernels = [{
+        "name": kname, "route": "cuda", "source": src, "replaces": ref,
+        "launches": launches, "max_abs_err": p["max_abs_err"],
+        "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+        "bound_by": p["bound_by"], "library_ms": None,
+    } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(
         json.dumps({"kernels": kernels, **res}, indent=1))

@@ -36,17 +36,13 @@
 // sequence of dependent loads (latency), hidden by the warps of the
 // other partitions and columns.
 //
-// K1's append. The TPU kernel copies two pre-blended ring row spans by
-// DMA because Mosaic cannot index the lane axis dynamically, and the
-// reference chunks the replica axis into calls of at most MAX_GRID grid
-// steps (ops/pallas_chunk.py) because of an aliased-block pipeline race
-// in Mosaic. Neither exists here: every thread of the grid takes ring
-// slots s in a grid-stride pass and writes out[s] = batch[d] when
-// d = (s - tail) & mask < count, else out[s] = in[s] — each slot
-// written once, one launch per round. `tail` is read from its device
-// scalar, so a round needs no host sync. The replay reads the batch
-// from its input, not from the ring, so the append and the replay do
-// not depend on each other inside the launch.
+// K1's append is ring_append.cuh's grid-stride pass (each ring slot
+// written once, `tail` read from its device scalar). The reference also
+// chunks the replica axis into calls of at most MAX_GRID grid steps
+// (ops/pallas_chunk.py) because of an aliased-block pipeline race in
+// Mosaic; that does not exist here: one launch per round. The replay
+// reads the batch from its input, not from the ring, so the append and
+// the replay do not depend on each other inside the launch.
 //
 // Fenced lanes (FENCED) replay like every other lane, so their
 // responses are computed; their state rows are then restored from the
@@ -58,6 +54,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ring_append.cuh"
 
 namespace {
 
@@ -93,25 +91,14 @@ hashmap_round_kernel(
   const bool live = r < n_rep;
 
   if (APPEND) {
-    const int64_t mask = static_cast<int64_t>(cap) - 1;
-    const int64_t tail_slot = (*tail_ptr) & mask;
     const int64_t gtid =
         (static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
             nthreads + tid;
     const int64_t gstride =
         static_cast<int64_t>(gridDim.x) * gridDim.y * nthreads;
-    for (int64_t s = gtid; s < cap; s += gstride) {
-      const int64_t d = (s - tail_slot) & mask;
-      if (d < count) {
-        ring_opc_out[s] = opc[d];
-        for (int a = 0; a < arg_w; ++a)
-          ring_args_out[s * arg_w + a] = batch_args[d * arg_w + a];
-      } else {
-        ring_opc_out[s] = ring_opc_in[s];
-        for (int a = 0; a < arg_w; ++a)
-          ring_args_out[s * arg_w + a] = ring_args_in[s * arg_w + a];
-      }
-    }
+    ring_append_pass(gtid, gstride, tail_ptr, count, cap, arg_w, opc,
+                     batch_args, ring_opc_in, ring_args_in, ring_opc_out,
+                     ring_args_out);
   }
 
   if (live) {

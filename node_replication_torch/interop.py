@@ -11,7 +11,9 @@ imports the JAX package.
   int64 cursors `head`/`tail`/`ctail`/`ltails`;
 - model-layout hashmap states: `values int32[R, K]`, `present
   bool[R, K]`;
-- kernel-layout planes: `values`/`present int32[Kp, R]`.
+- kernel-layout planes: `values`/`present int32[Kp, R]`;
+- flat vspace states, `frames int32[R, P]` in the model layout or
+  `int32[R, ROWS, 128]` in the kernel layout (`ops/vspace.py`).
 """
 
 from __future__ import annotations
@@ -84,3 +86,20 @@ def planes_from_numpy(planes, device=None) -> dict:
 
 def planes_to_numpy(planes: dict) -> dict:
     return _to_numpy(planes)
+
+
+def vspace_from_numpy(states, device=None, layout: str = "model") -> dict:
+    """Flat vspace states `{"frames"}` as tensors on `device`:
+    `int32[R, P]` for `layout="model"`, `int32[R, ROWS, 128]` for
+    `layout="kernel"`."""
+    ndim = {"model": 2, "kernel": 3}[layout]
+    frames = np.asarray(_fields(states, ["frames"])["frames"])
+    if frames.ndim != ndim or (layout == "kernel"
+                               and frames.shape[-1] != 128):
+        raise ValueError(f"frames of shape {frames.shape} are not the "
+                         f"{layout} layout")
+    return _to_torch({"frames": frames}, {"frames": np.int32}, device)
+
+
+def vspace_to_numpy(states: dict) -> dict:
+    return _to_numpy(states)

@@ -1,5 +1,5 @@
-"""Models of the port (the hashmap for now; the others follow the
-order in ROADMAP.md queue 1)."""
+"""Models of the port (the hashmap and the flat vspace so far; the
+others follow the order in ROADMAP.md queue 1)."""
 
 from node_replication_torch.models.hashmap import (
     ABSENT,
@@ -8,5 +8,15 @@ from node_replication_torch.models.hashmap import (
     HM_REMOVE,
     make_hashmap,
 )
+from node_replication_torch.models.vspace import (
+    UNMAPPED,
+    VS_IDENTIFY,
+    VS_MAP,
+    VS_RESOLVED,
+    VS_UNMAP,
+    make_vspace,
+)
 
-__all__ = ["ABSENT", "HM_GET", "HM_PUT", "HM_REMOVE", "make_hashmap"]
+__all__ = ["ABSENT", "HM_GET", "HM_PUT", "HM_REMOVE", "make_hashmap",
+           "UNMAPPED", "VS_IDENTIFY", "VS_MAP", "VS_RESOLVED", "VS_UNMAP",
+           "make_vspace"]

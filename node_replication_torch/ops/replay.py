@@ -20,7 +20,7 @@ Each wrapper takes its plain PyTorch version (a Python loop over the
 window doing row operations on the planes) for CPU tensors ONLY; for
 CUDA tensors it launches the kernel or raises, and for any other
 device it raises. The kernels are built with nvcc into a shared library
-with a plain C interface at first use (`build_library`), loaded with
+with a plain C interface at first use (`ops/kernel_lib.py`), loaded with
 ctypes, and launched on the current stream; each launch's
 `cudaGetLastError()` is checked, and each wrapper counts its launches
 (`REPLAY_KERNEL.launches`, `FUSED_KERNEL.launches`).
@@ -29,15 +29,16 @@ ctypes, and launched on the current stream; each launch's
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from node_replication_torch.core.log import LogSpec, log_append
+from node_replication_torch.ops.kernel_lib import (
+    Kernel,
+    expect,
+    library,
+    route,
+)
 from node_replication_torch.ops.ring import (
     FusedEngineHost,
     append_window_planes,
@@ -45,13 +46,6 @@ from node_replication_torch.ops.ring import (
     fused_window_ok,
 )
 from node_replication_torch.utils.device import resolve_device
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hashmap_replay.cu"
-BUILD_DIR = _PKG / "csrc" / "build"
-_LIB_NAME = "libnr_hashmap_replay.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Key partitions per replica column (see the kernel's header): a
 # multiple of the kernel's warps per block.
@@ -62,18 +56,8 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-class _Kernel:
-    """A kernel's launch count: plain integer, +1 per launch."""
-
-    __slots__ = ("name", "launches")
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-
-REPLAY_KERNEL = _Kernel("hashmap_replay")
-FUSED_KERNEL = _Kernel("hashmap_fused_round")
+REPLAY_KERNEL = Kernel("hashmap_replay")
+FUSED_KERNEL = Kernel("hashmap_fused_round")
 
 
 def reset_launch_counts() -> None:
@@ -81,90 +65,26 @@ def reset_launch_counts() -> None:
     FUSED_KERNEL.launches = 0
 
 
-_lib = None
-_lib_lock = threading.Lock()
-#: nvcc's output of the last build (register and shared-memory report)
-BUILD_LOG = ""
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nr_hashmap_warps_per_block.argtypes = []
+    lib.nr_hashmap_warps_per_block.restype = i
+    lib.nr_hashmap_replay.argtypes = [
+        p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+    lib.nr_hashmap_replay.restype = i
+    lib.nr_hashmap_fused_round.argtypes = [
+        p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p,
+        p]
+    lib.nr_hashmap_fused_round.restype = i
+    if N_PART % lib.nr_hashmap_warps_per_block():
+        raise RuntimeError("N_PART must be a multiple of the "
+                           "kernel's warps per block")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError(
-        "nvcc not found: the CUDA kernels are built with the CUDA "
-        "toolkit at first use"
-    )
-
-
-def build_library(force: bool = False) -> ctypes.CDLL:
-    """Build (when the source is newer than the library, or `force`)
-    and load the kernels' shared library from `csrc/`."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None and not force:
-            return _lib
-        out = BUILD_DIR / _LIB_NAME
-        stale = (not out.exists()
-                 or out.stat().st_mtime < SOURCE.stat().st_mtime)
-        if force or stale:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f"{_LIB_NAME}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {SOURCE.name}:\n{BUILD_LOG}"
-                )
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nr_hashmap_warps_per_block.argtypes = []
-        lib.nr_hashmap_warps_per_block.restype = i
-        lib.nr_hashmap_replay.argtypes = [
-            p, p, p, i, i, i, i, i, p, p, p, p, p, p]
-        lib.nr_hashmap_replay.restype = i
-        lib.nr_hashmap_fused_round.argtypes = [
-            p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p,
-            p]
-        lib.nr_hashmap_fused_round.restype = i
-        if N_PART % lib.nr_hashmap_warps_per_block():
-            raise RuntimeError("N_PART must be a multiple of the "
-                               "kernel's warps per block")
-        _lib = lib
-        return lib
-
-
-def _route(*tensors) -> str:
-    """'cpu' when every tensor is on the CPU (plain version), 'cuda'
-    when every tensor is on one CUDA device (the kernel); anything else
-    raises — there is no fallback from one to the other."""
-    devs = {t.device for t in tensors}
-    kinds = {d.type for d in devs}
-    if kinds == {"cpu"}:
-        return "cpu"
-    if kinds == {"cuda"} and len(devs) == 1:
-        return "cuda"
-    raise ValueError(
-        f"tensors on {sorted(str(d) for d in devs)}: the kernel takes "
-        f"tensors on one CUDA device, its plain version CPU tensors"
-    )
-
-
-def _expect(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+def _library() -> ctypes.CDLL:
+    """The kernels' library (`csrc/hashmap_replay.cu`), built at first
+    use by `ops/kernel_lib.py`."""
+    return library("hashmap_replay", _bind)
 
 
 def _check_planes(opcodes, values, present, resps_rows):
@@ -172,9 +92,9 @@ def _check_planes(opcodes, values, present, resps_rows):
         raise ValueError(f"values: expected [Kp, R], got "
                          f"{tuple(values.shape)}")
     kp, R = values.shape
-    _expect(opcodes, "opcodes", (resps_rows,), torch.int32)
-    _expect(values, "values", (kp, R), torch.int32)
-    _expect(present, "present", (kp, R), torch.int32)
+    expect(opcodes, "opcodes", (resps_rows,), torch.int32)
+    expect(values, "values", (kp, R), torch.int32)
+    expect(present, "present", (kp, R), torch.int32)
     return kp, R
 
 
@@ -214,14 +134,14 @@ def hashmap_replay(opcodes, keys, vals, values, present, n_keys: int):
     int32[W, R])` (new tensors)."""
     W = opcodes.shape[0]
     kp, R = _check_planes(opcodes, values, present, W)
-    _expect(keys, "keys", (W,), torch.int32)
-    _expect(vals, "vals", (W,), torch.int32)
+    expect(keys, "keys", (W,), torch.int32)
+    expect(vals, "vals", (W,), torch.int32)
     if not 0 < n_keys <= kp:
         raise ValueError(f"n_keys {n_keys} outside (0, Kp={kp}]")
-    if _route(opcodes, keys, vals, values, present) == "cpu":
+    if route(opcodes, keys, vals, values, present) == "cpu":
         return hashmap_replay_plain(opcodes, keys, vals, values, present,
                                     n_keys)
-    lib = build_library()
+    lib = _library()
     v_out = torch.empty_like(values)
     p_out = torch.empty_like(present)
     resps = torch.empty((W, R), dtype=torch.int32, device=values.device)
@@ -271,10 +191,10 @@ def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
     A = spec.arg_width
     L = spec.capacity
     kp, R = _check_planes(opcodes, values, present, W)
-    _expect(args, "args", (W, A), torch.int32)
-    _expect(ring_opc, "ring_opc", (L,), torch.int32)
-    _expect(ring_args, "ring_args", (L, A), torch.int32)
-    _expect(tail, "tail", (), torch.int64)
+    expect(args, "args", (W, A), torch.int32)
+    expect(ring_opc, "ring_opc", (L,), torch.int32)
+    expect(ring_args, "ring_args", (L, A), torch.int32)
+    expect(tail, "tail", (), torch.int64)
     if A < 2:
         raise ValueError("the hashmap needs arg_width >= 2 (key, value)")
     if not (0 <= count <= W and fused_window_ok(L, W)):
@@ -284,13 +204,13 @@ def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
         raise ValueError(f"n_keys {n_keys} outside (0, Kp={kp}]")
     tensors = [tail, opcodes, args, ring_opc, ring_args, values, present]
     if fenced is not None:
-        _expect(fenced, "fenced", (R,), torch.int32)
+        expect(fenced, "fenced", (R,), torch.int32)
         tensors.append(fenced)
-    if _route(*tensors) == "cpu":
+    if route(*tensors) == "cpu":
         return hashmap_fused_round_plain(
             spec, tail, count, opcodes, args, ring_opc, ring_args, values,
             present, n_keys, fenced)
-    lib = build_library()
+    lib = _library()
     ro = torch.empty_like(ring_opc)
     ra = torch.empty_like(ring_args)
     v_out = torch.empty_like(values)

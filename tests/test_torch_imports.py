@@ -16,10 +16,12 @@ from pathlib import Path
 import pytest
 import torch
 
+import node_replication_torch.ops.kernel_lib as kernel_lib
 import node_replication_torch.ops.replay as replay
+import node_replication_torch.ops.vspace as vspace
 from node_replication_torch.core.log import LogSpec, log_init
 from node_replication_torch.core.replica import NodeReplicated
-from node_replication_torch.models import make_hashmap
+from node_replication_torch.models import make_hashmap, make_vspace
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
     REPLAY_KERNEL,
@@ -87,6 +89,18 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     with pytest.raises(NoCudaDeviceError):
         FusedHashmapEngine(8, LogSpec(n_replicas=2, capacity=256,
                                       gc_slack=64))
+    spec = LogSpec(n_replicas=2, capacity=512, gc_slack=64)
+    for entry in (
+        lambda: NodeReplicated(make_vspace(512, 8), 2),
+        lambda: NodeReplicated(make_vspace(512, 8), 2, engine="pallas",
+                               log_entries=512, gc_slack=64),
+        lambda: make_vspace(512, 8).make_state(),
+        lambda: make_vspace(512, 8).fused_factory(spec),
+        lambda: vspace.pallas_vspace_state(512, 2, False),
+        lambda: vspace.FusedVspaceEngine(512, 8, spec),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
     # the caller asking for the CPU is the only way onto it
     nr = NodeReplicated(make_hashmap(8), 2, log_entries=256, gc_slack=64,
                         device="cpu")
@@ -107,6 +121,9 @@ def no_plain(monkeypatch):
 
     monkeypatch.setattr(replay, "hashmap_replay_plain", boom)
     monkeypatch.setattr(replay, "hashmap_fused_round_plain", boom)
+    for name in ("vspace_replay_plain", "vspace_plan_replay_plain",
+                 "vspace_fused_round_plain", "_replay_plain"):
+        monkeypatch.setattr(vspace, name, boom)
 
 
 def test_replay_wrapper_refuses_non_cpu_tensors(no_plain):
@@ -132,11 +149,59 @@ def test_fused_wrapper_refuses_non_cpu_tensors(no_plain):
     assert FUSED_KERNEL.launches == before
 
 
+def _vs_window(device, W=3, R=2, P=512):
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+    return z(W), z(W, 3), z(R, P)
+
+
+def test_vspace_wrappers_refuse_non_cpu_tensors(no_plain):
+    counts = lambda: [k.launches for k in (
+        vspace.REPLAY_KERNEL, vspace.PLAN_KERNEL, vspace.FUSED_KERNEL)]
+    before = counts()
+    opc, args, fr = _vs_window("meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_replay(opc, args, fr, 512, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_plan_replay(opc, args, fr[:1], fr[:1], 512, 8)
+    spec = LogSpec(n_replicas=2, capacity=512, gc_slack=64)
+    log = log_init(spec, "meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_fused_round(spec, log.tail, 2, opc, args,
+                                  log.opcodes, log.args, fr, 512, 8)
+    # one tensor off the CPU is enough to refuse the mix
+    opc, args, fr = _vs_window("cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_replay(opc, args.to("meta"), fr, 512, 8)
+    assert counts() == before
+
+
+def test_vspace_steps_route_non_cpu_tensors_to_the_kernels(no_plain):
+    # both step paths hand tensors that are not on the CPU to a kernel
+    # wrapper, which refuses them here: the plain version is not reached
+    P, R, S = 512, 2, 8
+    spec = LogSpec(n_replicas=R, capacity=512, gc_slack=64)
+    meta = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")
+    batch = (meta(R, 1), meta(R, 1, 3), meta(R, 1), meta(R, 1, 3))
+    steps = (
+        (vspace.make_pallas_vspace_step(P, spec, 1, 1, S, radix=False),
+         {"frames": meta(R, vspace.grid_rows(P), 128)}),
+        (vspace.make_pallas_vspace_plan_step(P, spec, 1, 1, S, radix=False,
+                                             dispatch=make_vspace(P, S)),
+         {"frames": meta(R, P)}),
+    )
+    for step, states in steps:
+        with pytest.raises(ValueError, match="CUDA device"):
+            step(log_init(spec, "meta"), states, *batch)
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     # no toolkit: the build raises rather than handing back anything
-    monkeypatch.setattr(replay, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(replay, "_lib", None)
-    monkeypatch.setattr(replay.shutil, "which", lambda name: None)
-    monkeypatch.setattr(replay.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(kernel_lib, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernel_lib, "_libs", {})
+    monkeypatch.setattr(kernel_lib.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernel_lib.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        replay.build_library()
+        kernel_lib.build_all()
+    # every kernel source is built, each into its own library
+    assert {p.name for p in kernel_lib.sources()} == {
+        "hashmap_replay.cu", "vspace_replay.cu"}

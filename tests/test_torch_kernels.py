@@ -4,8 +4,10 @@ Marked `cuda`: each test skips with a reason where there is no CUDA
 device (decided inside the fixture, never at import). The real check at
 the flagship shapes is `chip_smoke.py`; these cover the edges at small
 shapes: replica counts that are not a multiple of a warp, windows past
-one shared-memory chunk, negative keys, ring wrap, fenced lanes. Every
-value is an integer, so the tolerance is 0.
+one shared-memory chunk, negative keys, ring wrap, fenced lanes, and
+for the flat vspace kernels spans that end at P-1 or wrap through 0,
+int32 wrap near 2^31, n = 0, both state layouts. Every value is an
+integer, so the tolerance is 0.
 
 This file imports torch and the port only, so it runs on a machine
 without JAX: `python -m pytest --noconftest tests/test_torch_kernels.py`.
@@ -99,3 +101,113 @@ def test_fused_kernel_equals_plain_across_ring_wrap(dev, fenced):
         tail += count
     assert FUSED_KERNEL.launches == before + 12
     assert tail > 256 + 200
+
+
+# ------------------------------------------------- flat vspace (K4, K7a, K5)
+
+
+def _vs_window(rng, W, P, S, dev):
+    """Spans ending at P-1 and wrapping through 0, vpages near 2^31,
+    pframes near 2^31 (int32 wrap of pframe + lane), n = 0, n < 0,
+    n > max_span, NOOP and unknown opcodes."""
+    opc = rng.choice(np.array([0, 1, 1, 2, 7, -1], np.int32), W)
+    args = np.stack([rng.integers(-P, 2 * P, W),
+                     rng.integers(1, 1 << 31, W),
+                     rng.integers(-2, S + 4, W)], axis=1).astype(np.int32)
+    k = max(1, W // 8)
+    at = rng.choice(W, 5 * k if 5 * k <= W else W, replace=False)
+    at = np.array_split(at, 5)
+    args[at[0], 0] = P - 1 - rng.integers(0, S, len(at[0]))  # end at P-1
+    args[at[1], 0] = -rng.integers(1, S + 1, len(at[1]))      # wrap via 0
+    args[at[2], 0] = 2 ** 31 - 1 - rng.integers(0, S, len(at[2]))
+    args[at[3], 1] = 2 ** 31 - 1 - rng.integers(0, S, len(at[3]))
+    args[at[4], 2] = 0
+    return (torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev))
+
+
+def _vs_frames(rng, shape, dev):
+    f = rng.integers(1, 1 << 30, shape).astype(np.int32)
+    f[rng.random(shape) < 0.5] = 0
+    return torch.from_numpy(f).to(dev)
+
+
+@pytest.mark.parametrize("R,P,S,W,layout", [
+    (1, 300, 5, 7, "model"), (3, 600, 8, 300, "kernel"),
+    (33, 4096, 64, 2500, "model"), (256, 1 << 14, 64, 1100, "kernel"),
+])
+def test_vspace_replay_kernel_equals_plain(dev, R, P, S, W, layout):
+    from node_replication_torch.ops.vspace import (
+        REPLAY_KERNEL,
+        grid_rows,
+        vspace_replay,
+        vspace_replay_plain,
+    )
+
+    rng = np.random.default_rng(R + W)
+    opc, args = _vs_window(rng, W, P, S, dev)
+    shape = (R, P) if layout == "model" else (R, grid_rows(P), 128)
+    frames = _vs_frames(rng, shape, dev)  # the padding is copied through
+    before = REPLAY_KERNEL.launches
+    got = vspace_replay(opc, args, frames, P, S)
+    torch.cuda.synchronize()
+    want = vspace_replay_plain(opc, args, frames, P, S)
+    assert REPLAY_KERNEL.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,S,W", [(300, 5, 33), (1 << 18, 64, 4096)])
+def test_vspace_plan_kernel_equals_plain(dev, P, S, W):
+    from node_replication_torch.ops.vspace import (
+        PLAN_KERNEL,
+        vspace_plan_replay,
+        vspace_plan_replay_plain,
+    )
+
+    rng = np.random.default_rng(P + W)
+    opc, args = _vs_window(rng, W, P, S, dev)
+    frames = _vs_frames(rng, (1, P), dev)
+    touched = torch.from_numpy(
+        (rng.random((1, P)) < 0.1).astype(np.int32)).to(dev)
+    before = PLAN_KERNEL.launches
+    got = vspace_plan_replay(opc, args, frames, touched, P, S)
+    torch.cuda.synchronize()
+    want = vspace_plan_replay_plain(opc, args, frames, touched, P, S)
+    assert PLAN_KERNEL.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev):
+    from node_replication_torch.ops.vspace import (
+        FUSED_KERNEL,
+        vspace_fused_round,
+        vspace_fused_round_plain,
+    )
+
+    P, S, R, W = 600, 8, 37, 96
+    spec = LogSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
+    rng = np.random.default_rng(3)
+    ring_opc = torch.from_numpy(
+        rng.integers(0, 3, 256).astype(np.int32)).to(dev)
+    ring_args = torch.from_numpy(
+        rng.integers(-9, 9, (256, 3)).astype(np.int32)).to(dev)
+    frames = _vs_frames(rng, (R, P), dev)
+    kern = plain = (ring_opc, ring_args, frames)
+    tail = 230  # the first round already wraps the 256-slot ring
+    before = FUSED_KERNEL.launches
+    for rnd in range(10):
+        count = int(rng.integers(0, W + 1))
+        opc, args = _vs_window(rng, W, P, S, dev)
+        opc[count:] = 0
+        t = torch.tensor(tail, dtype=torch.int64, device=dev)
+        out_k = vspace_fused_round(spec, t, count, opc, args, *kern, P, S)
+        out_p = vspace_fused_round_plain(spec, t, count, opc, args,
+                                         *plain, P, S)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b), rnd
+        kern, plain = out_k[:3], out_p[:3]
+        tail += count
+    assert FUSED_KERNEL.launches == before + 10
+    assert tail > 256 + 230
