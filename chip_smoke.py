@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card; a few minutes
 
-Two models, end to end, from numpy seeds. The replicated hashmap at the
+Four models, end to end, from numpy seeds. The replicated hashmap at the
 flagship width (R = 4096 replicas, K = 10000 keys):
 
 1. build every CUDA source under `node_replication_torch/csrc/` (one
@@ -33,9 +33,34 @@ npages = 1 + pframe % 64), at R = 256:
    replica fenced (they take the chain), identical to each other and
    to a numpy page table; then K5 against its plain version.
 
+The radix vspace (4-level page table, the default model of
+`benches/vspace.py`) at the same long-log deployment and R = 256, with
+its write mix MAP:MAP_DEVICE:UNMAP:UNMAP_TABLE = 3:1:1:1:
+
+9. the radix replay kernel (K6) against its plain version, W = 4096,
+   over random pt and PD bits, with PDPT/PML4 set and unset, inert
+   opcodes, vpages below 0 and past P, n <= 0 maps, spans crossing a
+   PD boundary or passing P, and teardowns of unmapped regions;
+10. the step paths: 24 steps of W = 4096 through
+   `make_pallas_vspace_step(radix=True)` (K6),
+   `make_pallas_vspace_plan_step(radix=True)` (K7b) and
+   `make_step(combined=True)`, with IDENTIFY/RESOLVED/TABLES reads,
+   bit-identical, replica 0 equal to a numpy radix page table of the
+   stream; then K7b against its plain version.
+
+The open-addressing map at `benches/hashmap.py --sparse --full` (2^22
+keys, N = 2^23 slots, probe 16, 50% PUT/REMOVE, batch 32), R = 16:
+
+11. a pre-fill of 2^21 distinct keys through K3 (windows of 2^16), every
+   key read back by GET; 24 steps of `make_pallas_oahashmap_step` (K3)
+   against the scan step from that state, bit-identical; then K3
+   against its plain version at W = 4096, half the keys present, 17
+   keys sharing one home (window-full drops) and windows that wrap.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
-are zeroed just before each main-path phase (4, 5, 7, 8) and read just
-after; a kernel that its path never launched fails the run. The last
+are zeroed just before each main-path phase (4, 5, 7, 8, 10, 11) and
+read just after; a kernel that its path never launched fails the run.
+The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 "device": ...}`; any failure exits non-zero before them. Without a
 CUDA device, or without the package beside this script, it exits
@@ -62,6 +87,11 @@ W_ROUND = 256       # K1's window: one combiner round of 256 ops
 VS_P, VS_SPAN, VS_R = 1 << 18, 64, 256  # flat vspace, long-log config
 VS_BW = 16          # writes per replica per step: W = 4096 a step
 VS_ROUND = 1024     # ops per NodeReplicated round
+# open-addressing map, `benches/hashmap.py --sparse --full`
+OA_KEYS, OA_N, OA_PROBE, OA_R = 1 << 22, 1 << 23, 16, 16
+OA_BW = OA_BR = 16  # batch 32: 50% writes
+OA_FILL, OA_FILL_W = 1 << 21, 1 << 16  # pre-fill keys, per K3 launch
+OA_W = 4096         # K3's window against its plain version
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -774,6 +804,490 @@ def phase_vspace_replica(dev, rng, rounds: int = 72) -> dict:
                              "capacity": L}}
 
 
+# ------------------------------------------------------- radix vspace
+
+
+def rx_window(rng, W, inert=False):
+    """A window of the radix long-log mix (`benches/vspace.py:115`):
+    MAP, MAP, MAP, MAP_DEVICE, UNMAP, UNMAP_TABLE uniform, vpage in
+    [0, P), pframe in [0, 2^31), npages = 1 + pframe % 64 (UNMAP's span
+    rides args[1]). `inert` adds NOOP and unknown opcodes, vpages below
+    0 and past P, maps with n <= 0, spans crossing a PD boundary or
+    passing P, and teardowns of regions never mapped."""
+    opc = rng.choice(np.array([1, 1, 1, 2, 3, 4], np.int32), W)
+    args = np.zeros((W, 3), np.int32)
+    args[:, 0] = rng.integers(0, VS_P, W)
+    args[:, 1] = rng.integers(0, 1 << 31, W)
+    args[:, 2] = 1 + args[:, 1] % VS_SPAN
+    if inert:
+        at = np.array_split(rng.choice(W, W // 4, replace=False), 6)
+        opc[at[0]] = rng.choice(np.array([0, 5, -1], np.int32), len(at[0]))
+        args[at[1], 0] = rng.integers(-VS_P, 0, len(at[1])) + np.where(
+            rng.random(len(at[1])) < 0.5, 0, 3 * VS_P)
+        opc[at[2]] = 1
+        args[at[2], 2] = rng.integers(-2, 1, len(at[2]))
+        args[at[3], 0] = (512 * rng.integers(1, VS_P // 512, len(at[3]))
+                          - rng.integers(1, VS_SPAN, len(at[3])))
+        args[at[4], 0] = VS_P - rng.integers(1, VS_SPAN, len(at[4]))
+        opc[at[5]] = 4  # mostly regions no MAP of this window touched
+    return opc, args
+
+
+def rx_ops(args_np, opc_np, R):
+    """Integer operations the window needs: about 4 per acting page
+    (load, walk, count, store) on each replica: a span's pages below P,
+    a teardown's region."""
+    vs = args_np[:, 0].astype(np.int64) % VS_P
+    n = np.where(opc_np == 3, args_np[:, 1], args_np[:, 2]).clip(0, VS_SPAN)
+    span = np.minimum(vs + n, VS_P) - vs
+    pages = np.where((opc_np >= 1) & (opc_np <= 3), span, 0)
+    pages = np.where(opc_np == 4, 512, pages)
+    return 4 * int(pages.sum()) * R
+
+
+def random_levels(gen, dev, upper: bool):
+    """Random PD bits; PDPT and PML4 all set (`upper`) or all unset."""
+    import torch
+
+    from node_replication_torch.ops.vspace import levels
+
+    l2, l3, _ = levels(VS_P)
+    pd = torch.randint(0, 2, (l2,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    fill = int(upper)
+    return [pd, torch.full((l3,), fill, dtype=torch.int32, device=dev),
+            torch.full((1,), fill, dtype=torch.int32, device=dev)]
+
+
+def phase_radix_replay(dev, rng, gen) -> dict:
+    """K6 against its plain version: a W = 4096 window over random pt
+    (R = 256, P = 2^18, kernel layout [R, ROWS, 128]) and random PD bits,
+    once with PDPT/PML4 set and once with them unset."""
+    import torch
+
+    from node_replication_torch.ops.vspace import (
+        grid_rows,
+        vspace_radix_replay,
+        vspace_radix_replay_plain,
+    )
+
+    W = VS_R * VS_BW
+    pt = random_frames(gen, dev, VS_R).reshape(VS_R, grid_rows(VS_P), 128)
+    err = 0
+    for upper in (True, False):
+        opc_np, args_np = rx_window(rng, W, inert=True)
+        opc = torch.from_numpy(opc_np).to(dev)
+        args = torch.from_numpy(args_np).to(dev)
+        call = (opc, args, pt, *random_levels(gen, dev, upper), VS_P,
+                VS_SPAN)
+        got = vspace_radix_replay(*call)
+        want = vspace_radix_replay_plain(*call)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K6 disagrees with its plain version "
+                                 f"(PDPT/PML4 set: {upper}): {e}")
+        err = max(err, e)
+        if upper:
+            timed, timed_np = call, (opc_np, args_np)
+    del got, want
+    ms = cuda_ms(lambda: vspace_radix_replay(*timed), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: vspace_radix_replay_plain(*timed), reps=2)
+    empty = (timed[0][:0], timed[1][:0], *timed[2:])
+    copy_ms = cuda_ms(lambda: vspace_radix_replay(*empty), reps=10,
+                      warmup=2)
+    noop = (torch.zeros_like(timed[0]), *timed[1:])
+    noop_ms = cuda_ms(lambda: vspace_radix_replay(*noop), reps=10,
+                      warmup=2)
+    n_bytes, n_ops = vs_bytes(VS_R, W), rx_ops(timed_np[1], timed_np[0],
+                                               VS_R)
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 9: K6 R={VS_R} P={VS_P} span={VS_SPAN} W={W}: "
+        f"bit-identical (PDPT/PML4 set and unset); kernel {ms:.4f} ms "
+        f"(state copy alone {copy_ms:.4f} ms, all-NOOP window "
+        f"{noop_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
+        f"{bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} operations)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "copy_ms": copy_ms, "noop_window_ms": noop_ms,
+            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
+            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W}
+
+
+def np_radix_apply(st, op) -> int:
+    """The numpy radix page table (`make_vspace_radix` semantics): one
+    write op on `st` ({"pt", "pd", "pdpt", "pml4"} numpy), in place; its
+    response."""
+    kind, a0, a1, a2 = (int(x) for x in op)
+    if kind not in (1, 2, 3, 4):
+        return 0
+    vs = a0 % VS_P
+    pt, pd, pdpt, pml4 = st["pt"], st["pd"], st["pdpt"], st["pml4"]
+
+    def walked(lo, hi):
+        pages = np.arange(lo, hi)
+        return (pml4[0] & pdpt[pages >> 18] & pd[pages >> 9]
+                & (pt[lo:hi] != 0))
+
+    if kind == 4:
+        base = (vs >> 9) << 9
+        hi = min(base + 512, VS_P)
+        resp = int(walked(base, hi).sum())
+        pt[base:hi] = 0
+        pd[vs >> 9] = False
+        return resp
+    n = min(max(a1 if kind == 3 else a2, 0), VS_SPAN)
+    hi = min(vs + n, VS_P)
+    w = walked(vs, hi)
+    if kind == 3:
+        pt[vs:hi] = 0
+        return int(w.sum())
+    lanes = np.arange(hi - vs, dtype=np.int64)
+    pt[vs:hi] = ((a1 + lanes + 1) & ((1 << 30) - 1)) | (
+        (1 << 30) if kind == 2 else 0)
+    if n > 0:
+        last = vs + n - 1
+        pd[vs >> 9] = True
+        if (vs >> 9) + 1 < len(pd) and (vs >> 9) + 1 <= last >> 9:
+            pd[(vs >> 9) + 1] = True
+        for k in (vs >> 18, last >> 18):
+            if k < len(pdpt):
+                pdpt[k] = True
+        pml4[0] = True
+    return int((~w).sum())
+
+
+def _rx_step_batches(rng, dev, steps):
+    import torch
+
+    out = []
+    for _ in range(steps):
+        opc, args = rx_window(rng, VS_R * VS_BW)
+        rd_opc = rng.choice(np.array([1, 2, 3], np.int32), (VS_R, 1))
+        rd_args = np.zeros((VS_R, 1, 3), np.int32)
+        rd_args[..., 0] = rng.integers(0, VS_P, (VS_R, 1))
+        rd_args[..., 1] = rng.integers(1, VS_SPAN + 1, (VS_R, 1))
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            opc.reshape(VS_R, VS_BW), args.reshape(VS_R, VS_BW, 3),
+            rd_opc, rd_args)))
+    return out
+
+
+def phase_radix_step(dev, rng, card: str, steps: int = 24) -> dict:
+    """The three radix step paths at R = 256, P = 2^18: K6's step, K7b's
+    plan step and the combined torch step, bit-identical to each other,
+    replica 0's final state equal to a numpy radix page table of the
+    stream; then K7b against its plain version."""
+    import torch
+
+    from node_replication_torch import LogSpec, log_init, make_step
+    from node_replication_torch.core.replica import replicate_state
+    from node_replication_torch.models import make_vspace_radix
+    from node_replication_torch.ops import vspace as vs
+
+    d = make_vspace_radix(VS_P, max_span=VS_SPAN)
+    spec = LogSpec(n_replicas=VS_R, arg_width=3)
+    paths = {
+        "pallas": (vs.make_pallas_vspace_step(
+            VS_P, spec, VS_BW, 1, VS_SPAN, radix=True),
+            lambda: vs.pallas_vspace_state(VS_P, VS_R, True, device=dev)),
+        "plan": (vs.make_pallas_vspace_plan_step(
+            VS_P, spec, VS_BW, 1, VS_SPAN, radix=True, dispatch=d),
+            lambda: replicate_state(d.init_state(dev), VS_R)),
+        "combined": (make_step(d, spec, VS_BW, 1, combined=True),
+                     lambda: replicate_state(d.init_state(dev), VS_R)),
+    }
+    batches = _rx_step_batches(rng, dev, steps)
+    for step, init in paths.values():  # warm each path on throwaway state
+        step(log_init(spec, dev), init(), *batches[0])
+    torch.cuda.synchronize()
+    out = {}
+    for name, (step, init) in paths.items():
+        lg, states, resps = log_init(spec, dev), init(), []
+        vs.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            lg, states, wr, rd = step(lg, states, *b)
+            resps.append((wr, rd))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in vs.KERNELS}
+        if name == "pallas":
+            states = vs.model_view(states, VS_P, True)
+        out[name] = (lg, states, resps, secs, launches)
+    if out["pallas"][4]["vspace_radix_replay"] == 0:
+        raise AssertionError("the K6 step path never launched K6")
+    if out["plan"][4]["vspace_radix_plan_replay"] == 0:
+        raise AssertionError("the plan step path never launched K7b")
+    lc, sc, rc = out["combined"][:3]
+    for name in ("pallas", "plan"):
+        lk, sk, rk = out[name][:3]
+        for f in lk._fields:
+            if not torch.equal(getattr(lk, f), getattr(lc, f)):
+                raise AssertionError(f"{name} step: log field {f} differs")
+        for key in sc:
+            if not torch.equal(sk[key], sc[key]):
+                raise AssertionError(f"{name} step: replica {key} differs")
+        for i, (a, b) in enumerate(zip(rk, rc)):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{name} step: responses of step {i} "
+                                     f"differ")
+    # the numpy radix page table of the same stream
+    l2, l3, _ = vs.levels(VS_P)
+    st = {"pt": np.zeros(VS_P, np.int64), "pd": np.zeros(l2, bool),
+          "pdpt": np.zeros(l3, bool), "pml4": np.zeros(1, bool)}
+    want = []
+    for b in batches:
+        opc = b[0].reshape(-1).cpu().numpy()
+        args = b[1].reshape(-1, 3).cpu().numpy()
+        want.append([np_radix_apply(st, (o, *a)) for o, a in zip(opc, args)])
+    got = [wr.reshape(-1).tolist() for wr, _ in rc]
+    if got != want:
+        raise AssertionError("write responses differ from the numpy table")
+    for key in st:
+        if not np.array_equal(sc[key][0].cpu().numpy(), st[key]):
+            raise AssertionError(f"replica 0's {key} differs from the numpy "
+                                 f"table")
+    n_disp = steps * VS_R * (VS_BW + 1)
+    rates = {k: n_disp / v[3] for k, v in out.items()}
+    launches = {k: v[4] for k, v in out.items()}
+    log(f"phase 10: radix step paths R={VS_R} P={VS_P} span={VS_SPAN} "
+        f"{VS_BW}w+1r x {steps} steps (ring {spec.capacity}, tail "
+        f"{int(lc.tail)}): bit-identical, replica 0 = the numpy radix "
+        f"table; dispatches/s (fenced) K6 step {rates['pallas']:.6g}, "
+        f"K7b plan step {rates['plan']:.6g}, combined step "
+        f"{rates['combined']:.6g}, on {card}; launches {launches}")
+    del out, lc, sc, rc
+    # K7b alone against its plain version: one canonical row, W = 4096
+    W = VS_R * VS_BW
+    opc_np, args_np = rx_window(rng, W, inert=True)
+    opc = torch.from_numpy(opc_np).to(dev)
+    args = torch.from_numpy(args_np).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    pt = random_frames(g, dev, 1)
+    lv = random_levels(g, dev, False)
+    planes = ((pt % 7 == 0).to(torch.int32), (pt % 11 == 0).to(torch.int32),
+              torch.randint(0, 2, lv[0].shape, generator=g, device=dev,
+                            dtype=torch.int32))
+    call = (opc, args, pt, *lv, *planes, VS_P, VS_SPAN)
+    got = vs.vspace_radix_plan_replay(*call)
+    want = vs.vspace_radix_plan_replay_plain(*call)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K7b disagrees with its plain version: {err}")
+    ms = cuda_ms(lambda: vs.vspace_radix_plan_replay(*call), reps=20,
+                 warmup=2)
+    plain_ms = cuda_ms(lambda: vs.vspace_radix_plan_replay_plain(*call),
+                       reps=2)
+    # one row of pt, wins and clr, each in and out
+    n_bytes = 4 * (6 * VS_P + 4 * W + W)
+    n_ops = rx_ops(args_np, opc_np, 1)
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 10: K7b R=1 P={VS_P} W={W}: bit-identical; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes} bytes)")
+    return {"steps": steps, "dispatches": n_disp,
+            "dispatches_per_s": rates, "launches": launches,
+            "plan_kernel": {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bytes": n_bytes,
+                            "ops": n_ops, "bound_ms": bound_ms,
+                            "bound_by": by, "W": W}}
+
+
+# ------------------------------------------------ open-addressing map
+
+_M32 = (1 << 32) - 1
+
+
+def np_mix(x):
+    """The model's uint32 mix, in numpy (uint64 held, masked)."""
+    x = np.asarray(x).astype(np.int64).astype(np.uint64) & np.uint64(_M32)
+    x = ((x ^ (x >> np.uint64(16))) * np.uint64(0x7FEB352D)) \
+        & np.uint64(_M32)
+    x = ((x ^ (x >> np.uint64(15))) * np.uint64(0x846CA68B)) \
+        & np.uint64(_M32)
+    return x ^ (x >> np.uint64(16))
+
+
+def np_unmix(h):
+    """Keys (int32) whose mix is `h`: the mix inverted step by step."""
+    inv = lambda c: pow(c, -1, 1 << 32)
+    x = np.asarray(h, np.uint64) & np.uint64(_M32)
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(inv(0x846CA68B))) & np.uint64(_M32)
+    x ^= (x >> np.uint64(15)) ^ (x >> np.uint64(30))
+    x = (x * np.uint64(inv(0x7FEB352D))) & np.uint64(_M32)
+    x ^= x >> np.uint64(16)
+    return x.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+def oa_keys_with_homes(homes, per_home: int):
+    """`per_home` distinct keys for each home slot of an OA_N table (a
+    power of two, so the home is the mix's low bits), made by inverting
+    the mix and checked by hashing them with numpy."""
+    homes = np.asarray(homes, np.uint64)
+    hi = np.arange(per_home, dtype=np.uint64) * np.uint64(OA_N)
+    keys = np_unmix((homes[:, None] + hi[None, :]).reshape(-1))
+    if not np.array_equal(np_mix(keys) % np.uint64(OA_N),
+                          np.repeat(homes, per_home)):
+        raise AssertionError("the inverted mix does not hit its homes")
+    return keys
+
+
+def oa_window(rng, W, present, values):
+    """A window of the sparse mix (`benches/hashmap.py:130-134`): PUT and
+    REMOVE 50/50 over keys of which half are present in the table."""
+    opc = rng.choice(np.array([1, 2], np.int32), W)
+    keys = np.where(rng.random(W) < 0.5, rng.choice(present, W),
+                    rng.integers(0, OA_KEYS, W)).astype(np.int32)
+    args = np.zeros((W, 3), np.int32)
+    args[:, 0] = keys
+    args[:, 1] = rng.choice(values, W)
+    return opc, args
+
+
+def phase_oahashmap(dev, rng, card: str, steps: int = 24) -> dict:
+    """The open-addressing map at R = 16, N = 2^23 slots, probe 16:
+    a pre-fill of 2^21 distinct keys through K3, every key read back;
+    24 steps of K3's step against the scan step, bit-identical; then K3
+    against its plain version at W = 4096."""
+    import torch
+
+    from node_replication_torch import LogSpec, log_init, make_step
+    from node_replication_torch.models import make_oahashmap
+    from node_replication_torch.ops import oahashmap as oa
+
+    planes = oa.pallas_oahashmap_state(OA_N, OA_R, device=dev)
+    names = ("keys", "vals", "flag")
+    # pre-fill: 2^21 distinct keys of the 2^22-key space, large windows
+    fill = rng.permutation(OA_KEYS)[:OA_FILL].astype(np.int32)
+    fill_v = rng.integers(1, 1 << 31, OA_FILL).astype(np.int32)
+    fill_resps = []
+    t0 = time.perf_counter()
+    for c in range(0, OA_FILL, OA_FILL_W):
+        opc = torch.ones(OA_FILL_W, dtype=torch.int32, device=dev)
+        args = torch.zeros((OA_FILL_W, 3), dtype=torch.int32, device=dev)
+        args[:, 0] = torch.from_numpy(fill[c:c + OA_FILL_W]).to(dev)
+        args[:, 1] = torch.from_numpy(fill_v[c:c + OA_FILL_W]).to(dev)
+        *new, r = oa.oahashmap_replay(opc, args, *planes.values(), OA_N,
+                                      OA_PROBE)
+        planes = dict(zip(names, new))
+        fill_resps.append(r)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    dropped = (torch.cat(fill_resps) == -2).cpu().numpy()
+    for r in range(1, OA_R):
+        for k in names:
+            if not torch.equal(planes[k][r], planes[k][0]):
+                raise AssertionError(f"pre-fill: replica {r}'s {k} differs")
+    reads = oa.oahashmap_reads(OA_N, OA_PROBE)
+    q = torch.from_numpy(fill).to(dev)
+    got = reads({k: v[:1] for k, v in planes.items()},
+                torch.ones((1, OA_FILL), dtype=torch.int32, device=dev),
+                torch.stack([q, q, q], -1)[None])[0].cpu().numpy()
+    if not np.array_equal(got, np.where(dropped, -1, fill_v)):
+        raise AssertionError("pre-fill: a key reads back wrong")
+    present = fill[~dropped]
+    # the step paths from that state
+    d = make_oahashmap(OA_N, probe=OA_PROBE)
+    spec = LogSpec(n_replicas=OA_R, arg_width=3)
+    k_step = oa.make_pallas_oahashmap_step(OA_N, OA_PROBE, spec, OA_BW,
+                                           OA_BR)
+    s_step = make_step(d, spec, OA_BW, OA_BR)
+    batches = []
+    for _ in range(steps):
+        opc, args = oa_window(rng, OA_R * OA_BW, present, fill_v)
+        rd = np.zeros((OA_R, OA_BR, 3), np.int32)
+        rd[..., 0] = np.where(rng.random((OA_R, OA_BR)) < 0.5,
+                              rng.choice(present, (OA_R, OA_BR)),
+                              rng.integers(0, OA_KEYS, (OA_R, OA_BR)))
+        batches.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            opc.reshape(OA_R, OA_BW), args.reshape(OA_R, OA_BW, 3),
+            np.ones((OA_R, OA_BR), np.int32), rd)))
+    model = {k: v.clone() for k, v in oa.oahashmap_model_view(
+        planes, OA_N).items()}
+    out = {}
+    for name, step, states in (("pallas", k_step, planes),
+                               ("scan", s_step, model)):
+        lg, resps = log_init(spec, dev), []
+        oa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            lg, states, wr, rdr = step(lg, states, *b)
+            resps.append((wr, rdr))
+        torch.cuda.synchronize()
+        out[name] = (lg, states, resps, time.perf_counter() - t0,
+                     oa.REPLAY_KERNEL.launches)
+    launches = out["pallas"][4]
+    if launches == 0:
+        raise AssertionError("the K3 step path never launched K3")
+    (lk, sk, rk), (ls, ss, rs) = out["pallas"][:3], out["scan"][:3]
+    for f in lk._fields:
+        if not torch.equal(getattr(lk, f), getattr(ls, f)):
+            raise AssertionError(f"K3 step: log field {f} differs")
+    view = oa.oahashmap_model_view(sk, OA_N)
+    for k in names:
+        if not torch.equal(view[k], ss[k]):
+            raise AssertionError(f"K3 step: replica {k} differs")
+    for i, (a, b) in enumerate(zip(rk, rs)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"K3 step: responses of step {i} differ")
+    n_disp = steps * OA_R * (OA_BW + OA_BR)
+    rates = {k: n_disp / v[3] for k, v in out.items()}
+    log(f"phase 11: oahashmap R={OA_R} N={OA_N} probe={OA_PROBE}: "
+        f"pre-fill of {OA_FILL} keys in {OA_FILL // OA_FILL_W} K3 launches "
+        f"({fill_s:.2f} s, {int(dropped.sum())} dropped), every key read "
+        f"back; {OA_BW}w+{OA_BR}r x {steps} steps from there: bit-identical;"
+        f" dispatches/s (fenced) K3 step {rates['pallas']:.6g}, scan step "
+        f"{rates['scan']:.6g}, on {card}; K3 launches {launches}")
+    del out, model, ss, lk, ls
+    # K3 alone against its plain version on that state, W = 4096: half
+    # of the keys present, 17 keys sharing one home (a -2 at least) and
+    # keys whose homes lie within `probe` of N (their windows wrap)
+    W = OA_W
+    opc_np, args_np = oa_window(rng, W, present, fill_v)
+    crowd = oa_keys_with_homes([int(rng.integers(OA_N))], OA_PROBE + 1)
+    wrap = oa_keys_with_homes(OA_N - 1 - np.arange(OA_PROBE // 2), 2)
+    opc_np[:len(crowd)] = 1
+    args_np[:len(crowd), 0] = crowd
+    at = rng.choice(np.arange(len(crowd), W), len(wrap), replace=False)
+    args_np[at, 0] = wrap
+    opc = torch.from_numpy(opc_np).to(dev)
+    args = torch.from_numpy(args_np).to(dev)
+    call = (opc, args, *sk.values(), OA_N, OA_PROBE)
+    got = oa.oahashmap_replay(*call)
+    want = oa.oahashmap_replay_plain(*call)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"K3 disagrees with its plain version: {err}")
+    n_drop = int((want[3] == -2).sum())
+    if n_drop == 0:
+        raise AssertionError("the K3 window had no window-full drop")
+    del got, want
+    ms = cuda_ms(lambda: oa.oahashmap_replay(*call), reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: oa.oahashmap_replay_plain(*call), reps=1)
+    empty = (opc[:0], args[:0], *call[2:])
+    copy_ms = cuda_ms(lambda: oa.oahashmap_replay(*empty), reps=5,
+                      warmup=1)
+    n_bytes = 4 * (2 * 3 * OA_R * OA_N + 4 * W + W)
+    n_ops = 4 * OA_PROBE * OA_R * W  # per probe slot: 2 loads, 2 tests
+    bound_ms, by = bound(n_bytes, n_ops)
+    log(f"phase 11: K3 R={OA_R} N={OA_N} probe={OA_PROBE} W={W}: "
+        f"bit-identical ({n_drop} window-full drops); kernel {ms:.4f} ms "
+        f"(state copy alone {copy_ms:.4f} ms), plain {plain_ms:.2f} ms, "
+        f"bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    return {"fill_s": fill_s, "fill_dropped": int(dropped.sum()),
+            "steps": steps, "dispatches": n_disp, "dispatches_per_s": rates,
+            "launches": launches,
+            "kernel": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "copy_ms": copy_ms, "drops": n_drop,
+                       "bytes": n_bytes, "ops": n_ops,
+                       "bound_ms": bound_ms, "bound_by": by, "W": W}}
+
+
 def main() -> int:
     import torch
 
@@ -813,6 +1327,12 @@ def main() -> int:
         res["vspace_step"] = phase_vspace_step(dev, rng, smi)
         torch.cuda.empty_cache()
         res["vspace_replica"] = phase_vspace_replica(dev, rng)
+        torch.cuda.empty_cache()
+        res["radix_replay"] = phase_radix_replay(dev, rng, gen)
+        torch.cuda.empty_cache()
+        res["radix_step"] = phase_radix_step(dev, rng, smi)
+        torch.cuda.empty_cache()
+        res["oahashmap"] = phase_oahashmap(dev, rng, smi)
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -823,6 +1343,9 @@ def main() -> int:
     hm_ref = "node_replication_tpu/ops/pallas_replay.py"
     vs_src = "node_replication_torch/csrc/vspace_replay.cu"
     vs_ref = "node_replication_tpu/ops/pallas_vspace.py"
+    rx_src = "node_replication_torch/csrc/vspace_radix_replay.cu"
+    oa_src = "node_replication_torch/csrc/oahashmap_replay.cu"
+    oa_ref = "node_replication_tpu/ops/pallas_oahashmap.py"
     hm_launches = lambda k: (res["step"]["launches"][k]
                              + res["replica"]["launches"][k])
     table = [
@@ -838,6 +1361,14 @@ def main() -> int:
         ("vspace_fused_round", vs_src, f"{vs_ref}:901",
          res["vspace_replica"]["fused_kernel"],
          res["vspace_replica"]["launches"]["vspace_fused_round"]),
+        ("vspace_radix_replay", rx_src, f"{vs_ref}:217",
+         res["radix_replay"],
+         res["radix_step"]["launches"]["pallas"]["vspace_radix_replay"]),
+        ("vspace_radix_plan_replay", rx_src, f"{vs_ref}:230",
+         res["radix_step"]["plan_kernel"],
+         res["radix_step"]["launches"]["plan"]["vspace_radix_plan_replay"]),
+        ("oahashmap_replay", oa_src, f"{oa_ref}:95",
+         res["oahashmap"]["kernel"], res["oahashmap"]["launches"]),
     ]
     kernels = [{
         "name": kname, "route": "cuda", "source": src, "replaces": ref,

@@ -13,7 +13,13 @@ imports the JAX package.
   bool[R, K]`;
 - kernel-layout planes: `values`/`present int32[Kp, R]`;
 - flat vspace states, `frames int32[R, P]` in the model layout or
-  `int32[R, ROWS, 128]` in the kernel layout (`ops/vspace.py`).
+  `int32[R, ROWS, 128]` in the kernel layout (`ops/vspace.py`);
+- radix vspace states: the model layout `pt int32[R, P]` with
+  `pd`/`pdpt`/`pml4 bool[R, l]`, or the kernel layout `pt int32[R, ROWS,
+  128]` with ONE canonical `pd`/`pdpt`/`pml4 int32[l]`;
+- open-addressing map planes `keys`/`vals`/`flag`, `int32[R, N]` in the
+  model layout or `int32[R, ROWS, 128]` in the kernel layout
+  (`ops/oahashmap.py`).
 """
 
 from __future__ import annotations
@@ -88,18 +94,52 @@ def planes_to_numpy(planes: dict) -> dict:
     return _to_numpy(planes)
 
 
+def _layout_check(name: str, a: np.ndarray, layout: str) -> None:
+    ndim = {"model": 2, "kernel": 3}[layout]
+    if a.ndim != ndim or (layout == "kernel" and a.shape[-1] != 128):
+        raise ValueError(f"{name} of shape {a.shape} is not the {layout} "
+                         f"layout")
+
+
 def vspace_from_numpy(states, device=None, layout: str = "model") -> dict:
     """Flat vspace states `{"frames"}` as tensors on `device`:
     `int32[R, P]` for `layout="model"`, `int32[R, ROWS, 128]` for
     `layout="kernel"`."""
-    ndim = {"model": 2, "kernel": 3}[layout]
     frames = np.asarray(_fields(states, ["frames"])["frames"])
-    if frames.ndim != ndim or (layout == "kernel"
-                               and frames.shape[-1] != 128):
-        raise ValueError(f"frames of shape {frames.shape} are not the "
-                         f"{layout} layout")
+    _layout_check("frames", frames, layout)
     return _to_torch({"frames": frames}, {"frames": np.int32}, device)
 
 
 def vspace_to_numpy(states: dict) -> dict:
+    return _to_numpy(states)
+
+
+def radix_from_numpy(states, device=None, layout: str = "model") -> dict:
+    """Radix vspace states `{"pt", "pd", "pdpt", "pml4"}` as tensors on
+    `device`: `pt int32[R, P]` and bool `[R, l]` levels for
+    `layout="model"`; `pt int32[R, ROWS, 128]` and one canonical int32
+    `[l]` per level for `layout="kernel"`."""
+    f = _fields(states, ["pt", "pd", "pdpt", "pml4"])
+    _layout_check("pt", np.asarray(f["pt"]), layout)
+    lvl = np.bool_ if layout == "model" else np.int32
+    return _to_torch(f, {"pt": np.int32, "pd": lvl, "pdpt": lvl,
+                         "pml4": lvl}, device)
+
+
+def radix_to_numpy(states: dict) -> dict:
+    return _to_numpy(states)
+
+
+def oahashmap_from_numpy(states, device=None, layout: str = "model") -> dict:
+    """Open-addressing map planes `{"keys", "vals", "flag"}` as tensors
+    on `device`: `int32[R, N]` for `layout="model"`, `int32[R, ROWS,
+    128]` for `layout="kernel"`."""
+    names = ["keys", "vals", "flag"]
+    f = _fields(states, names)
+    for n in names:
+        _layout_check(n, np.asarray(f[n]), layout)
+    return _to_torch(f, dict.fromkeys(names, np.int32), device)
+
+
+def oahashmap_to_numpy(states: dict) -> dict:
     return _to_numpy(states)

@@ -17,11 +17,17 @@ import pytest
 import torch
 
 import node_replication_torch.ops.kernel_lib as kernel_lib
+import node_replication_torch.ops.oahashmap as oahashmap
 import node_replication_torch.ops.replay as replay
 import node_replication_torch.ops.vspace as vspace
 from node_replication_torch.core.log import LogSpec, log_init
 from node_replication_torch.core.replica import NodeReplicated
-from node_replication_torch.models import make_hashmap, make_vspace
+from node_replication_torch.models import (
+    make_hashmap,
+    make_oahashmap,
+    make_vspace,
+    make_vspace_radix,
+)
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
     REPLAY_KERNEL,
@@ -98,6 +104,12 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         lambda: make_vspace(512, 8).fused_factory(spec),
         lambda: vspace.pallas_vspace_state(512, 2, False),
         lambda: vspace.FusedVspaceEngine(512, 8, spec),
+        lambda: NodeReplicated(make_vspace_radix(1500, 8), 2),
+        lambda: make_vspace_radix(1500, 8).make_state(),
+        lambda: vspace.pallas_vspace_state(1500, 2, True),
+        lambda: NodeReplicated(make_oahashmap(300, 8), 2),
+        lambda: make_oahashmap(300, 8).make_state(),
+        lambda: oahashmap.pallas_oahashmap_state(300, 2),
     ):
         with pytest.raises(NoCudaDeviceError):
             entry()
@@ -122,8 +134,11 @@ def no_plain(monkeypatch):
     monkeypatch.setattr(replay, "hashmap_replay_plain", boom)
     monkeypatch.setattr(replay, "hashmap_fused_round_plain", boom)
     for name in ("vspace_replay_plain", "vspace_plan_replay_plain",
-                 "vspace_fused_round_plain", "_replay_plain"):
+                 "vspace_fused_round_plain", "_replay_plain",
+                 "vspace_radix_replay_plain",
+                 "vspace_radix_plan_replay_plain", "_radix_plain"):
         monkeypatch.setattr(vspace, name, boom)
+    monkeypatch.setattr(oahashmap, "oahashmap_replay_plain", boom)
 
 
 def test_replay_wrapper_refuses_non_cpu_tensors(no_plain):
@@ -194,6 +209,61 @@ def test_vspace_steps_route_non_cpu_tensors_to_the_kernels(no_plain):
             step(log_init(spec, "meta"), states, *batch)
 
 
+def _radix_state(device, R=2, P=1500):
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+    return {"pt": z(R, vspace.grid_rows(P), 128), "pd": z(3), "pdpt": z(1),
+            "pml4": z(1)}
+
+
+def test_radix_and_oahashmap_wrappers_refuse_non_cpu_tensors(no_plain):
+    counts = lambda: [k.launches for k in (*vspace.KERNELS,
+                                           oahashmap.REPLAY_KERNEL)]
+    before = counts()
+    P, S = 1500, 8
+    opc, args, _ = _vs_window("meta")
+    st = _radix_state("meta")
+    lv = (st["pd"], st["pdpt"], st["pml4"])
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_radix_replay(opc, args, st["pt"], *lv, P, S)
+    pt1 = st["pt"][:1]
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_radix_plan_replay(opc, args, pt1, *lv, pt1, pt1,
+                                        st["pd"], P, S)
+    planes = oahashmap.pallas_oahashmap_state(300, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        oahashmap.oahashmap_replay(opc, args, *planes.values(), 300, 8)
+    # one tensor off the CPU is enough to refuse the mix
+    cpu = _radix_state("cpu")
+    opc, args, _ = _vs_window("cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        vspace.vspace_radix_replay(opc, args, cpu["pt"], cpu["pd"],
+                                   cpu["pdpt"], cpu["pml4"].to("meta"), P, S)
+    assert counts() == before
+
+
+def test_radix_and_oahashmap_steps_route_non_cpu_tensors_to_the_kernels(
+        no_plain):
+    R = 2
+    spec = LogSpec(n_replicas=R, capacity=512, gc_slack=64)
+    meta = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")
+    batch = (meta(R, 1), meta(R, 1, 3), meta(R, 1), meta(R, 1, 3))
+    radix = make_vspace_radix(1500, 8)
+    model = {"pt": meta(R, 1500), "pd": meta(R, 3).bool(),
+             "pdpt": meta(R, 1).bool(), "pml4": meta(R, 1).bool()}
+    steps = (
+        (vspace.make_pallas_vspace_step(1500, spec, 1, 1, 8, radix=True),
+         _radix_state("meta")),
+        (vspace.make_pallas_vspace_plan_step(1500, spec, 1, 1, 8,
+                                             radix=True, dispatch=radix),
+         model),
+        (oahashmap.make_pallas_oahashmap_step(300, 8, spec, 1, 1),
+         oahashmap.pallas_oahashmap_state(300, R, device="meta")),
+    )
+    for step, states in steps:
+        with pytest.raises(ValueError, match="CUDA device"):
+            step(log_init(spec, "meta"), states, *batch)
+
+
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     # no toolkit: the build raises rather than handing back anything
     monkeypatch.setattr(kernel_lib, "BUILD_DIR", tmp_path)
@@ -204,4 +274,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         kernel_lib.build_all()
     # every kernel source is built, each into its own library
     assert {p.name for p in kernel_lib.sources()} == {
-        "hashmap_replay.cu", "vspace_replay.cu"}
+        "hashmap_replay.cu", "oahashmap_replay.cu", "vspace_radix_replay.cu",
+        "vspace_replay.cu"}

@@ -211,3 +211,149 @@ def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev):
         tail += count
     assert FUSED_KERNEL.launches == before + 10
     assert tail > 256 + 230
+
+
+# ----------------------------------------------- radix vspace (K6, K7b)
+
+
+def _radix_window(rng, W, P, S, dev):
+    """All four write kinds plus NOOP and unknown opcodes; vpages in
+    [-P, 2P) (negative and >= P wrap through the mod), spans of n <= 0
+    and n > max_span, spans that cross a PD boundary or pass P, and
+    teardowns (of unallocated regions too)."""
+    opc = rng.choice(np.array([0, 1, 2, 3, 4, 4, 7, -1], np.int32), W)
+    args = np.stack([rng.integers(-P, 2 * P, W),
+                     rng.integers(-(1 << 31), 1 << 31, W),
+                     rng.integers(-2, S + 4, W)], axis=1).astype(np.int32)
+    k = max(1, W // 8)
+    at = np.array_split(rng.choice(W, min(W, 3 * k), replace=False), 3)
+    args[at[0], 0] = 512 * rng.integers(1, max(2, P // 512), len(at[0])) \
+        - rng.integers(1, S + 1, len(at[0]))           # cross a PD boundary
+    args[at[1], 0] = P - rng.integers(1, S + 1, len(at[1]))   # pass P
+    args[at[2], 2] = S                                  # full spans
+    return (torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev))
+
+
+def _radix_levels(rng, P, dev, upper):
+    from node_replication_torch.ops.vspace import levels
+
+    l2, l3, _ = levels(P)
+    pd = (rng.random(l2) < 0.5).astype(np.int32)
+    pdpt = (rng.random(l3) < 0.5).astype(np.int32) if upper else \
+        np.zeros(l3, np.int32)
+    pml4 = np.array([int(upper)], np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (pd, pdpt, pml4)]
+
+
+@pytest.mark.parametrize("R,P,S,W,layout,upper", [
+    (1, 1500, 20, 64, "model", True), (3, 1500, 20, 700, "kernel", False),
+    (33, 4096, 64, 1100, "model", True),
+    (4, (1 << 18) + 3000, 64, 1500, "kernel", False),
+    (256, 1 << 14, 64, 1100, "kernel", True),
+])
+def test_vspace_radix_kernel_equals_plain(dev, R, P, S, W, layout, upper):
+    from node_replication_torch.ops.vspace import (
+        RADIX_KERNEL,
+        grid_rows,
+        vspace_radix_replay,
+        vspace_radix_replay_plain,
+    )
+
+    rng = np.random.default_rng(R + W + P)
+    opc, args = _radix_window(rng, W, P, S, dev)
+    shape = (R, P) if layout == "model" else (R, grid_rows(P), 128)
+    pt = _vs_frames(rng, shape, dev)
+    lv = _radix_levels(rng, P, dev, upper)
+    before = RADIX_KERNEL.launches
+    got = vspace_radix_replay(opc, args, pt, *lv, P, S)
+    torch.cuda.synchronize()
+    want = vspace_radix_replay_plain(opc, args, pt, *lv, P, S)
+    assert RADIX_KERNEL.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,S,W,upper", [
+    (1500, 20, 64, True), ((1 << 18) + 3000, 64, 4096, False),
+])
+def test_vspace_radix_plan_kernel_equals_plain(dev, P, S, W, upper):
+    from node_replication_torch.ops.vspace import (
+        RADIX_PLAN_KERNEL,
+        vspace_radix_plan_replay,
+        vspace_radix_plan_replay_plain,
+    )
+
+    rng = np.random.default_rng(P + W)
+    opc, args = _radix_window(rng, W, P, S, dev)
+    pt = _vs_frames(rng, (1, P), dev)
+    lv = _radix_levels(rng, P, dev, upper)
+    bits = lambda n: torch.from_numpy(
+        (rng.random(n) < 0.1).astype(np.int32)).to(dev)
+    planes = (bits((1, P)), bits((1, P)), bits(lv[0].shape))
+    before = RADIX_PLAN_KERNEL.launches
+    got = vspace_radix_plan_replay(opc, args, pt, *lv, *planes, P, S)
+    torch.cuda.synchronize()
+    want = vspace_radix_plan_replay_plain(opc, args, pt, *lv, *planes, P, S)
+    assert RADIX_PLAN_KERNEL.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------- open-addressing map (K3)
+
+
+def _oa_colliding_keys(n_slots, count, near=None, seed=0):
+    """`count` distinct keys sharing one home slot (or homes within
+    `near` slots of n_slots, whose windows wrap), found by hashing."""
+    from node_replication_torch.models.oahashmap import _mix
+
+    rng = np.random.default_rng(seed)
+    cand = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 1 << 20)
+                            .astype(np.int32))
+    home = torch.remainder(_mix(cand), n_slots)
+    if near is not None:
+        return cand[home >= n_slots - near][:count].numpy()
+    target = int(home[0])
+    return cand[home == target][:count].numpy()
+
+
+@pytest.mark.parametrize("R,N,probe,W", [(3, 300, 8, 96), (33, 4096, 16, 2000),
+                                         (4, 1 << 16, 128, 3000)])
+def test_oahashmap_kernel_equals_plain(dev, R, N, probe, W):
+    from node_replication_torch.ops.oahashmap import (
+        REPLAY_KERNEL,
+        grid_rows,
+        oahashmap_replay,
+        oahashmap_replay_plain,
+    )
+
+    rng = np.random.default_rng(R + N)
+    same_home = _oa_colliding_keys(N, probe + 2)
+    pool = np.concatenate([
+        rng.integers(-(1 << 31), 1 << 31, max(4, N // 4)).astype(np.int32),
+        same_home, _oa_colliding_keys(N, 8, probe)])
+    opc = rng.choice(np.array([0, 1, 1, 2, 5], np.int32), W)
+    args = np.stack([rng.choice(pool, W), rng.integers(-99, 99, W),
+                     np.zeros(W)], axis=1).astype(np.int32)
+    # PUTs of more distinct same-home keys than the window holds: the
+    # ones that find neither their key nor a free slot drop (-2)
+    opc[:len(same_home)] = 1
+    args[:len(same_home), 0] = same_home
+    rows = grid_rows(N)
+    planes = []
+    for hi in (1 << 31, 1 << 31, 3):
+        p = rng.integers(-hi if hi > 3 else 0, hi, (R, rows * 128))
+        planes.append(torch.from_numpy(p.astype(np.int32)).reshape(
+            R, rows, 128).to(dev))
+    # occupied slots hold keys from the pool, so matches occur
+    planes[0] = torch.where(planes[2] == 1, torch.from_numpy(
+        rng.choice(pool, (R, rows, 128))).to(dev), planes[0])
+    o, a = torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev)
+    before = REPLAY_KERNEL.launches
+    got = oahashmap_replay(o, a, *planes, N, probe)
+    torch.cuda.synchronize()
+    want = oahashmap_replay_plain(o, a, *planes, N, probe)
+    assert REPLAY_KERNEL.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert (want[3] == -2).any() == (len(same_home) > probe)

@@ -249,10 +249,17 @@ def test_eligibility_rules_match_reference():
     teng = tpv.FusedVspaceEngine(512, 8, big_t, device=CPU)
     for w in (4095, 4096, 4097, 8192):
         assert jeng.supports(w) == teng.supports(w), w
-    for fn in (lambda: tpv.make_vspace_replay(512, 2, 8, 8, True),
-               lambda: tpv.make_vspace_plan_replay(512, 8, 8, True),
-               lambda: tpv.pallas_vspace_state(512, 2, True, device=CPU)):
-        with pytest.raises(NotImplementedError, match="queue 2"):
+    # the radix model takes no row rule (its spans never wrap): only
+    # max_span and one PML4 entry (n_pages <= 2^27) bound it
+    for P, S in ((260, 5), (300, 44), (2000, 512)):
+        tpv.make_vspace_replay(P, 2, 8, S, True)
+        tpv.make_vspace_plan_replay(P, 8, S, True)
+        assert set(tpv.pallas_vspace_state(P, 2, True, device=CPU)) == {
+            "pt", "pd", "pdpt", "pml4"}
+    for fn in (lambda: tpv.make_vspace_replay(512, 2, 8, 513, True),
+               lambda: tpv.make_vspace_plan_replay((1 << 27) + 1, 8, 8,
+                                                   True)):
+        with pytest.raises(ValueError):
             fn()
 
 
