@@ -8,11 +8,16 @@ flagship width (R = 4096 replicas, K = 10000 keys):
 
 1. build every CUDA source under `node_replication_torch/csrc/` (one
    nvcc per source, all at once);
-2. the replay kernel (K2) against its plain PyTorch version, W = 4096;
+2. the replay kernel (K2) against its plain PyTorch version, W = 4096,
+   then on windows with inert opcodes (0, 7), keys in [-3K, 3K) and half
+   of the entries on 8 hot keys, over the flagship planes and over
+   R - 2 columns (not 16-byte aligned); logs K2's tile and its ptxas
+   registers and spills;
 3. the fused combiner-round kernel (K1), fenced and unfenced, against
    its plain version over rounds of W = 256 that wrap a 2^16 ring;
 4. the lock-step step path: 64 steps of `make_pallas_step` (K2) and of
-   `make_step(combined=True)` (PyTorch ops), bit-identical;
+   `make_step(combined=True)` (PyTorch ops), bit-identical; then what
+   sets the K2 step's pace (host enqueue time against device kernel time);
 5. `NodeReplicated` with `engine='pallas'` (K1) and `'combined'`: 36
    batched rounds of 256 writes plus cross-replica reads, identical to
    each other and to a plain dict model of the map.
@@ -55,7 +60,8 @@ keys, N = 2^23 slots, probe 16, 50% PUT/REMOVE, batch 32), R = 16:
    key read back by GET; 24 steps of `make_pallas_oahashmap_step` (K3)
    against the scan step from that state, bit-identical; then K3
    against its plain version at W = 4096, half the keys present, 17
-   keys sharing one home (window-full drops) and windows that wrap.
+   keys sharing one home (window-full drops) and windows that wrap,
+   and at the step's W = 256.
 
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10, 11) and
@@ -157,13 +163,29 @@ def phase_build() -> dict:
     return {"build_s": secs, "ptxas": dict(kernel_lib.BUILD_LOG)}
 
 
+def ptxas_report(build_log: str, kernel: str) -> list[str]:
+    """ptxas's register and spill lines of the entry functions whose
+    (mangled) name holds `kernel`."""
+    out, inside = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
 def phase_replay(dev, rng, gen) -> dict:
-    """K2 against its plain version at W = 4096."""
+    """K2 against its plain version at W = 4096: the flagship window,
+    then windows of inert opcodes, negative keys and hot keys (their own
+    numpy seed, so later phases' inputs stay as they were)."""
     import torch
 
+    from node_replication_torch.ops import kernel_lib
     from node_replication_torch.ops.replay import (
         hashmap_replay,
         hashmap_replay_plain,
+        replay_tile,
     )
 
     kp = -(-K // 8) * 8
@@ -183,14 +205,47 @@ def phase_replay(dev, rng, gen) -> dict:
     del got, want
     ms = cuda_ms(lambda: hashmap_replay(*args), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: hashmap_replay_plain(*args), reps=3)
+    empty = (opc[:0], key[:0], val[:0], vals, pres, K)
+    copy_ms = cuda_ms(lambda: hashmap_replay(*empty), reps=10, warmup=2)
     n_bytes = 4 * (4 * kp * R + W * R + 3 * W)
     bound_ms, by = bound(n_bytes, 4 * W * R)
     log(f"phase 2: K2 R={R} K={K} W={W}: bit-identical; kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes} bytes)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
-            "R": R, "K": K, "W": W}
+        f"ms (state copy alone {copy_ms:.4f} ms), plain {plain_ms:.2f} "
+        f"ms, bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    # the edges: inert opcodes, keys in [-3K, 3K), half of the entries on
+    # 8 hot keys; over the flagship planes and over R - 2 columns
+    edge = np.random.default_rng(SEED + 2)
+    for cols, w in ((R, W), (R - 2, 1024)):
+        e_opc = edge.choice(np.array([0, 1, 2, 7], np.int32), w)
+        e_key = edge.integers(-3 * K, 3 * K, w).astype(np.int32)
+        hot = edge.random(w) < 0.5
+        e_key[hot] = edge.choice(e_key[:8], int(hot.sum()))
+        e_val = edge.integers(-(1 << 31), 1 << 31, w).astype(np.int32)
+        e_args = (*(torch.from_numpy(a).to(dev)
+                    for a in (e_opc, e_key, e_val)),
+                  vals[:, :cols].contiguous(), pres[:, :cols].contiguous(),
+                  K)
+        got = hashmap_replay(*e_args)
+        want = hashmap_replay_plain(*e_args)
+        torch.cuda.synchronize()
+        err_e = max_abs_err(got, want)
+        if err_e:
+            raise AssertionError(f"K2 disagrees with its plain version on "
+                                 f"the edge window over {cols} columns: "
+                                 f"{err_e}")
+        del got, want, e_args
+    tile = replay_tile()
+    ptxas = ptxas_report(kernel_lib.BUILD_LOG.get("hashmap_replay.cu", ""),
+                         "hashmap_replay_kernel")
+    log(f"phase 2: K2 edge windows (inert opcodes, keys in [-3K, 3K), "
+        f"8 hot keys) over {R} and {R - 2} columns: bit-identical; tile "
+        f"{tile}")
+    for line in ptxas:
+        log(f"  ptxas hashmap_replay_kernel: {line}")
+    return {"max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "copy_ms": copy_ms, "bytes": n_bytes,
+            "bound_ms": bound_ms, "bound_by": by, "R": R, "K": K, "W": W,
+            "tile": tile, "ptxas": ptxas}
 
 
 def phase_fused(dev, rng, gen) -> dict:
@@ -345,10 +400,57 @@ def phase_step(dev, rng, card: str, steps: int = 64) -> dict:
         f"{n_disp / tk:.6g} dispatches/s, combined step "
         f"{n_disp / tc:.6g} dispatches/s (fenced), on {card}; launches "
         f"{launches}")
+    del lk, sk, rk, lc, sc, rc
     return {"steps": steps, "dispatches": n_disp,
             "pallas_dispatches_per_s": n_disp / tk,
             "combined_dispatches_per_s": n_disp / tc,
-            "pallas_s": tk, "combined_s": tc, "launches": launches}
+            "pallas_s": tk, "combined_s": tc, "launches": launches,
+            "pace": step_pace(k_step, batches, spec, dev)}
+
+
+def step_pace(k_step, batches, spec, dev) -> dict:
+    """What sets the K2 step's pace: the host's time to enqueue the steps
+    (no synchronisation until the end) against the device's kernel time
+    in them (`torch.profiler`, a second pass), per step in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from node_replication_torch import log_init
+    from node_replication_torch.ops.replay import pallas_hashmap_state
+
+    def run():
+        lg, st = log_init(spec, dev), pallas_hashmap_state(K, R, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            lg, st, _, _ = k_step(lg, st, *b)
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return queued, time.perf_counter() - t0
+
+    n = len(batches)
+    queued, wall = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count // n,
+                       e.key) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    out = {"enqueue_ms": queued / n * 1e3, "wall_ms": wall / n * 1e3,
+           "device_ms": device_ms or None,
+           "kernels": [{"ms": ms, "per_step": c, "name": name[:80]}
+                       for ms, c, name in kernels[:8]]}
+    log(f"phase 4: K2 step pace, per step: host enqueues it in "
+        f"{out['enqueue_ms']:.4f} ms, wall {out['wall_ms']:.4f} ms, device "
+        f"kernel time "
+        + (f"{device_ms:.4f} ms" if device_ms else "not measured")
+        + "; top kernels " + ", ".join(
+            f"{k['name'][:40]} x{k['per_step']} {k['ms']:.4f} ms"
+            for k in out["kernels"][:5]))
+    return out
 
 
 def phase_replica(dev, rng, rounds: int = 36) -> dict:
@@ -1272,20 +1374,46 @@ def phase_oahashmap(dev, rng, card: str, steps: int = 24) -> dict:
     empty = (opc[:0], args[:0], *call[2:])
     copy_ms = cuda_ms(lambda: oa.oahashmap_replay(*empty), reps=5,
                       warmup=1)
-    n_bytes = 4 * (2 * 3 * OA_R * OA_N + 4 * W + W)
-    n_ops = 4 * OA_PROBE * OA_R * W  # per probe slot: 2 loads, 2 tests
+    def k3_cost(w):
+        """Bytes (the planes in and out, the window, the responses)
+        and operations (per probe slot and replica: 2 loads, 2 tests)."""
+        return 4 * (2 * 3 * OA_R * OA_N + 4 * w + w), 4 * OA_PROBE * OA_R * w
+
+    n_bytes, n_ops = k3_cost(W)
     bound_ms, by = bound(n_bytes, n_ops)
     log(f"phase 11: K3 R={OA_R} N={OA_N} probe={OA_PROBE} W={W}: "
         f"bit-identical ({n_drop} window-full drops); kernel {ms:.4f} ms "
         f"(state copy alone {copy_ms:.4f} ms), plain {plain_ms:.2f} ms, "
         f"bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    # at the step's window, W = 256: the shape the main path launches
+    Ws = OA_R * OA_BW
+    step_call = (opc[:Ws], args[:Ws], *call[2:])
+    got = oa.oahashmap_replay(*step_call)
+    want = oa.oahashmap_replay_plain(*step_call)
+    torch.cuda.synchronize()
+    err_s = max_abs_err(got, want)
+    if err_s:
+        raise AssertionError(f"K3 disagrees with its plain version at "
+                             f"W={Ws}: {err_s}")
+    del got, want
+    ms_s = cuda_ms(lambda: oa.oahashmap_replay(*step_call), reps=10,
+                   warmup=2)
+    plain_ms_s = cuda_ms(lambda: oa.oahashmap_replay_plain(*step_call),
+                         reps=1)
+    bound_s, by_s = bound(*k3_cost(Ws))
+    log(f"phase 11: K3 at the step's W={Ws}: bit-identical; kernel "
+        f"{ms_s:.4f} ms, plain {plain_ms_s:.2f} ms, bound {bound_s:.4f} ms")
     return {"fill_s": fill_s, "fill_dropped": int(dropped.sum()),
             "steps": steps, "dispatches": n_disp, "dispatches_per_s": rates,
             "launches": launches,
-            "kernel": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "copy_ms": copy_ms, "drops": n_drop,
-                       "bytes": n_bytes, "ops": n_ops,
-                       "bound_ms": bound_ms, "bound_by": by, "W": W}}
+            "kernel": {"max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "copy_ms": copy_ms,
+                       "drops": n_drop, "bytes": n_bytes, "ops": n_ops,
+                       "bound_ms": bound_ms, "bound_by": by, "W": W,
+                       "step_window": {"W": Ws, "ms": ms_s,
+                                       "plain_ms": plain_ms_s,
+                                       "bound_ms": bound_s,
+                                       "bound_by": by_s}}}
 
 
 def main() -> int:
@@ -1375,6 +1503,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": p["max_abs_err"],
         "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
         "bound_by": p["bound_by"], "library_ms": None,
+        # K3: also at the window its main path launches it with
+        **({"step_window": p["step_window"]} if "step_window" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

@@ -11,10 +11,18 @@ says what bounds them and how they are laid out):
 
 - `hashmap_replay` (replaces `_replay_kernel`, K2): in-order replay of
   a window into every replica's column; used by `make_hashmap_replay`
-  and `make_pallas_step`.
+  and `make_pallas_step`. A block owns a tile of key rows x replica
+  columns of both planes in shared memory (`replay_tile()`): it copies
+  the tile in, scans the window once and keeps, in window order, the
+  entries whose key lies in its rows, replays them against shared
+  memory, writes their response segments and copies the tile out. It
+  is bound by device-memory bytes (the state in and out and the
+  responses); one launch a call.
 - `hashmap_fused_round` (replaces `_fused_hashmap_kernel`, K1): one
   whole combiner round in one launch — the ring append, the replay,
-  and the fenced-lane restore; used by `FusedHashmapEngine`.
+  and the fenced-lane restore; used by `FusedHashmapEngine`. It keeps
+  its first body: warps owning key partitions of 32-column groups, one
+  dependent device-memory read-modify-write per owned entry.
 
 Each wrapper takes its plain PyTorch version (a Python loop over the
 window doing row operations on the planes) for CPU tensors ONLY; for
@@ -47,8 +55,8 @@ from node_replication_torch.ops.ring import (
 )
 from node_replication_torch.utils.device import resolve_device
 
-# Key partitions per replica column (see the kernel's header): a
-# multiple of the kernel's warps per block.
+# K1's key partitions per replica column (see the kernel's header): a
+# multiple of its warps per block. K2 does not use them.
 N_PART = 16
 
 
@@ -69,8 +77,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nr_hashmap_warps_per_block.argtypes = []
     lib.nr_hashmap_warps_per_block.restype = i
+    lib.nr_hashmap_replay_tile.argtypes = [ctypes.POINTER(i)] * 3
+    lib.nr_hashmap_replay_tile.restype = i
     lib.nr_hashmap_replay.argtypes = [
-        p, p, p, i, i, i, i, i, p, p, p, p, p, p]
+        p, p, p, i, i, i, i, p, p, p, p, p, p]
     lib.nr_hashmap_replay.restype = i
     lib.nr_hashmap_fused_round.argtypes = [
         p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p,
@@ -85,6 +95,16 @@ def _library() -> ctypes.CDLL:
     """The kernels' library (`csrc/hashmap_replay.cu`), built at first
     use by `ops/kernel_lib.py`."""
     return library("hashmap_replay", _bind)
+
+
+def replay_tile() -> dict:
+    """K2's tile as built: key rows, replica columns, window entries
+    scanned a pass, and its dynamic shared memory in bytes."""
+    out = [ctypes.c_int() for _ in range(3)]
+    smem = _library().nr_hashmap_replay_tile(
+        *(ctypes.byref(c) for c in out))
+    return dict(zip(("rows", "cols", "chunk"), (c.value for c in out)),
+                smem_bytes=smem)
 
 
 def _check_planes(opcodes, values, present, resps_rows):
@@ -149,7 +169,7 @@ def hashmap_replay(opcodes, keys, vals, values, present, n_keys: int):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = lib.nr_hashmap_replay(
             opcodes.data_ptr(), keys.data_ptr(), vals.data_ptr(), W,
-            n_keys, kp, R, N_PART, values.data_ptr(), present.data_ptr(),
+            n_keys, kp, R, values.data_ptr(), present.data_ptr(),
             v_out.data_ptr(), p_out.data_ptr(), resps.data_ptr(), stream,
         )
     if err:

@@ -3,11 +3,12 @@
 Marked `cuda`: each test skips with a reason where there is no CUDA
 device (decided inside the fixture, never at import). The real check at
 the flagship shapes is `chip_smoke.py`; these cover the edges at small
-shapes: replica counts that are not a multiple of a warp, windows past
-one shared-memory chunk, negative keys, ring wrap, fenced lanes, and
-for the flat vspace kernels spans that end at P-1 or wrap through 0,
-int32 wrap near 2^31, n = 0, both state layouts. Every value is an
-integer, so the tolerance is 0.
+shapes: replica counts that are not a multiple of a warp or of 4,
+planes that are not 16-byte aligned, windows past one shared-memory
+chunk, one key for the whole window, hot keys, negative keys, ring
+wrap, fenced lanes, and for the flat vspace kernels spans that end at
+P-1 or wrap through 0, int32 wrap near 2^31, n = 0, both state layouts.
+Every value is an integer, so the tolerance is 0.
 
 This file imports torch and the port only, so it runs on a machine
 without JAX: `python -m pytest --noconftest tests/test_torch_kernels.py`.
@@ -37,10 +38,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _window(rng, W, K, dev):
+def _window(rng, W, K, dev, hot=False):
     opc = rng.choice(np.array([0, 1, 2, 7], np.int32), W)
     key = rng.integers(-3 * K, 3 * K, W).astype(np.int32)
     val = rng.integers(-1000, 1000, W).astype(np.int32)
+    if hot:  # half of the entries on 8 keys
+        at = rng.random(W) < 0.5
+        key[at] = rng.choice(key[:8], int(at.sum()))
     return [torch.from_numpy(a).to(dev) for a in (opc, key, val)]
 
 
@@ -51,12 +55,28 @@ def _planes(rng, K, R, dev):
     return torch.from_numpy(v).to(dev), torch.from_numpy(p).to(dev)
 
 
-@pytest.mark.parametrize("R,K,W", [(1, 5, 7), (33, 13, 300),
-                                   (64, 64, 2500), (100, 1, 40)])
-def test_replay_kernel_equals_plain(dev, R, K, W):
+def _unaligned(t):
+    """The same values, contiguous, 4 bytes past an aligned address."""
+    flat = torch.cat([t.new_zeros(1), t.reshape(-1)])
+    return flat[1:].view(t.shape)
+
+
+# K2 tiles 16 key rows x 512 replica columns and scans the window in
+# chunks of 1024: R = 34 is not 16-byte aligned (its scalar path), as
+# are the "unaligned" planes; K = 1 puts every entry of five chunks on
+# one row; Kp = 40 is not a multiple of the row tile; R = 600 spans two
+# column tiles, under a window with half of its entries on 8 keys
+@pytest.mark.parametrize("R,K,W,window", [
+    (1, 5, 7, "mixed"), (33, 13, 300, "mixed"), (64, 64, 2500, "mixed"),
+    (100, 1, 40, "mixed"), (34, 13, 300, "mixed"), (100, 1, 5000, "mixed"),
+    (64, 37, 700, "mixed"), (600, 1000, 3000, "hot"),
+    (36, 40, 500, "unaligned")])
+def test_replay_kernel_equals_plain(dev, R, K, W, window):
     rng = np.random.default_rng(R * 1000 + W)
-    opc, key, val = _window(rng, W, K, dev)
+    opc, key, val = _window(rng, W, K, dev, hot=window == "hot")
     v, p = _planes(rng, K, R, dev)
+    if window == "unaligned":
+        v, p = _unaligned(v), _unaligned(p)
     before = REPLAY_KERNEL.launches
     got = hashmap_replay(opc, key, val, v, p, K)
     torch.cuda.synchronize()
