@@ -45,13 +45,18 @@ its write mix MAP:MAP_DEVICE:UNMAP:UNMAP_TABLE = 3:1:1:1:
 9. the radix replay kernel (K6) against its plain version, W = 4096,
    over random pt and PD bits, with PDPT/PML4 set and unset, inert
    opcodes, vpages below 0 and past P, n <= 0 maps, spans crossing a
-   PD boundary or passing P, and teardowns of unmapped regions;
+   PD boundary or passing P, and teardowns of unmapped regions; then a
+   hot-spot window (every entry on one tile) and a window whose first
+   live MAP comes late, from unset PDPT/PML4; logs K6's device time
+   (`torch.profiler`) and ptxas's registers and spills of its kernels;
 10. the step paths: 24 steps of W = 4096 through
    `make_pallas_vspace_step(radix=True)` (K6),
    `make_pallas_vspace_plan_step(radix=True)` (K7b) and
    `make_step(combined=True)`, with IDENTIFY/RESOLVED/TABLES reads,
    bit-identical, replica 0 equal to a numpy radix page table of the
-   stream; then K7b against its plain version.
+   stream; then what sets the K6 step's pace (host enqueue time against
+   device kernel time, K6's share); then K7b against its plain version,
+   with its device time.
 
 The open-addressing map at `benches/hashmap.py --sparse --full` (2^22
 keys, N = 2^23 slots, probe 16, 50% PUT/REMOVE, batch 32), R = 16:
@@ -123,6 +128,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host time of one call of `fn` in ms: what a wrapper takes
+    to enqueue its work (no synchronisation inside), from an idle device,
+    as in `cuda_ms`, whose event time includes it."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -405,50 +427,67 @@ def phase_step(dev, rng, card: str, steps: int = 64) -> dict:
             "pallas_dispatches_per_s": n_disp / tk,
             "combined_dispatches_per_s": n_disp / tc,
             "pallas_s": tk, "combined_s": tc, "launches": launches,
-            "pace": step_pace(k_step, batches, spec, dev)}
+            "pace": step_pace(k_step, batches, spec, dev,
+                              lambda: pallas_hashmap_state(K, R, dev),
+                              "phase 4: K2", "hashmap_replay_kernel")}
 
 
-def step_pace(k_step, batches, spec, dev) -> dict:
-    """What sets the K2 step's pace: the host's time to enqueue the steps
-    (no synchronisation until the end) against the device's kernel time
-    in them (`torch.profiler`, a second pass), per step in ms."""
+def device_kernels(run, n: int) -> list[tuple[float, int, str]]:
+    """`torch.profiler`'s device time of every kernel that `run()`
+    launches, as (ms per call, launches per call, name), largest first;
+    `run` makes `n` calls of what is measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+
+
+def step_pace(step, batches, spec, dev, init, label: str,
+              kernel: str) -> dict:
+    """What sets a step path's pace: the host's time to enqueue the steps
+    (no synchronisation until the end) against the device's kernel time
+    in them (`torch.profiler`, a second pass), per step in ms, and the
+    share of that device time spent in the kernels named `kernel`."""
+    import torch
+
     from node_replication_torch import log_init
-    from node_replication_torch.ops.replay import pallas_hashmap_state
 
     def run():
-        lg, st = log_init(spec, dev), pallas_hashmap_state(K, R, dev)
+        lg, st = log_init(spec, dev), init()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in batches:
-            lg, st, _, _ = k_step(lg, st, *b)
+            lg, st, _, _ = step(lg, st, *b)
         queued = time.perf_counter() - t0
         torch.cuda.synchronize()
         return queued, time.perf_counter() - t0
 
     n = len(batches)
     queued, wall = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = sorted(((e.self_device_time_total / 1e3 / n, e.count // n,
-                       e.key) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     reverse=True)
+    kernels = device_kernels(run, n)
     device_ms = sum(k[0] for k in kernels)
+    kernel_ms = sum(k[0] for k in kernels if kernel in k[2])
     out = {"enqueue_ms": queued / n * 1e3, "wall_ms": wall / n * 1e3,
-           "device_ms": device_ms or None,
+           "device_ms": device_ms or None, "kernel": kernel,
+           "kernel_ms": kernel_ms or None,
+           "kernel_share": kernel_ms / device_ms if device_ms else None,
            "kernels": [{"ms": ms, "per_step": c, "name": name[:80]}
                        for ms, c, name in kernels[:8]]}
-    log(f"phase 4: K2 step pace, per step: host enqueues it in "
+    log(f"{label} step pace, per step: host enqueues it in "
         f"{out['enqueue_ms']:.4f} ms, wall {out['wall_ms']:.4f} ms, device "
         f"kernel time "
-        + (f"{device_ms:.4f} ms" if device_ms else "not measured")
+        + (f"{device_ms:.4f} ms, {kernel} {kernel_ms:.4f} ms of it "
+           f"({100 * out['kernel_share']:.1f}%)" if device_ms
+           else "not measured")
         + "; top kernels " + ", ".join(
-            f"{k['name'][:40]} x{k['per_step']} {k['ms']:.4f} ms"
+            f"{k['name'][:40]} x{k['per_step']:g} {k['ms']:.4f} ms"
             for k in out["kernels"][:5]))
     return out
 
@@ -935,6 +974,27 @@ def rx_window(rng, W, inert=False):
     return opc, args
 
 
+def rx_edge_window(rng, W, kind):
+    """Windows that K6's per-tile lists and first-MAP indices must get
+    right. `hot`: the long-log mix with every vpage in one 1024-page tile
+    (pages 1024-2047), so that tile's list is the whole window, across
+    its scan chunks. `late`: UNMAPs, teardowns and MAPs of n <= 0 up to
+    entry 3W/4, the window's first live MAP there, then the mix: from
+    unset PDPT/PML4 no page walks before it."""
+    opc, args = rx_window(rng, W)
+    if kind == "hot":
+        args[:, 0] = rng.integers(1024, 2048 - VS_SPAN, W)
+    else:
+        head = 3 * W // 4
+        opc[:head] = rng.choice(np.array([1, 2, 3, 4], np.int32), head)
+        args[:head, 2] = rng.integers(-2, 1, head)
+        args[:head, 1] = np.where(opc[:head] == 3,
+                                  rng.integers(1, VS_SPAN + 1, head),
+                                  args[:head, 1])
+        opc[head], args[head, 2] = 1, VS_SPAN
+    return opc, args
+
+
 def rx_ops(args_np, opc_np, R):
     """Integer operations the window needs: about 4 per acting page
     (load, walk, count, store) on each replica: a span's pages below P,
@@ -964,9 +1024,12 @@ def random_levels(gen, dev, upper: bool):
 def phase_radix_replay(dev, rng, gen) -> dict:
     """K6 against its plain version: a W = 4096 window over random pt
     (R = 256, P = 2^18, kernel layout [R, ROWS, 128]) and random PD bits,
-    once with PDPT/PML4 set and once with them unset."""
+    once with PDPT/PML4 set and once with them unset; then a hot-spot
+    window (every entry on one tile) and a late-first-MAP window (their
+    own numpy seed, so later phases' inputs stay as they were)."""
     import torch
 
+    from node_replication_torch.ops import kernel_lib
     from node_replication_torch.ops.vspace import (
         grid_rows,
         vspace_radix_replay,
@@ -975,9 +1038,13 @@ def phase_radix_replay(dev, rng, gen) -> dict:
 
     W = VS_R * VS_BW
     pt = random_frames(gen, dev, VS_R).reshape(VS_R, grid_rows(VS_P), 128)
+    edge = np.random.default_rng(SEED + 9)
+    windows = [(rx_window(rng, W, inert=True), True),
+               (rx_window(rng, W, inert=True), False),
+               (rx_edge_window(edge, W, "hot"), True),
+               (rx_edge_window(edge, W, "late"), False)]
     err = 0
-    for upper in (True, False):
-        opc_np, args_np = rx_window(rng, W, inert=True)
+    for at, ((opc_np, args_np), upper) in enumerate(windows):
         opc = torch.from_numpy(opc_np).to(dev)
         args = torch.from_numpy(args_np).to(dev)
         call = (opc, args, pt, *random_levels(gen, dev, upper), VS_P,
@@ -988,9 +1055,10 @@ def phase_radix_replay(dev, rng, gen) -> dict:
         e = max_abs_err(got, want)
         if e:
             raise AssertionError(f"K6 disagrees with its plain version "
-                                 f"(PDPT/PML4 set: {upper}): {e}")
+                                 f"(window {at} of the phase, PDPT/PML4 "
+                                 f"set: {upper}): {e}")
         err = max(err, e)
-        if upper:
+        if at == 0:  # the long-log window is the one timed
             timed, timed_np = call, (opc_np, args_np)
     del got, want
     ms = cuda_ms(lambda: vspace_radix_replay(*timed), reps=10, warmup=2)
@@ -1001,18 +1069,38 @@ def phase_radix_replay(dev, rng, gen) -> dict:
     noop = (torch.zeros_like(timed[0]), *timed[1:])
     noop_ms = cuda_ms(lambda: vspace_radix_replay(*noop), reps=10,
                       warmup=2)
+
+    parts = device_kernels(
+        lambda: [vspace_radix_replay(*timed) for _ in range(10)], 10)
+    device_ms = sum(k[0] for k in parts) or None
+    wrapper_ms = host_ms(lambda: vspace_radix_replay(*timed))
     n_bytes, n_ops = vs_bytes(VS_R, W), rx_ops(timed_np[1], timed_np[0],
                                                VS_R)
     bound_ms, by = bound(n_bytes, n_ops)
+    build = kernel_lib.BUILD_LOG.get("vspace_radix_replay.cu", "")
+    ptxas = {k: ptxas_report(build, k)
+             for k in ("radix_kernel", "radix_decode_kernel")}
     log(f"phase 9: K6 R={VS_R} P={VS_P} span={VS_SPAN} W={W}: "
-        f"bit-identical (PDPT/PML4 set and unset); kernel {ms:.4f} ms "
-        f"(state copy alone {copy_ms:.4f} ms, all-NOOP window "
-        f"{noop_ms:.4f} ms), plain {plain_ms:.2f} ms, bound "
-        f"{bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} operations)")
+        f"bit-identical (PDPT/PML4 set and unset, a hot-spot window, a "
+        f"late first MAP); kernel {ms:.4f} ms (state copy alone "
+        f"{copy_ms:.4f} ms, all-NOOP window {noop_ms:.4f} ms), wrapper "
+        f"host time {wrapper_ms:.4f} ms, device "
+        + (f"{device_ms:.4f} ms" if device_ms else "time not measured")
+        + f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} "
+        f"bytes, {n_ops} operations)")
+    for ms_k, count, name in parts:
+        log(f"  device: {name[:60]} x{count:g} {ms_k:.4f} ms")
+    for k, lines in ptxas.items():
+        for line in lines:
+            log(f"  ptxas {k}: {line}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "copy_ms": copy_ms, "noop_window_ms": noop_ms,
+            "host_ms": wrapper_ms, "device_ms": device_ms,
+            "device_kernels": [{"ms": m, "per_call": c, "name": n[:80]}
+                               for m, c, n in parts],
             "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
-            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W}
+            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W,
+            "ptxas": ptxas}
 
 
 def np_radix_apply(st, op) -> int:
@@ -1160,6 +1248,9 @@ def phase_radix_step(dev, rng, card: str, steps: int = 24) -> dict:
         f"K7b plan step {rates['plan']:.6g}, combined step "
         f"{rates['combined']:.6g}, on {card}; launches {launches}")
     del out, lc, sc, rc
+    k6_step, k6_init = paths["pallas"]
+    pace = step_pace(k6_step, batches, spec, dev, k6_init, "phase 10: K6",
+                     "radix_kernel")
     # K7b alone against its plain version: one canonical row, W = 4096
     W = VS_R * VS_BW
     opc_np, args_np = rx_window(rng, W, inert=True)
@@ -1182,16 +1273,23 @@ def phase_radix_step(dev, rng, card: str, steps: int = 24) -> dict:
                  warmup=2)
     plain_ms = cuda_ms(lambda: vs.vspace_radix_plan_replay_plain(*call),
                        reps=2)
+    device_ms = sum(k[0] for k in device_kernels(
+        lambda: [vs.vspace_radix_plan_replay(*call) for _ in range(10)],
+        10)) or None
+    wrapper_ms = host_ms(lambda: vs.vspace_radix_plan_replay(*call))
     # one row of pt, wins and clr, each in and out
     n_bytes = 4 * (6 * VS_P + 4 * W + W)
     n_ops = rx_ops(args_np, opc_np, 1)
     bound_ms, by = bound(n_bytes, n_ops)
     log(f"phase 10: K7b R=1 P={VS_P} W={W}: bit-identical; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"{ms:.4f} ms, wrapper host time {wrapper_ms:.4f} ms, device "
+        + (f"{device_ms:.4f} ms" if device_ms else "time not measured")
+        + f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
         f"({n_bytes} bytes)")
     return {"steps": steps, "dispatches": n_disp,
-            "dispatches_per_s": rates, "launches": launches,
+            "dispatches_per_s": rates, "launches": launches, "pace": pace,
             "plan_kernel": {"max_abs_err": err, "ms": ms,
+                            "host_ms": wrapper_ms, "device_ms": device_ms,
                             "plain_ms": plain_ms, "bytes": n_bytes,
                             "ops": n_ops, "bound_ms": bound_ms,
                             "bound_by": by, "W": W}}
@@ -1505,6 +1603,8 @@ def main() -> int:
         "bound_by": p["bound_by"], "library_ms": None,
         # K3: also at the window its main path launches it with
         **({"step_window": p["step_window"]} if "step_window" in p else {}),
+        # K6, K7b: torch.profiler's device time of one call
+        **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

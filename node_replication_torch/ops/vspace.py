@@ -374,10 +374,17 @@ def _bind_radix(lib: ctypes.CDLL) -> None:
     """The C signatures of `csrc/vspace_radix_replay.cu`."""
     p, i = ctypes.c_void_p, ctypes.c_int
     head = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p]
-    lib.nr_vspace_radix_replay.argtypes = head + [p, p]
+    lib.nr_vspace_radix_replay.argtypes = head + [p, p, p]
     lib.nr_vspace_radix_replay.restype = i
-    lib.nr_vspace_radix_plan_replay.argtypes = head + [p] * 6 + [p, p]
+    lib.nr_vspace_radix_plan_replay.argtypes = head + [p] * 6 + [p, p, p]
     lib.nr_vspace_radix_plan_replay.restype = i
+
+
+def _radix_scratch(W: int, n_pages: int, device) -> torch.Tensor:
+    """The radix kernels' scratch: per entry a decoded record (4 ints)
+    and a tile key, then the first-live-MAP indices `first[1 + l3]`."""
+    return torch.empty((5 * W + 1 + levels(n_pages)[1],), dtype=torch.int32,
+                       device=device)
 
 
 def _check_radix(opcodes, args, pt, pd, pdpt, pml4, n_pages: int,
@@ -482,8 +489,8 @@ def vspace_radix_replay(opcodes, args, pt, pd, pdpt, pml4, n_pages: int,
     replica's page table `pt int32[R, ...]` (rows of at least
     `n_pages`) and the canonical level tables `pd int32[l2]`, `pdpt
     int32[l3]`, `pml4 int32[1]`: `(pt, pd, pdpt, pml4, resps int32[W])`,
-    new tensors. The level copies are made on the stream before the
-    launch (the kernel only sets PDPT/PML4 entries)."""
+    new tensors. The window is decoded once per call into a scratch
+    buffer made here (`_radix_scratch`, 20 bytes an entry)."""
     W, A, R, L = _check_radix(opcodes, args, pt, pd, pdpt, pml4, n_pages,
                               max_span)
     if route(opcodes, args, pt, pd, pdpt, pml4) == "cpu":
@@ -498,7 +505,7 @@ def vspace_radix_replay(opcodes, args, pt, pd, pdpt, pml4, n_pages: int,
             R, L, pt.data_ptr(), outs[0].data_ptr(), pd.data_ptr(),
             outs[1].data_ptr(), pdpt.data_ptr(), outs[2].data_ptr(),
             pml4.data_ptr(), outs[3].data_ptr(), resps.data_ptr(),
-            _stream(pt))
+            _radix_scratch(W, n_pages, pt.device).data_ptr(), _stream(pt))
     if err:
         raise RuntimeError(f"vspace_radix_replay launch failed: CUDA "
                            f"error {err}")
@@ -531,7 +538,8 @@ def vspace_radix_plan_replay(opcodes, args, pt, pd, pdpt, pml4, wins, clr,
     with torch.cuda.device(pt.device):
         err = lib.nr_vspace_radix_plan_replay(
             opcodes.data_ptr(), args.data_ptr(), A, W, n_pages, max_span,
-            R, L, *ptrs, resps.data_ptr(), _stream(pt))
+            R, L, *ptrs, resps.data_ptr(),
+            _radix_scratch(W, n_pages, pt.device).data_ptr(), _stream(pt))
     if err:
         raise RuntimeError(f"vspace_radix_plan_replay launch failed: "
                            f"CUDA error {err}")

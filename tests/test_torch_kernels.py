@@ -236,11 +236,16 @@ def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev):
 # ----------------------------------------------- radix vspace (K6, K7b)
 
 
-def _radix_window(rng, W, P, S, dev):
+def _radix_window(rng, W, P, S, dev, kind="mixed"):
     """All four write kinds plus NOOP and unknown opcodes; vpages in
     [-P, 2P) (negative and >= P wrap through the mod), spans of n <= 0
     and n > max_span, spans that cross a PD boundary or pass P, and
-    teardowns (of unallocated regions too)."""
+    teardowns (of unallocated regions too). `hot`: every entry writes
+    pages of tile 1 (pages 1024-2047) and no other, so one tile's list is
+    the whole window. `late`: unmaps, teardowns and maps of n <= 0 up to
+    entry 3W/4, there the first live MAP (under PDPT entry 1), then the
+    mix: with the upper levels unset nothing walks before it, and after
+    it only the tiles whose PDPT entry a MAP has set."""
     opc = rng.choice(np.array([0, 1, 2, 3, 4, 4, 7, -1], np.int32), W)
     args = np.stack([rng.integers(-P, 2 * P, W),
                      rng.integers(-(1 << 31), 1 << 31, W),
@@ -251,6 +256,22 @@ def _radix_window(rng, W, P, S, dev):
         - rng.integers(1, S + 1, len(at[0]))           # cross a PD boundary
     args[at[1], 0] = P - rng.integers(1, S + 1, len(at[1]))   # pass P
     args[at[2], 2] = S                                  # full spans
+    if kind == "hot":
+        opc = rng.choice(np.array([1, 2, 3, 4], np.int32), W)
+        args[:, 0] = (rng.integers(1024, min(2049 - S, P), W)
+                      + P * rng.integers(-1, 2, W))
+        args[:, 1] = np.where(opc == 3, rng.integers(1, S + 1, W),
+                              args[:, 1])
+        args[:, 2] = rng.integers(1, S + 1, W)
+    elif kind == "late":
+        head = 3 * W // 4
+        opc[:head] = rng.choice(np.array([1, 2, 3, 4], np.int32), head)
+        args[:head, 1] = np.where(opc[:head] == 3,
+                                  rng.integers(1, S + 1, head),
+                                  args[:head, 1])
+        args[:head, 2] = rng.integers(-2, 1, head)
+        opc[head] = 1
+        args[head] = ((1 << 18) + 4096, 7, S)
     return (torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev))
 
 
@@ -265,13 +286,29 @@ def _radix_levels(rng, P, dev, upper):
     return [torch.from_numpy(a).to(dev) for a in (pd, pdpt, pml4)]
 
 
-@pytest.mark.parametrize("R,P,S,W,layout,upper", [
-    (1, 1500, 20, 64, "model", True), (3, 1500, 20, 700, "kernel", False),
-    (33, 4096, 64, 1100, "model", True),
-    (4, (1 << 18) + 3000, 64, 1500, "kernel", False),
-    (256, 1 << 14, 64, 1100, "kernel", True),
+# K6/K7b tile 1024 pages x 16 replica rows and scan the window in chunks
+# of 1024: hot windows put a list as long as W (three chunks) on one
+# tile; R = 20, 17, 33 are not multiples of 16; P = 2^20 + 1500 puts tiles
+# under five PDPT entries; P = 1501 in the model layout is a row that is
+# not whole 16-byte words (the 4-byte copies); W = 0 copies the state
+@pytest.mark.parametrize("R,P,S,W,layout,upper,window", [
+    (1, 1500, 20, 64, "model", True, "mixed"),
+    (3, 1500, 20, 700, "kernel", False, "mixed"),
+    (33, 4096, 64, 1100, "model", True, "mixed"),
+    (4, (1 << 18) + 3000, 64, 1500, "kernel", False, "mixed"),
+    (256, 1 << 14, 64, 1100, "kernel", True, "mixed"),
+    (20, 4096, 64, 3000, "model", True, "hot"),
+    (17, 1 << 14, 64, 2500, "kernel", False, "hot"),
+    (1, 1501, 20, 300, "model", True, "hot"),
+    (3, (1 << 19) + 5000, 64, 2000, "kernel", False, "late"),
+    (18, (1 << 19) + 5000, 64, 1200, "model", False, "late"),
+    (5, (1 << 20) + 1500, 64, 1500, "kernel", False, "mixed"),
+    (2, (1 << 20) + 1500, 64, 600, "model", True, "mixed"),
+    (4, 1500, 20, 0, "model", True, "mixed"),
+    (6, 1501, 20, 300, "model", False, "mixed"),
 ])
-def test_vspace_radix_kernel_equals_plain(dev, R, P, S, W, layout, upper):
+def test_vspace_radix_kernel_equals_plain(dev, R, P, S, W, layout, upper,
+                                          window):
     from node_replication_torch.ops.vspace import (
         RADIX_KERNEL,
         grid_rows,
@@ -280,7 +317,7 @@ def test_vspace_radix_kernel_equals_plain(dev, R, P, S, W, layout, upper):
     )
 
     rng = np.random.default_rng(R + W + P)
-    opc, args = _radix_window(rng, W, P, S, dev)
+    opc, args = _radix_window(rng, W, P, S, dev, window)
     shape = (R, P) if layout == "model" else (R, grid_rows(P), 128)
     pt = _vs_frames(rng, shape, dev)
     lv = _radix_levels(rng, P, dev, upper)
@@ -293,10 +330,14 @@ def test_vspace_radix_kernel_equals_plain(dev, R, P, S, W, layout, upper):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("P,S,W,upper", [
-    (1500, 20, 64, True), ((1 << 18) + 3000, 64, 4096, False),
+@pytest.mark.parametrize("P,S,W,upper,window", [
+    (1500, 20, 64, True, "mixed"),
+    ((1 << 18) + 3000, 64, 4096, False, "mixed"),
+    (4096, 64, 3000, True, "hot"), ((1 << 19) + 5000, 64, 2000, False, "late"),
+    ((1 << 20) + 1500, 64, 1500, False, "mixed"), (1500, 20, 0, True, "mixed"),
+    (1501, 20, 300, False, "mixed"),
 ])
-def test_vspace_radix_plan_kernel_equals_plain(dev, P, S, W, upper):
+def test_vspace_radix_plan_kernel_equals_plain(dev, P, S, W, upper, window):
     from node_replication_torch.ops.vspace import (
         RADIX_PLAN_KERNEL,
         vspace_radix_plan_replay,
@@ -304,7 +345,7 @@ def test_vspace_radix_plan_kernel_equals_plain(dev, P, S, W, upper):
     )
 
     rng = np.random.default_rng(P + W)
-    opc, args = _radix_window(rng, W, P, S, dev)
+    opc, args = _radix_window(rng, W, P, S, dev, window)
     pt = _vs_frames(rng, (1, P), dev)
     lv = _radix_levels(rng, P, dev, upper)
     bits = lambda n: torch.from_numpy(

@@ -431,6 +431,90 @@ def test_radix_plan_replay_matches_reference_kernel(seed):
         assert torch.equal(a, b), what
 
 
+def levels_off_state(d):
+    """Mapped pages under set PD entries (regions 0, 1 and 2) with PDPT
+    and PML4 unset: nothing walks until a live MAP sets them."""
+    st = d.init_state()
+    st["pt"] = st["pt"].at[10:40].set(5).at[600:700].set(7).at[
+        1100:1130].set(9)
+    st["pd"] = st["pd"].at[0].set(True).at[1].set(True).at[2].set(True)
+    return st
+
+
+def late_first_map_window(rng, W, P, S):
+    """UNMAPs and teardowns over mapped pages and MAPs of n <= 0, then
+    the window's first live MAP at entry 3W/4, then the usual mix:
+    before it no page walks, after it the walk switches on."""
+    head = 3 * W // 4
+    opc = rng.choice(np.array([1, 2, 3, 3, 4], np.int32), head)
+    args = np.stack([rng.choice(np.array([20, 30, 610, 650, 1110, 1120]),
+                                head) + P * rng.integers(-1, 2, head),
+                     rng.integers(1, 20, head),
+                     rng.integers(-3, 1, head)], axis=1).astype(np.int32)
+    tail_opc, tail_args = window(rng, W - head, P, S)
+    opc = np.concatenate([opc, tail_opc])
+    args = np.concatenate([args, tail_args])
+    opc[head] = 1
+    args[head] = (rng.integers(0, P - S), rng.integers(0, 60),
+                  rng.integers(1, S + 1))
+    return opc, args, head
+
+
+def _check_walk_switch(opc, resps, head):
+    # nothing walked before the first live MAP: unmaps and teardowns
+    # count 0, maps (of n <= 0) count 0
+    assert not any(resps[:head]), resps[:head]
+    assert (opc[:head] == 3).any() and (opc[:head] == 4).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_radix_replay_walk_switches_on_at_first_live_map(seed):
+    # K6's plain version against the reference kernel from a start state
+    # with PML4 = PDPT = 0: the walk turns on only after the window's
+    # first live MAP (the kernel reads this from its first[] indices)
+    P, S, W, R = 1500, 20, 64, 2
+    rng = np.random.default_rng(100 + seed)
+    jd = j_make_radix(P, max_span=S)
+    opc, args, head = late_first_map_window(rng, W, P, S)
+    st0 = levels_off_state(jd)
+    jst = jpv.pallas_vspace_state(P, R, True, st0)
+    jout = jpv.make_vspace_replay(P, R, W, S, True, interpret=True)(
+        jnp.asarray(opc), jnp.asarray(args), *(jst[k] for k in KEYS))
+    tst = tpv.pallas_vspace_state(P, R, True, _t(st0), CPU)
+    tout = tpv.make_vspace_replay(P, R, W, S, True)(
+        torch.from_numpy(opc), torch.from_numpy(args),
+        *(tst[k] for k in KEYS))
+    for a, b, what in zip(jout, tout, KEYS + ("resps",)):
+        _eq(a, b, what)
+    ref_state, ref_resps = j_fold(jd, st0, opc, args)
+    assert tout[4].tolist() == ref_resps
+    _check_walk_switch(opc, ref_resps, head)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_radix_plan_replay_walk_switches_on_at_first_live_map(seed):
+    # the same for K7b's plain version, its delta planes included
+    P, S, W = 1500, 20, 64
+    rng = np.random.default_rng(100 + seed)
+    opc, args, head = late_first_map_window(rng, W, P, S)
+    jst = jpv.pallas_vspace_state(P, 1, True, levels_off_state(
+        j_make_radix(P, max_span=S)))
+    shape = np.asarray(jst["pt"]).shape
+    planes = [(rng.random(shape) < 0.1).astype(np.int32) for _ in "wc"]
+    planes.append((rng.random(3) < 0.5).astype(np.int32))
+    jout = jpv.make_vspace_plan_replay(P, W, S, True, interpret=True)(
+        jnp.asarray(opc), jnp.asarray(args), *(jst[k] for k in KEYS),
+        *map(jnp.asarray, planes))
+    tst = interop.radix_from_numpy(jst, CPU, layout="kernel")
+    tout = tpv.make_vspace_plan_replay(P, W, S, True)(
+        torch.from_numpy(opc), torch.from_numpy(args),
+        *(tst[k] for k in KEYS), *map(torch.from_numpy, planes))
+    for a, b, what in zip(jout, tout, KEYS + ("wins", "clr", "pdt",
+                                              "resps")):
+        _eq(a, b, what)
+    _check_walk_switch(opc, tout[7].tolist(), head)
+
+
 def test_radix_step_matches_reference_step_and_scan():
     # the twin of test_pallas_vspace.py::TestPallasVspaceStep: the K6
     # step against the reference's kernel step (ring, cursors, kernel
