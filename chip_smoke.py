@@ -11,10 +11,11 @@ flagship width (R = 4096 replicas, K = 10000 keys):
 2. the replay kernel (K2) against its plain PyTorch version, W = 4096,
    then on windows with inert opcodes (0, 7), keys in [-3K, 3K) and half
    of the entries on 8 hot keys, over the flagship planes and over
-   R - 2 columns (not 16-byte aligned); logs K2's tile and its ptxas
-   registers and spills;
+   R - 2 columns (not 16-byte aligned); logs K2's tile, its device time
+   (`torch.profiler`) and its ptxas registers and spills;
 3. the fused combiner-round kernel (K1), fenced and unfenced, against
-   its plain version over rounds of W = 256 that wrap a 2^16 ring;
+   its plain version over rounds of W = 256 that wrap a 2^16 ring; its
+   device time;
 4. the lock-step step path: 64 steps of `make_pallas_step` (K2) and of
    `make_step(combined=True)` (PyTorch ops), bit-identical; then what
    sets the K2 step's pace (host enqueue time against device kernel time);
@@ -27,16 +28,22 @@ The flat vspace (NrOS page table) at the long-log deployment of
 npages = 1 + pframe % 64), at R = 256:
 
 6. the span replay kernel (K4) against its plain version, W = 4096,
-   with negative vpages, vpages near 2^31 and inert opcodes;
+   with negative vpages, vpages near 2^31 and inert opcodes, then on a
+   hot-spot window (every entry on one tile) and an int32-wrap window;
+   logs K4's event, wrapper and device time (`torch.profiler`, the
+   decode and the replay), those of the state copy alone and of an
+   all-NOOP window, and ptxas's registers and spills of its kernels;
 7. the step paths: 24 steps of W = 4096 (the 2^16 ring wraps) through
    `make_pallas_vspace_step` (K4), `make_pallas_vspace_plan_step` (K7a)
-   and `make_step(combined=True)`, bit-identical; then K7a against its
-   plain version;
+   and `make_step(combined=True)`, bit-identical; then what sets the K4
+   step's pace; then K7a against its plain version, with phase 6's
+   reads;
 8. `NodeReplicated(make_vspace(2^18, 64), 256)` with `engine='pallas'`
    (K5) and `'combined'`: 72 rounds of 1024 writes (the ring wraps)
    plus cross-replica IDENTIFY/RESOLVED reads, a few rounds with one
    replica fenced (they take the chain), identical to each other and
-   to a numpy page table; then K5 against its plain version.
+   to a numpy page table; then K5 against its plain version, with phase
+   6's reads.
 
 The radix vspace (4-level page table, the default model of
 `benches/vspace.py`) at the same long-log deployment and R = 256, with
@@ -66,7 +73,7 @@ keys, N = 2^23 slots, probe 16, 50% PUT/REMOVE, batch 32), R = 16:
    against the scan step from that state, bit-identical; then K3
    against its plain version at W = 4096, half the keys present, 17
    keys sharing one home (window-full drops) and windows that wrap,
-   and at the step's W = 256.
+   and at the step's W = 256, with its device time there.
 
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10, 11) and
@@ -106,6 +113,8 @@ OA_W = 4096         # K3's window against its plain version
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 INT_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+# the flat kernels' entry functions (ptxas's lines, the step's share)
+VS_ENTRIES = ("flat_decode_kernel", "flat_kernel")
 
 
 def log(msg: str) -> None:
@@ -229,11 +238,13 @@ def phase_replay(dev, rng, gen) -> dict:
     plain_ms = cuda_ms(lambda: hashmap_replay_plain(*args), reps=3)
     empty = (opc[:0], key[:0], val[:0], vals, pres, K)
     copy_ms = cuda_ms(lambda: hashmap_replay(*empty), reps=10, warmup=2)
+    dt = device_time(lambda: hashmap_replay(*args))
     n_bytes = 4 * (4 * kp * R + W * R + 3 * W)
     bound_ms, by = bound(n_bytes, 4 * W * R)
     log(f"phase 2: K2 R={R} K={K} W={W}: bit-identical; kernel {ms:.4f} "
         f"ms (state copy alone {copy_ms:.4f} ms), plain {plain_ms:.2f} "
         f"ms, bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    log_device("phase 2: K2", dt)
     # the edges: inert opcodes, keys in [-3K, 3K), half of the entries on
     # 8 hot keys; over the flagship planes and over R - 2 columns
     edge = np.random.default_rng(SEED + 2)
@@ -265,9 +276,9 @@ def phase_replay(dev, rng, gen) -> dict:
     for line in ptxas:
         log(f"  ptxas hashmap_replay_kernel: {line}")
     return {"max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "copy_ms": copy_ms, "bytes": n_bytes,
-            "bound_ms": bound_ms, "bound_by": by, "R": R, "K": K, "W": W,
-            "tile": tile, "ptxas": ptxas}
+            "plain_ms": plain_ms, "copy_ms": copy_ms, **dt,
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by, "R": R,
+            "K": K, "W": W, "tile": tile, "ptxas": ptxas}
 
 
 def phase_fused(dev, rng, gen) -> dict:
@@ -327,6 +338,9 @@ def phase_fused(dev, rng, gen) -> dict:
         tail += count
         rnd += 1
     rounds = rnd
+    # one standalone unfenced call on the last round's inputs
+    dt = device_time(lambda: hashmap_fused_round(
+        spec, tail_t, count, opc_t, args_t, *kern, K, None))
     n_bytes = 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
     bound_ms, by = bound(n_bytes, 4 * W * R)
     ms = statistics.median(times[False][0][1:])
@@ -337,7 +351,8 @@ def phase_fused(dev, rng, gen) -> dict:
         f"{tail}, bit-identical; kernel {ms:.4f} ms (fenced {ms_f:.4f}), "
         f"plain {plain_ms:.2f} ms (fenced {plain_ms_f:.2f}), bound "
         f"{bound_ms:.4f} ms ({n_bytes} bytes)")
-    return {"max_abs_err": err, "ms": ms, "ms_fenced": ms_f,
+    log_device("phase 3: K1", dt)
+    return {"max_abs_err": err, "ms": ms, "ms_fenced": ms_f, **dt,
             "plain_ms": plain_ms, "plain_ms_fenced": plain_ms_f,
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
             "rounds": rounds, "tail": tail, "R": R, "K": K, "W": W,
@@ -442,19 +457,49 @@ def device_kernels(run, n: int) -> list[tuple[float, int, str]]:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)  # the tracer starts before the first launch
         run()
         torch.cuda.synchronize()
-    return sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    # the tracer can still miss the first call's first kernels: a
+    # kernel's time per call is its mean launch times its launches per
+    # call, rounded (kernels launched less than once every other call
+    # are left out)
+    out = []
+    for e in prof.key_averages():
+        per = round(e.count / n)
+        if e.device_type == DeviceType.CUDA and per:
+            out.append((e.self_device_time_total / 1e3 / e.count * per, per,
+                        e.key))
+    return sorted(out, reverse=True)
+
+
+def device_time(call, n: int = 10) -> dict:
+    """`device_kernels` of `n` calls of `call()`: the device time of one
+    call in ms (None where the profiler saw no device time) and its
+    kernels."""
+    parts = device_kernels(lambda: [call() for _ in range(n)], n)
+    return {"device_ms": sum(k[0] for k in parts) or None,
+            "device_kernels": [{"ms": m, "per_call": c, "name": k[:80]}
+                               for m, c, k in parts]}
+
+
+def log_device(label: str, dt: dict) -> None:
+    """One log line of a `device_time` read, with its kernels."""
+    ms = dt["device_ms"]
+    log(f"{label} device time " + (f"{ms:.4f} ms: " if ms else
+                                   "not measured")
+        + ", ".join(f"{k['name'][:48]} x{k['per_call']:g} {k['ms']:.4f} ms"
+                    for k in dt["device_kernels"]))
 
 
 def step_pace(step, batches, spec, dev, init, label: str,
-              kernel: str) -> dict:
+              kernel) -> dict:
     """What sets a step path's pace: the host's time to enqueue the steps
     (no synchronisation until the end) against the device's kernel time
     in them (`torch.profiler`, a second pass), per step in ms, and the
-    share of that device time spent in the kernels named `kernel`."""
+    share of that device time spent in the kernels whose names hold
+    `kernel` (a name, or a tuple of names)."""
     import torch
 
     from node_replication_torch import log_init
@@ -470,12 +515,14 @@ def step_pace(step, batches, spec, dev, init, label: str,
         return queued, time.perf_counter() - t0
 
     n = len(batches)
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     queued, wall = run()
     kernels = device_kernels(run, n)
     device_ms = sum(k[0] for k in kernels)
-    kernel_ms = sum(k[0] for k in kernels if kernel in k[2])
+    kernel_ms = sum(k[0] for k in kernels
+                    if any(name in k[2] for name in names))
     out = {"enqueue_ms": queued / n * 1e3, "wall_ms": wall / n * 1e3,
-           "device_ms": device_ms or None, "kernel": kernel,
+           "device_ms": device_ms or None, "kernel": "/".join(names),
            "kernel_ms": kernel_ms or None,
            "kernel_share": kernel_ms / device_ms if device_ms else None,
            "kernels": [{"ms": ms, "per_step": c, "name": name[:80]}
@@ -483,7 +530,7 @@ def step_pace(step, batches, spec, dev, init, label: str,
     log(f"{label} step pace, per step: host enqueues it in "
         f"{out['enqueue_ms']:.4f} ms, wall {out['wall_ms']:.4f} ms, device "
         f"kernel time "
-        + (f"{device_ms:.4f} ms, {kernel} {kernel_ms:.4f} ms of it "
+        + (f"{device_ms:.4f} ms, {out['kernel']} {kernel_ms:.4f} ms of it "
            f"({100 * out['kernel_share']:.1f}%)" if device_ms
            else "not measured")
         + "; top kernels " + ", ".join(
@@ -603,6 +650,50 @@ def vs_window(rng, W, inert=False):
     return opc, args
 
 
+def vs_edge_window(rng, W, kind):
+    """Windows that K4's per-tile lists must get right. `hot`: the
+    long-log mix with every vpage in one 1024-page tile (pages
+    1024-2047), so that tile's list is the whole window, across its scan
+    chunks. `wrap`: a third of the vpages near 2^31 (the lanes whose
+    int32 sum wraps negative act), a third of the pframes near 2^31 (the
+    stored value wraps), a third of the vpages in [-64, 0) (the span
+    wraps from page P - 1 through 0)."""
+    opc, args = vs_window(rng, W)
+    if kind == "hot":
+        args[:, 0] = rng.integers(1024, 2048 - VS_SPAN, W)
+        return opc, args
+    near, val, neg = np.array_split(rng.permutation(W), 3)
+    args[near, 0] = 2 ** 31 - 1 - rng.integers(0, VS_SPAN, len(near))
+    args[val, 1] = 2 ** 31 - 1 - rng.integers(0, VS_SPAN, len(val))
+    args[neg, 0] = -rng.integers(1, VS_SPAN + 1, len(neg))
+    return opc, args
+
+
+def vs_reads(call, empty, noop) -> dict:
+    """The reads of a flat kernel: the event time of `call()`, the
+    wrapper's host time, the device time (`torch.profiler`, by kernel:
+    the decode and the replay); then the event and device times of
+    `empty()`, the state copy alone, and of `noop()`, the copy and an
+    all-NOOP window."""
+    out = {"ms": cuda_ms(call, reps=10, warmup=2), "host_ms": host_ms(call),
+           **device_time(call)}
+    for key, fn in (("copy", empty), ("noop_window", noop)):
+        out[f"{key}_ms"] = cuda_ms(fn, reps=10, warmup=2)
+        out[f"{key}_device_ms"] = device_time(fn)["device_ms"]
+    return out
+
+
+def log_vs_reads(label: str, r: dict) -> None:
+    """`vs_reads` as log lines."""
+    fmt = lambda x: f"{x:.4f} ms" if x else "not measured"
+    log(f"{label}: event time {r['ms']:.4f} ms (wrapper host time "
+        f"{r['host_ms']:.4f} ms); state copy alone {r['copy_ms']:.4f} ms, "
+        f"device {fmt(r['copy_device_ms'])}; all-NOOP window "
+        f"{r['noop_window_ms']:.4f} ms, device "
+        f"{fmt(r['noop_window_device_ms'])}")
+    log_device(label, r)
+
+
 def vs_bytes(R, W, extra=0):
     """Bytes K4/K7a/K5 must move: the int32 [R, P] state in and out, the
     window (opcode + 3 args) and the [W] responses, plus `extra`."""
@@ -630,9 +721,12 @@ def random_frames(gen, dev, R):
 
 def phase_vspace_replay(dev, rng, gen) -> dict:
     """K4 against its plain version: one W = 4096 window over random
-    frames (R = 256, P = 2^18, kernel layout [R, ROWS, 128])."""
+    frames (R = 256, P = 2^18, kernel layout [R, ROWS, 128]), then a
+    hot-spot window and an int32-wrap window (their own numpy seed, so
+    later phases' inputs stay as they were)."""
     import torch
 
+    from node_replication_torch.ops import kernel_lib
     from node_replication_torch.ops.vspace import (
         grid_rows,
         vspace_replay,
@@ -641,36 +735,59 @@ def phase_vspace_replay(dev, rng, gen) -> dict:
 
     W = VS_R * VS_BW
     opc_np, args_np = vs_window(rng, W, inert=True)
-    opc = torch.from_numpy(opc_np).to(dev)
-    args = torch.from_numpy(args_np).to(dev)
     frames = random_frames(gen, dev, VS_R).reshape(
         VS_R, grid_rows(VS_P), 128)
-    call = (opc, args, frames, VS_P, VS_SPAN)
-    got = vspace_replay(*call)
-    want = vspace_replay_plain(*call)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    if err:
-        raise AssertionError(f"K4 disagrees with its plain version: {err}")
-    del got, want
-    ms = cuda_ms(lambda: vspace_replay(*call), reps=10, warmup=2)
-    plain_ms = cuda_ms(lambda: vspace_replay_plain(*call), reps=2)
+    edge = np.random.default_rng(SEED + 6)
+    windows = {"long-log": (opc_np, args_np),
+               "hot-spot": vs_edge_window(edge, W, "hot"),
+               "int32-wrap": vs_edge_window(edge, W, "wrap")}
+    err = 0
+    for kind, (o, a) in windows.items():
+        call = (torch.from_numpy(o).to(dev), torch.from_numpy(a).to(dev),
+                frames, VS_P, VS_SPAN)
+        got = vspace_replay(*call)
+        want = vspace_replay_plain(*call)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K4 disagrees with its plain version on "
+                                 f"the {kind} window: {e}")
+        err = max(err, e)
+        if kind == "long-log":  # the one timed
+            timed = call
+        elif kind == "hot-spot":  # one warp replays the whole window
+            hot = call
+        del got, want
+    opc, args = timed[:2]
+    plain_ms = cuda_ms(lambda: vspace_replay_plain(*timed), reps=2)
     # where the kernel's time goes: the state copy alone (an empty
-    # window), then the copy plus staging and scanning an all-NOOP one
+    # window), then the copy plus decoding and scanning an all-NOOP one
     empty = (opc[:0], args[:0], frames, VS_P, VS_SPAN)
-    copy_ms = cuda_ms(lambda: vspace_replay(*empty), reps=10, warmup=2)
     noop = (torch.zeros_like(opc), args, frames, VS_P, VS_SPAN)
-    noop_ms = cuda_ms(lambda: vspace_replay(*noop), reps=10, warmup=2)
+    reads = vs_reads(lambda: vspace_replay(*timed),
+                     lambda: vspace_replay(*empty),
+                     lambda: vspace_replay(*noop))
+    reads["hot_device_ms"] = device_time(
+        lambda: vspace_replay(*hot))["device_ms"]
     n_bytes, n_ops = vs_bytes(VS_R, W), vs_ops(args_np, opc_np, VS_R)
     bound_ms, by = bound(n_bytes, n_ops)
     log(f"phase 6: K4 R={VS_R} P={VS_P} span={VS_SPAN} W={W}: "
-        f"bit-identical; kernel {ms:.4f} ms (state copy alone "
-        f"{copy_ms:.4f} ms, all-NOOP window {noop_ms:.4f} ms), plain "
-        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} bytes)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "copy_ms": copy_ms, "noop_window_ms": noop_ms,
+        f"bit-identical (long-log, hot-spot and int32-wrap windows); "
+        f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} "
+        f"bytes, {n_ops} operations)")
+    log_vs_reads("phase 6: K4", reads)
+    log(f"phase 6: K4 on the hot-spot window: device time "
+        + (f"{reads['hot_device_ms']:.4f} ms" if reads["hot_device_ms"]
+           else "not measured"))
+    build = kernel_lib.BUILD_LOG.get("vspace_replay.cu", "")
+    ptxas = {k: ptxas_report(build, k) for k in VS_ENTRIES}
+    for k, lines in ptxas.items():
+        for line in lines:
+            log(f"  ptxas {k}: {line}")
+    return {"max_abs_err": err, **reads, "plain_ms": plain_ms,
             "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
-            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W}
+            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W,
+            "ptxas": ptxas}
 
 
 def _vs_step_batches(rng, dev, steps):
@@ -758,6 +875,9 @@ def phase_vspace_step(dev, rng, card: str, steps: int = 24) -> dict:
         f"combined step {rates['combined']:.6g}, on {card}; launches "
         f"{launches}")
     del out, lc, sc, rc
+    k4_step, k4_init = paths["pallas"]
+    pace = step_pace(k4_step, batches, spec, dev, k4_init, "phase 7: K4",
+                     VS_ENTRIES)
     # K7a alone against its plain version: one canonical row, W = 4096
     W = VS_R * VS_BW
     opc_np, args_np = vs_window(rng, W, inert=True)
@@ -773,18 +893,23 @@ def phase_vspace_step(dev, rng, card: str, steps: int = 24) -> dict:
     err = max_abs_err(got, want)
     if err:
         raise AssertionError(f"K7a disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: vs.vspace_plan_replay(*call), reps=20, warmup=2)
+    del got, want
     plain_ms = cuda_ms(lambda: vs.vspace_plan_replay_plain(*call), reps=2)
+    empty = (opc[:0], args[:0], *call[2:])
+    noop = (torch.zeros_like(opc), *call[1:])
+    reads = vs_reads(lambda: vs.vspace_plan_replay(*call),
+                     lambda: vs.vspace_plan_replay(*empty),
+                     lambda: vs.vspace_plan_replay(*noop))
     # one row of frames and of the touched plane, in and out
     n_bytes = 4 * (4 * VS_P + 4 * W + W)
     n_ops = vs_ops(args_np, opc_np, 1)
     bound_ms, by = bound(n_bytes, n_ops)
-    log(f"phase 7: K7a R=1 P={VS_P} W={W}: bit-identical; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes} bytes)")
+    log(f"phase 7: K7a R=1 P={VS_P} W={W}: bit-identical; plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    log_vs_reads("phase 7: K7a", reads)
     return {"steps": steps, "dispatches": n_disp,
-            "dispatches_per_s": rates, "launches": launches,
-            "plan_kernel": {"max_abs_err": err, "ms": ms,
+            "dispatches_per_s": rates, "launches": launches, "pace": pace,
+            "plan_kernel": {"max_abs_err": err, **reads,
                             "plain_ms": plain_ms, "bytes": n_bytes,
                             "ops": n_ops, "bound_ms": bound_ms,
                             "bound_by": by, "W": W}}
@@ -926,19 +1051,26 @@ def phase_vspace_replica(dev, rng, rounds: int = 72) -> dict:
     if err:
         raise AssertionError(f"K5 disagrees with its plain version: {err}")
     del got, want
-    ms = cuda_ms(lambda: vs.vspace_fused_round(*call), reps=10, warmup=2)
     plain_ms = cuda_ms(lambda: vs.vspace_fused_round_plain(*call), reps=2)
+    # the copy alone: a one-entry NOOP window that appends nothing
+    empty = (*call[:2], 0, torch.zeros_like(opcodes[:1]), args[:1],
+             *call[5:])
+    noop = (*call[:3], torch.zeros_like(opcodes), *call[4:])
+    reads = vs_reads(lambda: vs.vspace_fused_round(*call),
+                     lambda: vs.vspace_fused_round(*empty),
+                     lambda: vs.vspace_fused_round(*noop))
     L = nk.spec.capacity
     n_bytes = vs_bytes(VS_R, VS_ROUND, extra=4 * 2 * L * 4)
     n_ops = vs_ops(args_np, opc_np, VS_R)
     bound_ms, by = bound(n_bytes, n_ops)
     log(f"phase 8: K5 R={VS_R} P={VS_P} W={VS_ROUND} ring={L}: "
-        f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-        f"bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+        f"bit-identical; plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes} bytes)")
+    log_vs_reads("phase 8: K5", reads)
     return {"rounds": rounds, "round_ms": med, "launches": launches,
             "fused_rounds": sk["fused_rounds"],
             "fused_fallback": fallback.value - fb0,
-            "fused_kernel": {"max_abs_err": err, "ms": ms,
+            "fused_kernel": {"max_abs_err": err, **reads,
                              "plain_ms": plain_ms, "bytes": n_bytes,
                              "ops": n_ops, "bound_ms": bound_ms,
                              "bound_by": by, "W": VS_ROUND,
@@ -1070,9 +1202,8 @@ def phase_radix_replay(dev, rng, gen) -> dict:
     noop_ms = cuda_ms(lambda: vspace_radix_replay(*noop), reps=10,
                       warmup=2)
 
-    parts = device_kernels(
-        lambda: [vspace_radix_replay(*timed) for _ in range(10)], 10)
-    device_ms = sum(k[0] for k in parts) or None
+    dt = device_time(lambda: vspace_radix_replay(*timed))
+    device_ms = dt["device_ms"]
     wrapper_ms = host_ms(lambda: vspace_radix_replay(*timed))
     n_bytes, n_ops = vs_bytes(VS_R, W), rx_ops(timed_np[1], timed_np[0],
                                                VS_R)
@@ -1088,19 +1219,15 @@ def phase_radix_replay(dev, rng, gen) -> dict:
         + (f"{device_ms:.4f} ms" if device_ms else "time not measured")
         + f", plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes} "
         f"bytes, {n_ops} operations)")
-    for ms_k, count, name in parts:
-        log(f"  device: {name[:60]} x{count:g} {ms_k:.4f} ms")
+    log_device("phase 9: K6", dt)
     for k, lines in ptxas.items():
         for line in lines:
             log(f"  ptxas {k}: {line}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "copy_ms": copy_ms, "noop_window_ms": noop_ms,
-            "host_ms": wrapper_ms, "device_ms": device_ms,
-            "device_kernels": [{"ms": m, "per_call": c, "name": n[:80]}
-                               for m, c, n in parts],
-            "bytes": n_bytes, "ops": n_ops, "bound_ms": bound_ms,
-            "bound_by": by, "R": VS_R, "P": VS_P, "span": VS_SPAN, "W": W,
-            "ptxas": ptxas}
+            "host_ms": wrapper_ms, **dt, "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": bound_ms, "bound_by": by, "R": VS_R, "P": VS_P,
+            "span": VS_SPAN, "W": W, "ptxas": ptxas}
 
 
 def np_radix_apply(st, op) -> int:
@@ -1273,9 +1400,8 @@ def phase_radix_step(dev, rng, card: str, steps: int = 24) -> dict:
                  warmup=2)
     plain_ms = cuda_ms(lambda: vs.vspace_radix_plan_replay_plain(*call),
                        reps=2)
-    device_ms = sum(k[0] for k in device_kernels(
-        lambda: [vs.vspace_radix_plan_replay(*call) for _ in range(10)],
-        10)) or None
+    device_ms = device_time(
+        lambda: vs.vspace_radix_plan_replay(*call))["device_ms"]
     wrapper_ms = host_ms(lambda: vs.vspace_radix_plan_replay(*call))
     # one row of pt, wins and clr, each in and out
     n_bytes = 4 * (6 * VS_P + 4 * W + W)
@@ -1498,9 +1624,11 @@ def phase_oahashmap(dev, rng, card: str, steps: int = 24) -> dict:
                    warmup=2)
     plain_ms_s = cuda_ms(lambda: oa.oahashmap_replay_plain(*step_call),
                          reps=1)
+    dt = device_time(lambda: oa.oahashmap_replay(*step_call))
     bound_s, by_s = bound(*k3_cost(Ws))
     log(f"phase 11: K3 at the step's W={Ws}: bit-identical; kernel "
         f"{ms_s:.4f} ms, plain {plain_ms_s:.2f} ms, bound {bound_s:.4f} ms")
+    log_device(f"phase 11: K3 at W={Ws}", dt)
     return {"fill_s": fill_s, "fill_dropped": int(dropped.sum()),
             "steps": steps, "dispatches": n_disp, "dispatches_per_s": rates,
             "launches": launches,
@@ -1508,7 +1636,7 @@ def phase_oahashmap(dev, rng, card: str, steps: int = 24) -> dict:
                        "plain_ms": plain_ms, "copy_ms": copy_ms,
                        "drops": n_drop, "bytes": n_bytes, "ops": n_ops,
                        "bound_ms": bound_ms, "bound_by": by, "W": W,
-                       "step_window": {"W": Ws, "ms": ms_s,
+                       "step_window": {"W": Ws, "ms": ms_s, **dt,
                                        "plain_ms": plain_ms_s,
                                        "bound_ms": bound_s,
                                        "bound_by": by_s}}}
@@ -1603,7 +1731,8 @@ def main() -> int:
         "bound_by": p["bound_by"], "library_ms": None,
         # K3: also at the window its main path launches it with
         **({"step_window": p["step_window"]} if "step_window" in p else {}),
-        # K6, K7b: torch.profiler's device time of one call
+        # torch.profiler's device time of one call (K3's is at the
+        # step's window, under step_window)
         **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)

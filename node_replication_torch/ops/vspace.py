@@ -144,11 +144,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     """The C signatures of `csrc/vspace_replay.cu`."""
     p, i = ctypes.c_void_p, ctypes.c_int
     head = [p, p, i, i, i, i, i, i, p, p]
-    lib.nr_vspace_replay.argtypes = head + [p, p]
+    lib.nr_vspace_replay.argtypes = head + [p, p, p]
     lib.nr_vspace_replay.restype = i
-    lib.nr_vspace_plan_replay.argtypes = head + [p, p, p, p]
+    lib.nr_vspace_plan_replay.argtypes = head + [p, p, p, p, p]
     lib.nr_vspace_plan_replay.restype = i
-    lib.nr_vspace_fused_round.argtypes = head + [p, p, i, i, p, p, p, p, p]
+    lib.nr_vspace_fused_round.argtypes = head + [p, p, i, i, p, p, p, p, p,
+                                                 p]
     lib.nr_vspace_fused_round.restype = i
 
 
@@ -156,6 +157,12 @@ def _library() -> ctypes.CDLL:
     """The kernels' library (`csrc/vspace_replay.cu`), built at first
     use by `ops/kernel_lib.py`."""
     return library("vspace_replay", _bind)
+
+
+def _flat_scratch(W: int, device) -> torch.Tensor:
+    """The flat kernels' scratch: per entry a decoded record (4 ints)
+    and a tile key."""
+    return torch.empty((5 * W,), dtype=torch.int32, device=device)
 
 
 def _check(opcodes, args, frames, n_pages: int, max_span: int,
@@ -279,7 +286,10 @@ def _stream(t: torch.Tensor) -> int:
 def vspace_replay(opcodes, args, frames, n_pages: int, max_span: int):
     """Replay `opcodes int32[W]`, `args int32[W, A]` in order into every
     replica's row of `frames int32[R, ...]` (rows of at least
-    `n_pages`): `(frames, resps int32[W])`, new tensors."""
+    `n_pages`): `(frames, resps int32[W])`, new tensors. One C call
+    launches the decode pre-pass and the replay body on the current
+    stream; the window is decoded into a scratch buffer made here
+    (`_flat_scratch`, 20 bytes an entry)."""
     W, A, R, L = _check(opcodes, args, frames, n_pages, max_span)
     if route(opcodes, args, frames) == "cpu":
         return vspace_replay_plain(opcodes, args, frames, n_pages,
@@ -290,8 +300,8 @@ def vspace_replay(opcodes, args, frames, n_pages: int, max_span: int):
     with torch.cuda.device(frames.device):
         err = lib.nr_vspace_replay(
             opcodes.data_ptr(), args.data_ptr(), A, W, n_pages, max_span,
-            R, L, frames.data_ptr(), out.data_ptr(),
-            resps.data_ptr(), _stream(frames))
+            R, L, frames.data_ptr(), out.data_ptr(), resps.data_ptr(),
+            _flat_scratch(W, frames.device).data_ptr(), _stream(frames))
     if err:
         raise RuntimeError(f"vspace_replay launch failed: CUDA error "
                            f"{err}")
@@ -303,7 +313,9 @@ def vspace_plan_replay(opcodes, args, frames, touched, n_pages: int,
                        max_span: int):
     """`vspace_replay` that also carries the `touched int32` plane
     (frames' shape): set to 1 on every page the window writes.
-    Returns `(frames, touched, resps int32[W])`, new tensors."""
+    Returns `(frames, touched, resps int32[W])`, new tensors. One C call,
+    a decode pre-pass and the replay body, with a scratch buffer made
+    here, as in `vspace_replay`."""
     W, A, R, L = _check(opcodes, args, frames, n_pages, max_span)
     expect(touched, "touched", tuple(frames.shape), torch.int32)
     if route(opcodes, args, frames, touched) == "cpu":
@@ -318,7 +330,7 @@ def vspace_plan_replay(opcodes, args, frames, touched, n_pages: int,
             opcodes.data_ptr(), args.data_ptr(), A, W, n_pages, max_span,
             R, L, frames.data_ptr(), out.data_ptr(),
             touched.data_ptr(), t_out.data_ptr(), resps.data_ptr(),
-            _stream(frames))
+            _flat_scratch(W, frames.device).data_ptr(), _stream(frames))
     if err:
         raise RuntimeError(f"vspace_plan_replay launch failed: CUDA "
                            f"error {err}")
@@ -333,7 +345,10 @@ def vspace_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
     slots `(tail + j) & mask`, replay the whole NOOP-padded batch into
     `frames int32[R, ...]`. Returns `(ring_opc, ring_args, frames, resps
     int32[W])`, new tensors. `tail` is the int64 cursor as a 0-d tensor
-    on the frames' device; `count` a host int."""
+    on the frames' device; `count` a host int. One C call: a decode
+    pre-pass, which also writes the ring, and the replay body, on the
+    current stream, with a scratch buffer made here, as in
+    `vspace_replay`."""
     W, A, R, L = _check(opcodes, args, frames, n_pages, max_span)
     cap = spec.capacity
     if A != spec.arg_width:
@@ -359,7 +374,8 @@ def vspace_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
             R, L, frames.data_ptr(), out.data_ptr(),
             resps.data_ptr(), tail.data_ptr(), int(count), cap,
             ring_opc.data_ptr(), ring_args.data_ptr(), ro.data_ptr(),
-            ra.data_ptr(), _stream(frames))
+            ra.data_ptr(), _flat_scratch(W, frames.device).data_ptr(),
+            _stream(frames))
     if err:
         raise RuntimeError(f"vspace_fused_round launch failed: CUDA "
                            f"error {err}")
@@ -854,8 +870,10 @@ class FusedVspaceEngine(FusedEngineHost):
                 and window <= self.spec.capacity - self.spec.gc_slack)
 
     def launches(self, window: int) -> int:
-        """Kernel launches per round: always one (no replica chunking
-        on the GPU)."""
+        """Kernel wrapper calls per round: always one (no replica
+        chunking on the GPU), one C call that launches the decode
+        pre-pass (with the ring append) and the replay body on one
+        stream."""
         del window
         return 1
 

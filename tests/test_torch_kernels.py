@@ -7,7 +7,8 @@ shapes: replica counts that are not a multiple of a warp or of 4,
 planes that are not 16-byte aligned, windows past one shared-memory
 chunk, one key for the whole window, hot keys, negative keys, ring
 wrap, fenced lanes, and for the flat vspace kernels spans that end at
-P-1 or wrap through 0, int32 wrap near 2^31, n = 0, both state layouts.
+P-1 or wrap through 0, int32 wrap near 2^31, n = 0, both state layouts,
+hot tiles, spans across tile edges and partial last tiles.
 Every value is an integer, so the tolerance is 0.
 
 This file imports torch and the port only, so it runs on a machine
@@ -126,10 +127,14 @@ def test_fused_kernel_equals_plain_across_ring_wrap(dev, fenced):
 # ------------------------------------------------- flat vspace (K4, K7a, K5)
 
 
-def _vs_window(rng, W, P, S, dev):
+def _vs_window(rng, W, P, S, dev, kind="mixed"):
     """Spans ending at P-1 and wrapping through 0, vpages near 2^31,
     pframes near 2^31 (int32 wrap of pframe + lane), n = 0, n < 0,
-    n > max_span, NOOP and unknown opcodes."""
+    n > max_span, NOOP and unknown opcodes. `hot`: every span in tile 1
+    (pages 1024-2047), from vpages v and v - P, so that tile's list is
+    the whole window. `cross`: half of the spans cross a 1024-page tile
+    boundary, half start within max_span of P (from the last tile, often
+    partial, through page 0 into tile 0). `noop`: every opcode 0."""
     opc = rng.choice(np.array([0, 1, 1, 2, 7, -1], np.int32), W)
     args = np.stack([rng.integers(-P, 2 * P, W),
                      rng.integers(1, 1 << 31, W),
@@ -142,6 +147,17 @@ def _vs_window(rng, W, P, S, dev):
     args[at[2], 0] = 2 ** 31 - 1 - rng.integers(0, S, len(at[2]))
     args[at[3], 1] = 2 ** 31 - 1 - rng.integers(0, S, len(at[3]))
     args[at[4], 2] = 0
+    if kind == "hot":
+        opc = rng.choice(np.array([1, 1, 2], np.int32), W)
+        args[:, 0] = (rng.integers(1024, min(2048, P) - S + 1, W)
+                      - P * rng.integers(0, 2, W))
+        args[:, 2] = rng.integers(1, S + 1, W)
+    elif kind == "cross":
+        half = np.arange(W) < W // 2
+        edge = 1024 * rng.integers(1, max(2, -(-P // 1024)), W)
+        args[:, 0] = np.where(half, edge, P) - rng.integers(1, S + 1, W)
+    elif kind == "noop":
+        opc[:] = 0
     return (torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev))
 
 
@@ -151,11 +167,30 @@ def _vs_frames(rng, shape, dev):
     return torch.from_numpy(f).to(dev)
 
 
-@pytest.mark.parametrize("R,P,S,W,layout", [
-    (1, 300, 5, 7, "model"), (3, 600, 8, 300, "kernel"),
-    (33, 4096, 64, 2500, "model"), (256, 1 << 14, 64, 1100, "kernel"),
+# K4/K7a/K5 tile 1024 pages x 64 replica rows and scan the window in
+# chunks of 1024: R = 17, 65, 257 leave a short last group; hot windows
+# put a list as long as W (three chunks) on one tile; P = 2^18 + 1500
+# and P = 1500 end in a partial tile (the kernel layout's rows pass P);
+# P = 1501 in the model layout is a row that is not whole 16-byte words
+# (the 4-byte copies), as are unaligned planes; P = 300 is one tile, so
+# a wrapped span lands in the tile it started in; S = P (3000) gives
+# spans that meet three tiles or more; W = 0 copies the state
+@pytest.mark.parametrize("R,P,S,W,layout,window", [
+    (1, 300, 5, 7, "model", "mixed"), (3, 600, 8, 300, "kernel", "mixed"),
+    (33, 4096, 64, 2500, "model", "mixed"),
+    (256, 1 << 14, 64, 1100, "kernel", "mixed"),
+    (17, 4096, 64, 3000, "model", "hot"),
+    (65, 1 << 14, 64, 2500, "kernel", "hot"),
+    (3, 1500, 20, 500, "model", "noop"), (4, 1500, 20, 0, "model", "mixed"),
+    (5, (1 << 18) + 1500, 64, 2000, "kernel", "mixed"),
+    (2, (1 << 18) + 1500, 64, 1500, "kernel", "cross"),
+    (2, 1500, 20, 300, "model", "cross"), (6, 1501, 20, 300, "model", "mixed"),
+    (3, 1500, 20, 300, "model", "unaligned"),
+    (257, 4096, 64, 700, "kernel", "cross"),
+    (65, 300, 64, 500, "model", "mixed"),
+    (3, 3000, 3000, 200, "model", "mixed"),
 ])
-def test_vspace_replay_kernel_equals_plain(dev, R, P, S, W, layout):
+def test_vspace_replay_kernel_equals_plain(dev, R, P, S, W, layout, window):
     from node_replication_torch.ops.vspace import (
         REPLAY_KERNEL,
         grid_rows,
@@ -164,9 +199,11 @@ def test_vspace_replay_kernel_equals_plain(dev, R, P, S, W, layout):
     )
 
     rng = np.random.default_rng(R + W)
-    opc, args = _vs_window(rng, W, P, S, dev)
+    opc, args = _vs_window(rng, W, P, S, dev, window)
     shape = (R, P) if layout == "model" else (R, grid_rows(P), 128)
     frames = _vs_frames(rng, shape, dev)  # the padding is copied through
+    if window == "unaligned":
+        frames = _unaligned(frames)
     before = REPLAY_KERNEL.launches
     got = vspace_replay(opc, args, frames, P, S)
     torch.cuda.synchronize()
@@ -176,19 +213,33 @@ def test_vspace_replay_kernel_equals_plain(dev, R, P, S, W, layout):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("P,S,W", [(300, 5, 33), (1 << 18, 64, 4096)])
-def test_vspace_plan_kernel_equals_plain(dev, P, S, W):
+# the contract takes any R; the plan step passes R = 1, model layout
+@pytest.mark.parametrize("P,S,W,R,layout,window", [
+    (300, 5, 33, 1, "model", "mixed"), (1 << 18, 64, 4096, 1, "model",
+                                        "mixed"),
+    (4096, 64, 3000, 1, "model", "hot"), (1500, 20, 500, 1, "model", "noop"),
+    (1500, 20, 0, 1, "model", "mixed"), (1501, 20, 300, 1, "model", "cross"),
+    (1500, 20, 300, 1, "model", "unaligned"),
+    ((1 << 18) + 1500, 64, 2000, 1, "kernel", "cross"),
+    (4096, 64, 700, 17, "model", "mixed"), (1500, 20, 300, 65, "kernel",
+                                            "cross"),
+])
+def test_vspace_plan_kernel_equals_plain(dev, P, S, W, R, layout, window):
     from node_replication_torch.ops.vspace import (
         PLAN_KERNEL,
+        grid_rows,
         vspace_plan_replay,
         vspace_plan_replay_plain,
     )
 
     rng = np.random.default_rng(P + W)
-    opc, args = _vs_window(rng, W, P, S, dev)
-    frames = _vs_frames(rng, (1, P), dev)
+    opc, args = _vs_window(rng, W, P, S, dev, window)
+    shape = (R, P) if layout == "model" else (R, grid_rows(P), 128)
+    frames = _vs_frames(rng, shape, dev)
     touched = torch.from_numpy(
-        (rng.random((1, P)) < 0.1).astype(np.int32)).to(dev)
+        (rng.random(shape) < 0.1).astype(np.int32)).to(dev)
+    if window == "unaligned":
+        frames, touched = _unaligned(frames), _unaligned(touched)
     before = PLAN_KERNEL.launches
     got = vspace_plan_replay(opc, args, frames, touched, P, S)
     torch.cuda.synchronize()
@@ -198,14 +249,20 @@ def test_vspace_plan_kernel_equals_plain(dev, P, S, W):
         assert torch.equal(a, b)
 
 
-def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev):
+# R = 65: a group of 64 rows and one of 1; count < W leaves NOOP tails
+# (count is drawn from [0, W])
+@pytest.mark.parametrize("P,S,R,W,window", [
+    (600, 8, 37, 96, "mixed"), (1500, 20, 65, 96, "cross"),
+    (4096, 64, 65, 128, "hot"), (1501, 20, 17, 64, "noop"),
+])
+def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev, P, S, R, W,
+                                                           window):
     from node_replication_torch.ops.vspace import (
         FUSED_KERNEL,
         vspace_fused_round,
         vspace_fused_round_plain,
     )
 
-    P, S, R, W = 600, 8, 37, 96
     spec = LogSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
     rng = np.random.default_rng(3)
     ring_opc = torch.from_numpy(
@@ -218,7 +275,7 @@ def test_vspace_fused_kernel_equals_plain_across_ring_wrap(dev):
     before = FUSED_KERNEL.launches
     for rnd in range(10):
         count = int(rng.integers(0, W + 1))
-        opc, args = _vs_window(rng, W, P, S, dev)
+        opc, args = _vs_window(rng, W, P, S, dev, window)
         opc[count:] = 0
         t = torch.tensor(tail, dtype=torch.int64, device=dev)
         out_k = vspace_fused_round(spec, t, count, opc, args, *kern, P, S)

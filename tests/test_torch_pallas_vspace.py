@@ -153,6 +153,38 @@ def test_plan_replay_matches_reference(P, S, seed):
     assert torch.equal(mr, tr)
 
 
+# The CUDA body replays each tile once per group of replica rows and
+# merges it into the group's other rows: that is exact only if the
+# replay is a state-free merge, every row ending as replica 0's replay on
+# the pages the window touched and as its own input elsewhere, with the
+# responses replica 0's alone. "row0": the other rows are one row that
+# differs from replica 0's
+@pytest.mark.parametrize("P,S,R,W,layout,rows", [
+    (300, 5, 3, 48, "model", "differ"), (600, 8, 4, 64, "kernel", "differ"),
+    (1500, 20, 5, 200, "model", "row0"), (4096, 64, 2, 300, "kernel",
+                                          "differ")])
+def test_flat_replay_is_a_state_free_merge(P, S, R, W, layout, rows):
+    rng = np.random.default_rng(P + R)
+    opc, args = window(rng, W, P, S)
+    opc, args = torch.from_numpy(opc), torch.from_numpy(args)
+    if rows == "row0":
+        fr = np.stack([frames0(rng, P)] + [frames0(rng, P)] * (R - 1))
+    else:
+        fr = np.stack([frames0(rng, P) for _ in range(R)])
+    assert not (fr[0] == fr[1]).all()
+    fr = torch.from_numpy(fr)
+    if layout == "kernel":
+        fr = tpv._grid(None, P, R, CPU).reshape(R, -1).index_copy(
+            1, torch.arange(P), fr).reshape(R, tpv.grid_rows(P), 128)
+    got, resps = tpv.vspace_replay_plain(opc, args, fr, P, S)
+    row0, touched, resps0 = tpv.vspace_plan_replay_plain(
+        opc, args, fr[:1], torch.zeros_like(fr[:1]), P, S)
+    assert bool(touched.any())
+    want = torch.where(touched > 0, row0, fr)
+    assert torch.equal(got, want)
+    assert torch.equal(resps, resps0)
+
+
 def test_kernel_and_model_differ_near_int32_wrap():
     # the reference's quirk, matched bit for bit: past 2^31 the kernel
     # takes page (vpage mod P + lane) mod P while the model takes the
