@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; a few minutes
+    python3 chip_smoke.py            # needs one CUDA card; about 6 minutes
+    python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
 
-Four models, end to end, from numpy seeds. The replicated hashmap at the
+Four models, end to end, from numpy seeds, then the serving path. The replicated hashmap at the
 flagship width (R = 4096 replicas, K = 10000 keys):
 
 1. build every CUDA source under `node_replication_torch/csrc/` (one
@@ -75,8 +76,38 @@ keys, N = 2^23 slots, probe 16, 50% PUT/REMOVE, batch 32), R = 16:
    keys sharing one home (window-full drops) and windows that wrap,
    and at the step's W = 256, with its device time there.
 
+The serving path (`serve/`, `fault/`, `durable/`):
+
+12. the seqreg verifier of `bench.py --serve`/`--chaos` on the card:
+   `NodeReplicated(make_seqreg(8), 2, log_entries=4096, gc_slack=256,
+   exec_window=256)` behind `ServeFrontend` (queue_depth 256,
+   batch_max_ops 64, linger 1 ms), 8 closed-loop clients, 10,000
+   fetch-and-set ops, every response the client's previous value; at
+   pipeline depth 0 and 1, then with failover under a serve-batch kill
+   of replica 1 (availability 1.0, the repaired replica bit-identical),
+   then with a `grow(1)` mid-traffic; acked ops/s and p50/p99;
+13. the hashmap flagship served through K1: `NodeReplicated(
+   make_hashmap(10000), 4096, log_entries=2^16, engine="pallas")`
+   behind `ServeFrontend(rids=range(8), batch_max_ops=256)`, 16
+   closed-loop clients of 1000 ops (50/50 PUT/REMOVE), each on its own
+   625 keys, at depth 0 and 1 with a `grow(1)` mid-run in the second:
+   every response equal to a per-client model, every round one K1
+   launch (R = 4097 after the grow), every touched key read back from
+   every served rid, all replicas equal to each other and the model;
+   acked ops/s, p50/p99, rounds and mean batch; then a profiled run:
+   K1's and all device time per served round against its host wall;
+14. crash and recovery at the flagship widths: a child
+   (`--crash-child DIR`) serves the phase-13 fleet from
+   `ServeFrontend.from_recovery(DIR, durability="batch")`, snapshots
+   once, logs each acked op after its future resolved, and is SIGKILLed
+   at a WAL fsync; the parent recovers on the card with `from_recovery`
+   (the WAL replayed through K1): every acked op in the WAL once and in
+   order, the state equal to a numpy replay of the WAL, replicas equal,
+   acked keys read back from every rid; snapshot bytes, records
+   replayed, recovery seconds.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
-are zeroed just before each main-path phase (4, 5, 7, 8, 10, 11) and
+are zeroed just before each main-path phase (4, 5, 7, 8, 10-14) and
 read just after; a kernel that its path never launched fails the run.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -89,6 +120,7 @@ non-zero at once. Details of the run go to
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -167,6 +199,14 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_round_bytes(R: int, W: float, L: int = 1 << 16) -> float:
+    """Bytes one K1 round must move: both `[Kp, R]` int32 state planes
+    in and out, the `[W, R]` responses, the ring's opcodes and args in
+    and out, and the window of W entries."""
+    kp = -(-K // 8) * 8
+    return 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
 
 
 def random_planes(gen, dev, kp: int):
@@ -341,7 +381,7 @@ def phase_fused(dev, rng, gen) -> dict:
     # one standalone unfenced call on the last round's inputs
     dt = device_time(lambda: hashmap_fused_round(
         spec, tail_t, count, opc_t, args_t, *kern, K, None))
-    n_bytes = 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
+    n_bytes = k1_round_bytes(R, W, L)
     bound_ms, by = bound(n_bytes, 4 * W * R)
     ms = statistics.median(times[False][0][1:])
     ms_f = statistics.median(times[True][0])
@@ -1642,8 +1682,635 @@ def phase_oahashmap(dev, rng, card: str, steps: int = 24) -> dict:
                                        "bound_by": by_s}}}
 
 
+# ------------------------------------------------------- serving path
+
+SR_CLIENTS, SR_OPS = 8, 10_000   # `bench.py --serve` defaults
+SV_RIDS, SV_CLIENTS, SV_PER = 8, 16, 1000   # the flagship served
+SV_SLICE = K // SV_CLIENTS       # keys each client owns: 625
+CRASH_KILL_AFTER = 2500          # the child's WAL fsyncs before SIGKILL
+CRASH_SNAPSHOT_AT = 1500         # the child's acks before its snapshot
+CRASH_DIR = Path(__file__).resolve().parent / ".chip_smoke_crash"
+
+
+def serve_clients(fe, n_clients: int, per_client: int, op_of, check,
+                  rid_of, retry=None, during=None, on_ack=None) -> dict:
+    """Closed-loop client threads, as `bench.py --serve` drives them:
+    each submits op i of its own, waits for the response, checks it and
+    goes on (`call_with_retry` when `retry` is given). `during(c, i)`
+    runs before op i, `on_ack(c, i, op, resp)` after its future
+    resolved. Returns completions, attempts, errors, latencies, wall."""
+    import random
+    import threading
+
+    from node_replication_torch.serve import ServeError, call_with_retry
+
+    lock = threading.Lock()
+    lat, errors, sheds = [], [], [0]
+    done = [0] * n_clients
+
+    def client(c):
+        rng = random.Random(SEED + c)
+        rid = rid_of(c)
+
+        def on_shed(attempt, delay):
+            with lock:
+                sheds[0] += 1
+
+        for i in range(per_client):
+            if during is not None:
+                during(c, i)
+            op = op_of(c, i)
+            t0 = time.perf_counter()
+            try:
+                if retry is None:
+                    resp = fe.submit(op, rid=rid).result(timeout=300.0)
+                else:
+                    resp = call_with_retry(fe, op, rid=rid, policy=retry,
+                                           rng=rng, on_shed=on_shed,
+                                           timeout=300.0)
+            except (ServeError, TimeoutError) as e:
+                with lock:
+                    errors.append(f"client {c} op {i}: "
+                                  f"{type(e).__name__}: {e}")
+                return
+            dt = time.perf_counter() - t0
+            err = check(c, i, resp)
+            with lock:
+                lat.append(dt)
+                if err:
+                    errors.append(err)
+            if err:
+                return
+            done[c] += 1
+            if on_ack is not None:
+                on_ack(c, i, op, resp)
+
+    threads = [threading.Thread(target=client, args=(c,),
+                                name=f"chip-client-{c}")
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        errors.append("a client thread hung")
+    completed = sum(done)
+    ops = n_clients * per_client
+    lat_ms = np.asarray(lat) * 1e3 if lat else np.zeros(1)
+    return {"ops": ops, "completed": completed,
+            "attempts": ops + sheds[0], "errors": errors[:10],
+            "wall_s": wall, "acked_ops_per_s": completed / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99))}
+
+
+def phase_seqreg_serve(dev) -> dict:
+    """The seqreg serve verifier of `bench.py --serve`/`--chaos` on the
+    card: 8 closed-loop clients, 10,000 fetch-and-set ops over 2
+    replicas, every response the client's previous value; at pipeline
+    depth 0 and 1, then under a serve-batch kill with failover and
+    repair, then with a grow(1) mid-traffic."""
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.fault import (
+        HEALTHY,
+        FaultPlan,
+        FaultSpec,
+        ReplicaLifecycleManager,
+        state_digest,
+    )
+    from node_replication_torch.models import SR_GET, SR_SET, make_seqreg
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import (
+        RetryPolicy,
+        ServeConfig,
+        ServeFrontend,
+    )
+
+    per = SR_OPS // SR_CLIENTS
+
+    def fleet():
+        return NodeReplicated(make_seqreg(SR_CLIENTS), n_replicas=2,
+                              log_entries=4096, gc_slack=256,
+                              exec_window=256, device=dev)
+
+    def cfg(**kw):
+        return ServeConfig(queue_depth=256, batch_max_ops=64,
+                           batch_linger_s=0.001, **kw)
+
+    def op_of(c, i):
+        return (SR_SET, c, i + 1)
+
+    def check(c, i, resp):
+        return (None if resp == i else
+                f"client {c} op {i}: previous value {i} expected, got "
+                f"{resp} (lost, duplicated or reordered)")
+
+    def settle(name, fe, nr, r, extra=0):
+        if r["errors"] or r["completed"] != r["ops"]:
+            raise AssertionError(f"phase 12 {name}: {r['completed']} of "
+                                 f"{r['ops']} ops; {r['errors']}")
+        for c in range(SR_CLIENTS):
+            for rid in fe.rids:
+                got = fe.read((SR_GET, c), rid=rid)
+                if got != per + extra:
+                    raise AssertionError(f"phase 12 {name}: register {c} "
+                                         f"reads {got} on replica {rid}")
+        nr.sync()
+        if not nr.replicas_equal():
+            raise AssertionError(f"phase 12 {name}: replicas differ")
+
+    out = {}
+    reset_launch_counts()
+    for depth in (0, 1):
+        nr = fleet()
+        with ServeFrontend(nr, cfg(pipeline_depth=depth)) as fe:
+            r = serve_clients(fe, SR_CLIENTS, per, op_of, check,
+                              lambda c: c % 2, retry=RetryPolicy())
+            settle(f"depth {depth}", fe, nr, r)
+        r["rounds"] = nr.stats()["exec_rounds"]
+        out[f"depth{depth}"] = r
+        log(f"phase 12: seqreg serve depth {depth}: {r['completed']} of "
+            f"{r['ops']} ops, 0 lost/duplicated/reordered; "
+            f"{r['acked_ops_per_s']:.1f} acked ops/s, p50 "
+            f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms")
+    # --chaos: replica 1's worker killed at its 21st batch, repaired
+    nr = fleet()
+    plan = FaultPlan([FaultSpec(site="serve-batch", action="raise", rid=1,
+                                after=20, count=1)], seed=SEED)
+    retry = RetryPolicy(max_attempts=16, base_backoff_s=0.001,
+                        max_backoff_s=0.25)
+    with ServeFrontend(nr, cfg(failover=True)) as fe:
+        mgr = ReplicaLifecycleManager(nr, fe)
+        with plan.armed():
+            r = serve_clients(fe, SR_CLIENTS, per, op_of, check,
+                              lambda c: c % 2, retry=retry)
+        if not mgr.wait_idle(60):
+            raise AssertionError("phase 12 chaos: repair did not settle")
+        settle("chaos", fe, nr, r)
+        states = mgr.health.states()
+    availability = r["completed"] / r["attempts"]
+    if not plan.fired or not mgr.repairs:
+        raise AssertionError(f"phase 12 chaos: kill fired {plan.fired}, "
+                             f"repairs {mgr.repairs}")
+    if states.count(HEALTHY) != nr.n_replicas or availability != 1.0:
+        raise AssertionError(f"phase 12 chaos: health {states}, "
+                             f"availability {availability}")
+    if state_digest(nr.states, 1) != state_digest(nr.states, 0):
+        raise AssertionError("phase 12 chaos: the repaired replica is "
+                             "not bit-identical")
+    r.update(availability=availability,
+             repair_ms=[x["duration_s"] * 1e3 for x in mgr.repairs],
+             kills=len(plan.fired))
+    out["chaos"] = r
+    log(f"phase 12: seqreg chaos: serve-batch kill on replica 1 fired, "
+        f"{len(mgr.repairs)} repair(s) in "
+        f"{', '.join(f'{m:.1f}' for m in r['repair_ms'])} ms, availability "
+        f"{availability}, repaired replica bit-identical; "
+        f"{r['acked_ops_per_s']:.1f} acked ops/s, p99 {r['p99_ms']:.3f} ms")
+    # grow(1) mid-traffic, then the newcomer serves every register
+    nr = fleet()
+    with ServeFrontend(nr, cfg()) as fe:
+        def during(c, i):
+            if c == 0 and i == per // 2:
+                fe.grow(1)
+
+        r = serve_clients(fe, SR_CLIENTS, per, op_of, check,
+                          lambda c: c % 2, retry=RetryPolicy(),
+                          during=during)
+        if nr.n_replicas != 3:
+            raise AssertionError("phase 12 grow: the fleet did not grow")
+        for c in range(SR_CLIENTS):
+            got = fe.call((SR_SET, c, per + 1), rid=2, timeout=60.0)
+            if got != per:
+                raise AssertionError(f"phase 12 grow: register {c} "
+                                     f"answers {got} on the new replica")
+        settle("grow", fe, nr, r, extra=1)
+    out["grow"] = r
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    log(f"phase 12: seqreg grow(1) mid-traffic: {r['completed']} of "
+        f"{r['ops']} ops, nothing lost; the new replica serves every "
+        f"register; kernel launches {out['launches']} (seqreg runs the "
+        f"chain's torch ops)")
+    return out
+
+
+class HashmapModel:
+    """One client's slice of the map: PUT answers 0, REMOVE 1 when the
+    key was present (the floored `k % K`)."""
+
+    def __init__(self):
+        self.vals: dict[int, int] = {}
+
+    def apply(self, op) -> int:
+        slot = op[1] % K
+        if op[0] == 1:
+            self.vals[slot] = op[2]
+            return 0
+        return int(self.vals.pop(slot, None) is not None)
+
+
+def hm_client_ops(rng, c: int, n: int) -> list[tuple]:
+    """Client c's ops over its own 625 keys: 50/50 PUT/REMOVE, raw keys
+    spread over [-2K, 3K) (disjoint under `k % K`)."""
+    slots = c * SV_SLICE + rng.integers(0, SV_SLICE, n)
+    raw = slots + K * rng.integers(-2, 3, n)
+    kinds = rng.integers(1, 3, n)
+    vals = rng.integers(1, 1 << 31, n)
+    return [(1, int(k), int(v)) if o == 1 else (2, int(k))
+            for o, k, v in zip(kinds, raw, vals)]
+
+
+def read_back(fe, models, label: str, keys=None) -> int:
+    """Every key of `keys` (default: all of every client's slice) read
+    through `fe.read` from every served rid against the models."""
+    from node_replication_torch.models import HM_GET
+
+    n = 0
+    for c, m in enumerate(models):
+        for slot in (range(c * SV_SLICE, (c + 1) * SV_SLICE)
+                     if keys is None else sorted(keys[c])):
+            want = m.vals.get(slot, -1)
+            for rid in fe.rids:
+                got = fe.read((HM_GET, slot), rid=rid)
+                n += 1
+                if got != want:
+                    raise AssertionError(f"{label}: key {slot} reads {got} "
+                                         f"on replica {rid}, acked {want}")
+    return n
+
+
+def model_planes(models):
+    values = np.zeros(K, np.int32)
+    present = np.zeros(K, bool)
+    for m in models:
+        for slot, v in m.vals.items():
+            values[slot] = v
+            present[slot] = True
+    return values, present
+
+
+def check_fleet_state(nr, models, label: str) -> None:
+    nr.sync()
+    if not nr.replicas_equal():
+        raise AssertionError(f"{label}: replicas differ")
+    values, present = model_planes(models)
+    if not (np.array_equal(nr.states["values"][0].cpu().numpy(), values)
+            and np.array_equal(nr.states["present"][0].cpu().numpy(),
+                               present)):
+        raise AssertionError(f"{label}: state differs from the model")
+
+
+def served_round_share(nr, models, rng, count) -> dict:
+    """The device's share of a served round: 16 closed-loop clients, 24
+    ops each, through a depth-0 frontend under `torch.profiler`; device
+    time per round (all kernels, K1, the largest) against host wall, and
+    K1's bound at the round's mean batch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    seg_ops = [hm_client_ops(rng, c, 24) for c in range(SV_CLIENTS)]
+
+    def seg_check(c, i, resp):
+        want = models[c].apply(seg_ops[c][i])
+        return None if resp == want else f"profiled client {c} op {i}"
+
+    with ServeFrontend(nr, ServeConfig(batch_max_ops=256,
+                                       batch_linger_s=0.001),
+                       rids=range(SV_RIDS)) as fe:
+        c0 = count()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)  # the tracer starts before the first launch
+            seg = serve_clients(fe, SV_CLIENTS, 24,
+                                lambda c, i: seg_ops[c][i], seg_check,
+                                lambda c: c % SV_RIDS)
+            torch.cuda.synchronize()
+        rounds = max(1, count()["serve.batches"] - c0["serve.batches"])
+    if seg["errors"]:
+        raise AssertionError(f"phase 13 profiled run: {seg['errors']}")
+    kernels = sorted(((e.self_device_time_total / 1e3 / rounds,
+                       e.count / rounds, e.key[:60])
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    dev_ms = sum(k[0] for k in kernels)
+    k1_ms = sum(k[0] for k in kernels if "hashmap_round" in k[2])
+    wall_ms = seg["wall_s"] * 1e3 / rounds
+    mean_batch = seg["completed"] / rounds
+    k1_bound_ms, k1_bound_by = bound(
+        k1_round_bytes(nr.n_replicas, mean_batch),
+        4 * mean_batch * nr.n_replicas)
+    share = {"R": nr.n_replicas, "rounds": rounds, "round_wall_ms": wall_ms,
+             "mean_batch": mean_batch, "k1_bound_ms": k1_bound_ms,
+             "k1_bound_by": k1_bound_by,
+             "k1_ms": k1_ms or None, "device_ms": dev_ms or None,
+             "device_busy": dev_ms / wall_ms if dev_ms else None,
+             "kernels": [{"ms": m, "per_round": c, "name": n}
+                         for m, c, n in kernels[:8]]}
+    check_fleet_state(nr, models, "phase 13 profiled run")
+    log(f"phase 13: a served round at R={nr.n_replicas} (profiled, "
+        f"{rounds} rounds, mean batch {mean_batch:.2f}, K1 bound "
+        f"{k1_bound_ms:.4f} ms): host wall {wall_ms:.4f} ms, device "
+        + (f"{dev_ms:.4f} ms (K1 {k1_ms:.4f} ms), busy "
+           f"{100 * share['device_busy']:.1f}%; per round "
+           + ", ".join(f"{n[:40]} x{c:.2f} {m:.4f} ms"
+                       for m, c, n in kernels[:6])
+           if dev_ms else "not measured"))
+    return share
+
+
+def phase_hashmap_serve(dev, rng) -> dict:
+    """The hashmap flagship (R = 4096, K = 10000, ring 2^16) served
+    through `ServeFrontend` over 8 rids with the fused tier forced:
+    every round one K1 launch. 16 closed-loop clients, 1000 ops each,
+    at pipeline depth 0 and 1 (a grow(1) mid-run in the second)."""
+    import torch
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    reg = get_registry()
+    reg.enable()
+    counters = ("nr.exec.engine.pallas_fused", "nr.exec.engine.fused_fallback",
+                "serve.batches", "nr.exec.rounds")
+    count = lambda: {n: reg.counter(n).value for n in counters}
+    nr = NodeReplicated(make_hashmap(K), n_replicas=R, log_entries=1 << 16,
+                        engine="pallas", device=dev)
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    out = {}
+    reset_launch_counts()
+    for depth in (0, 1):
+        ops = [hm_client_ops(rng, c, SV_PER) for c in range(SV_CLIENTS)]
+        touched = [set() for _ in range(SV_CLIENTS)]
+        grown = {}
+
+        def check(c, i, resp):
+            want = models[c].apply(ops[c][i])
+            touched[c].add(ops[c][i][1] % K)
+            return (None if resp == want else
+                    f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+        def during(c, i):
+            if depth == 1 and c == 0 and i == SV_PER // 2:
+                grown["launches"] = FUSED_KERNEL.launches
+                grown["rids"] = fe.grow(1)
+
+        c0, l0 = count(), FUSED_KERNEL.launches
+        cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
+                          pipeline_depth=depth)
+        with ServeFrontend(nr, cfg, rids=range(SV_RIDS)) as fe:
+            r = serve_clients(fe, SV_CLIENTS, SV_PER,
+                              lambda c, i: ops[c][i], check,
+                              lambda c: c % SV_RIDS, during=during)
+            if r["errors"] or r["completed"] != r["ops"]:
+                raise AssertionError(f"phase 13 depth {depth}: "
+                                     f"{r['completed']} of {r['ops']} ops; "
+                                     f"{r['errors']}")
+            t0 = time.perf_counter()
+            r["reads"] = read_back(fe, models, f"phase 13 depth {depth}",
+                                   touched)
+            r["read_s"] = time.perf_counter() - t0
+            served = list(fe.rids)
+        c1 = count()
+        d = {n: c1[n] - c0[n] for n in counters}
+        r.update(rounds=d["serve.batches"],
+                 mean_batch=r["completed"] / max(1, d["serve.batches"]),
+                 fused=d["nr.exec.engine.pallas_fused"],
+                 fallback=d["nr.exec.engine.fused_fallback"],
+                 chain_rounds=d["nr.exec.rounds"],
+                 k1_launches=FUSED_KERNEL.launches - l0, served=served)
+        if not (r["fused"] == r["rounds"] == r["k1_launches"] > 0
+                and r["fallback"] == 0):
+            raise AssertionError(f"phase 13 depth {depth}: not every round "
+                                 f"was K1: {d}, K1 launches "
+                                 f"{r['k1_launches']}")
+        check_fleet_state(nr, models, f"phase 13 depth {depth}")
+        if depth == 1:
+            if nr.n_replicas != R + 1 or nr._fused.spec.n_replicas != R + 1:
+                raise AssertionError("phase 13: grow(1) did not rebuild K1 "
+                                     "for R + 1")
+            r["k1_after_grow"] = FUSED_KERNEL.launches - grown["launches"]
+            if r["k1_after_grow"] <= 0:
+                raise AssertionError("phase 13: no K1 round after grow(1)")
+        out[f"depth{depth}"] = r
+        log(f"phase 13: hashmap served R={nr.n_replicas} K={K} rids "
+            f"{SV_RIDS} depth {depth}: {r['completed']} ops acked, every "
+            f"response equal to the client models; {r['rounds']} rounds "
+            f"(mean batch {r['mean_batch']:.2f}), all K1 ({r['fused']} "
+            f"fused, {r['fallback']} fallbacks, {r['k1_launches']} "
+            f"launches" + (f", {r['k1_after_grow']} after grow(1) at "
+                           f"R={R + 1}" if depth == 1 else "")
+            + f"); {r['acked_ops_per_s']:.1f} acked ops/s, p50 "
+            f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms; "
+            f"{r['reads']} reads from {len(served)} rids in "
+            f"{r['read_s']:.1f} s; replicas equal and equal to the model")
+        if depth == 0:
+            out["round_share"] = served_round_share(nr, models, rng, count)
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    if out["launches"]["hashmap_fused_round"] == 0:
+        raise AssertionError("phase 13 never launched K1")
+    log(f"phase 13: launches {out['launches']}")
+    del nr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _crash_fleet_kwargs(dev) -> dict:
+    return dict(n_replicas=R, log_entries=1 << 16, engine="pallas",
+                device=dev)
+
+
+def _crash_config(ServeConfig):
+    return ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
+                       durability="batch")
+
+
+def crash_child(directory: str) -> int:
+    """`--crash-child DIR`: serve the phase-13 fleet with durable acks
+    from `ServeFrontend.from_recovery(DIR)`, snapshot once mid-run, log
+    every acked op to a side file after its future resolved, and die by
+    SIGKILL at a WAL fsync (`FaultSpec(site="wal-fsync", action="kill")`)."""
+    import threading
+
+    import torch
+
+    from node_replication_torch.durable import save_durable_snapshot
+    from node_replication_torch.fault import FaultPlan, FaultSpec
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    acks = Path(directory) / "acks"
+    acks.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 14)
+    ops = [hm_client_ops(rng, c, 4 * SV_PER) for c in range(SV_CLIENTS)]
+    files = [open(acks / f"c{c}.txt", "a") for c in range(SV_CLIENTS)]
+    n_acked = [0]
+    lock = threading.Lock()
+    fe = ServeFrontend.from_recovery(
+        directory, make_hashmap(K), _crash_config(ServeConfig),
+        rids=range(SV_RIDS), nr_kwargs=_crash_fleet_kwargs("cuda"))
+
+    def on_ack(c, i, op, resp):
+        files[c].write(f"{i} {' '.join(map(str, op))} {resp}\n")
+        files[c].flush()
+        with lock:
+            n_acked[0] += 1
+            snap = n_acked[0] == CRASH_SNAPSHOT_AT
+        if snap:
+            save_durable_snapshot(fe.nr, directory)
+            print(f"snapshot at tail {int(fe.nr.log.tail)}", flush=True)
+
+    plan = FaultPlan([FaultSpec(site="wal-fsync", action="kill",
+                                after=CRASH_KILL_AFTER)])
+    with plan.armed():
+        r = serve_clients(fe, SV_CLIENTS, 4 * SV_PER,
+                          lambda c, i: ops[c][i], lambda c, i, resp: None,
+                          lambda c: c % SV_RIDS, on_ack=on_ack)
+    fe.close()
+    for f in files:
+        f.close()
+    print(f"the kill never fired: {r['completed']} ops acked",
+          file=sys.stderr)
+    return 3
+
+
+def phase_crash_recovery(dev) -> dict:
+    """Phase 14: the child serves the flagship with durable acks and is
+    SIGKILLed at a WAL fsync; the parent recovers the fleet on the card
+    with `ServeFrontend.from_recovery` and holds it to the acks and to a
+    numpy replay of the WAL."""
+    import shutil
+    import signal
+
+    import torch
+
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    shutil.rmtree(CRASH_DIR, ignore_errors=True)
+    CRASH_DIR.mkdir()
+    try:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--crash-child",
+             str(CRASH_DIR)], capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"phase 14: the child exited {child.returncode}, not by "
+                f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-2000:]}")
+        acked = []
+        for c in range(SV_CLIENTS):
+            text = (CRASH_DIR / "acks" / f"c{c}.txt").read_text()
+            # whole lines only: a write the kill tore leaves no newline
+            rows = [ln.split() for ln in text.split("\n")[:-1]]
+            acked.append([(tuple(int(x) for x in row[1:-1]), int(row[-1]))
+                          for row in rows if len(row) >= 4])
+        n_acked = sum(map(len, acked))
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        fe = ServeFrontend.from_recovery(
+            str(CRASH_DIR), make_hashmap(K), _crash_config(ServeConfig),
+            rids=range(SV_RIDS), nr_kwargs=_crash_fleet_kwargs(dev))
+        recover_s = time.perf_counter() - t1
+        rep = fe.recovery_report
+        nr = fe.nr
+        launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                    "hashmap_fused_round": FUSED_KERNEL.launches}
+        if rep.snapshot is None or rep.wal_records == 0:
+            raise AssertionError(f"phase 14: recovery used no snapshot or "
+                                 f"replayed nothing: {rep}")
+        if launches["hashmap_fused_round"] < rep.wal_records:
+            raise AssertionError(f"phase 14: {rep.wal_records} records "
+                                 f"replayed in {launches} K1 launches")
+        # the WAL's records: they chain, and a numpy replay of them
+        # from position 0 is the recovered state
+        wal = nr.wal
+        if wal.base != 0:
+            raise AssertionError(f"phase 14: the WAL starts at {wal.base}")
+        pos, per_client = 0, [[] for _ in range(SV_CLIENTS)]
+        models = [HashmapModel() for _ in range(SV_CLIENTS)]
+        for rec in wal.records(0):
+            if rec.pos != pos:
+                raise AssertionError(f"phase 14: WAL record at {rec.pos}, "
+                                     f"expected {pos}: applied twice or lost")
+            for op in rec.ops():
+                c = (op[1] % K) // SV_SLICE
+                op = (op[0], op[1], op[2]) if op[0] == 1 else op[:2]
+                per_client[c].append((op, models[c].apply(op)))
+            pos += rec.count
+        if pos != rep.tail or int(nr.log.tail) != pos:
+            raise AssertionError(f"phase 14: WAL ends at {pos}, the fleet "
+                                 f"at {int(nr.log.tail)}")
+        for c in range(SV_CLIENTS):
+            n = len(acked[c])
+            if per_client[c][:n] != acked[c] or len(per_client[c]) > n + 1:
+                raise AssertionError(
+                    f"phase 14: client {c}'s {n} acked ops are not the "
+                    f"WAL's first {n} of its {len(per_client[c])}")
+        check_fleet_state(nr, models, "phase 14")
+        keys = [{op[1] % K for op, _ in acked[c]}
+                for c in range(SV_CLIENTS)]
+        t2 = time.perf_counter()
+        reads = read_back(fe, models, "phase 14", keys)
+        read_s = time.perf_counter() - t2
+        fe.close()
+        snap_bytes = os.path.getsize(rep.snapshot)
+        out = {"child_s": child_s, "acked": n_acked, "tail": rep.tail,
+               "snapshot_pos": rep.snapshot_pos,
+               "snapshot_bytes": snap_bytes,
+               "wal_records": rep.wal_records, "wal_ops": rep.wal_ops,
+               "truncated_bytes": rep.wal_truncated_bytes,
+               "recovery_s": rep.duration_s, "from_recovery_s": recover_s,
+               "reads": reads, "read_s": read_s, "launches": launches}
+        log(f"phase 14: child SIGKILLed at a WAL fsync after {n_acked} "
+            f"acked ops ({child_s:.1f} s); recovered on the card from the "
+            f"snapshot at {rep.snapshot_pos} ({snap_bytes} bytes) + "
+            f"{rep.wal_records} WAL records ({rep.wal_ops} ops, "
+            f"{rep.wal_truncated_bytes} torn bytes) in "
+            f"{rep.duration_s:.3f} s (from_recovery {recover_s:.3f} s) to "
+            f"tail {rep.tail}; every acked op in the WAL once and in "
+            f"order, state equal to a numpy replay of the WAL, replicas "
+            f"equal; {reads} reads of acked keys from {SV_RIDS} rids; "
+            f"launches {launches}")
+        del fe, nr
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(CRASH_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
+
+    if sys.argv[1:2] == ["--crash-child"]:
+        return crash_child(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -1687,6 +2354,11 @@ def main() -> int:
         res["radix_step"] = phase_radix_step(dev, rng, smi)
         torch.cuda.empty_cache()
         res["oahashmap"] = phase_oahashmap(dev, rng, smi)
+        torch.cuda.empty_cache()
+        res["seqreg_serve"] = phase_seqreg_serve(dev)
+        torch.cuda.empty_cache()
+        res["hashmap_serve"] = phase_hashmap_serve(dev, rng)
+        res["crash"] = phase_crash_recovery(dev)
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -1700,8 +2372,8 @@ def main() -> int:
     rx_src = "node_replication_torch/csrc/vspace_radix_replay.cu"
     oa_src = "node_replication_torch/csrc/oahashmap_replay.cu"
     oa_ref = "node_replication_tpu/ops/pallas_oahashmap.py"
-    hm_launches = lambda k: (res["step"]["launches"][k]
-                             + res["replica"]["launches"][k])
+    hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
+        "step", "replica", "seqreg_serve", "hashmap_serve", "crash"))
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
          hm_launches("hashmap_replay")),
@@ -1724,6 +2396,17 @@ def main() -> int:
         ("oahashmap_replay", oa_src, f"{oa_ref}:95",
          res["oahashmap"]["kernel"], res["oahashmap"]["launches"]),
     ]
+    # K1 runs at two shapes on the main path: phase 5's rounds of
+    # W = 256, and the served rounds of phases 13-14 (a batch of ~2);
+    # the second gets its own device time, bound and launches
+    share = res["hashmap_serve"]["round_share"]
+    res["fused"]["served"] = {
+        "R": share["R"], "mean_batch": share["mean_batch"],
+        "device_ms": share["k1_ms"], "bound_ms": share["k1_bound_ms"],
+        "bound_by": share["k1_bound_by"],
+        "launches": sum(res[p]["launches"]["hashmap_fused_round"]
+                        for p in ("hashmap_serve", "crash")),
+    }
     kernels = [{
         "name": kname, "route": "cuda", "source": src, "replaces": ref,
         "launches": launches, "max_abs_err": p["max_abs_err"],
@@ -1734,6 +2417,7 @@ def main() -> int:
         # torch.profiler's device time of one call (K3's is at the
         # step's window, under step_window)
         **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
+        **({"served": p["served"]} if "served" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

@@ -11,9 +11,12 @@ Entry points run on the card unless the caller asks for another
 device: `device=None` means `torch.device("cuda")` and raises without
 one; pass `device="cpu"` for the CPU.
 
-Ported so far (ROADMAP.md queue 1 lists the rest): the hashmap model,
-the log, the lock-step step, `NodeReplicated`, and the replay and
-fused-round kernels.
+Ported so far (ROADMAP.md queue 1 lists the rest): the hashmap, vspace,
+open-addressing and sequence-register models, the log, the lock-step
+step, `NodeReplicated` (with `grow_fleet`, the WAL and snapshots),
+every replay and fused-round kernel, and the serving path: `serve/`
+(`ServeFrontend`), `fault/` (injection, health, repair) and `durable/`
+(WAL, recovery).
 """
 
 from node_replication_torch.core.log import (

@@ -6,14 +6,19 @@ the same surface and the same host protocol: per-thread `Context`
 rings drained into one append batch per combiner round, replay rounds
 until the combiner's own ops are applied, reads gated on the completed
 tail, the help-GC-before-append rule, fencing, the split round, and the
-fused one-launch tier with its winner-selection calibration.
+fused one-launch tier with its winner-selection calibration, the
+donor-snapshot join (`grow_fleet`), the write-ahead log (`attach_wal`,
+`durable/wal.py`) and `checkpoint`/`restore`/`recover`
+(`core/checkpoint.py`).
 
-Not in this package yet (ROADMAP.md queue 1): `grow_fleet`, the WAL
-(`attach_wal`), `checkpoint`/`restore`/`recover`, and `mesh=`.
+Not in this package yet (ROADMAP.md queue 1): `mesh=`, and with it the
+mesh catch-up tier (`_ring_catchup`, the reference's fourth WAL
+reclaim site).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 import os
@@ -34,6 +39,7 @@ from node_replication_torch.core.log import (
     log_exec_all,
     log_init,
     log_space,
+    ring_slice,
 )
 from node_replication_torch.fault.inject import fault_hook
 from node_replication_torch.obs.metrics import COUNT_BUCKETS, get_registry
@@ -352,6 +358,14 @@ class _FusedTier:
             winner=(self._fused_tier_name if verdict else "chain"),
         )
 
+    def _reset_fused_calibration(self) -> None:
+        """Fleet-shape change under engine='auto': the committed
+        verdicts were measured at the OLD (R, capacity) point — drop
+        them and recalibrate at the new one."""
+        if self._fused_mode == "auto":
+            self._fused_verdicts = {}
+            self._fused_samples = {"pallas_fused": {}, "chain": {}}
+
     def round_tier(self, rid: int) -> str | None:
         """The engine tier that served replica `rid`'s latest round."""
         return self._tier_by_rid.get(rid)
@@ -428,6 +442,9 @@ class NodeReplicated(_FusedTier):
         self._fenced: np.ndarray | None = None
         self._exec_rounds = 0
         self._idle_rounds = 0
+        # write-ahead log (`durable/wal.py`): None costs one branch per
+        # round
+        self._wal = None
 
         reg = get_registry()
         self._m_rounds = reg.counter("nr.exec.rounds")
@@ -475,17 +492,29 @@ class NodeReplicated(_FusedTier):
 
     # ------------------------------------------------------------ calls
 
-    def _exec_call(self, fenced):
+    def _round_window(self, pending: int) -> int:
+        """The window one replay round runs. `pending` is the largest
+        lag of a live replica (host cursors). The scan engine stops
+        there instead of running the rest of the static `exec_window`
+        as NOOPs (the reference's `_exec_jit` always runs it all): the
+        NOOPs change no cursor, state or delivered response, since
+        responses past a replica's lag are never read. The combined
+        engine runs the static window, as the reference does."""
+        if self.engine == "combined":
+            return self.exec_window
+        return max(1, min(self.exec_window, pending))
+
+    def _exec_call(self, fenced, window: int):
         """One replay round over the fleet (the reference's
-        `_exec_jit`/`_exec_fenced_jit`)."""
+        `_exec_jit`/`_exec_fenced_jit`) over `window` entries."""
         if self.engine == "combined":
             return log_catchup_all(
                 self.spec, self.dispatch, self.log, self.states,
-                self.exec_window, union=self._union, fenced=fenced,
+                window, union=self._union, fenced=fenced,
                 idle_check=False,
             )
         return log_exec_all(self.spec, self.dispatch, self.log,
-                            self.states, self.exec_window, fenced=fenced)
+                            self.states, window, fenced=fenced)
 
     def _append_call(self, opcodes, args, n):
         return log_append(self.spec, self.log, opcodes, args, n)
@@ -506,6 +535,13 @@ class NodeReplicated(_FusedTier):
             raise ValueError(f"replica {rid} out of range")
         return int(self._ltails_host()[rid])
 
+    def replica_device(self, rid: int) -> torch.device:
+        """The device holding replica `rid`'s state: the fleet's one
+        device (this package has no mesh yet)."""
+        if not 0 <= rid < self.n_replicas:
+            raise ValueError(f"replica {rid} out of range")
+        return self.device
+
     @_locked
     def register(self, rid: int = 0) -> ReplicaToken:
         """Register a logical thread on replica `rid`."""
@@ -520,6 +556,73 @@ class NodeReplicated(_FusedTier):
         self._threads_per_replica[rid] = tid + 1
         self._contexts[(rid, tid)] = Context()
         return ReplicaToken(rid, tid)
+
+    @_locked
+    def grow_fleet(self, k: int = 1, donor: int | None = None,
+                   catch_up: bool = True) -> list[int]:
+        """Dynamic replica registration: add `k` replicas to a LIVE
+        instance and return their new rids (the reference's
+        `grow_fleet`, `core/replica.py:952`).
+
+        Each newcomer CLONES the most caught-up unfenced replica's
+        state — a consistent snapshot at exactly `ltails[donor]` —
+        inherits that cursor, and catches up through the ordinary exec
+        loop, so a join is valid at any point of the log's lifetime,
+        wraps included. Existing tokens stay valid; `head` is unchanged
+        (the newcomer's ltail is >= min(ltails)). The fused engine is
+        spec-bound (R, capacity): it is dropped, to be rebuilt for
+        R + k at the next round, and an auto-mode verdict is
+        recalibrated.
+        """
+        if k < 1:
+            raise ValueError("grow_fleet needs k >= 1")
+        R = self.n_replicas
+        ltails = self._ltails_host()
+        if donor is None:
+            # never clone from a fenced (possibly corrupt) replica
+            masked = (
+                ltails if self._fenced is None
+                else np.where(self._fenced, -1, ltails)
+            )
+            donor = int(np.argmax(masked))
+        elif not 0 <= donor < R:
+            raise ValueError(f"donor replica {donor} out of range")
+        elif self._is_fenced(donor):
+            raise ReplicaFencedError(donor)
+        donor_ltail = int(ltails[donor])
+
+        self.spec = dataclasses.replace(self.spec, n_replicas=R + k)
+        self.states = tree_map(
+            lambda x: torch.cat(
+                [x, x[donor:donor + 1].expand((k,) + tuple(x.shape[1:]))],
+                dim=0,
+            ),
+            self.states,
+        )
+        self.log = self.log._replace(
+            ltails=torch.cat([
+                self.log.ltails,
+                torch.full((k,), donor_ltail, dtype=torch.int64,
+                           device=self.device),
+            ])
+        )
+        self._threads_per_replica.extend([0] * k)
+        self._inflight.extend(deque() for _ in range(k))
+        if self._fenced is not None:
+            self._fenced = np.concatenate(
+                [self._fenced, np.zeros(k, bool)]
+            )
+        self._fused = None
+        self._reset_fused_calibration()
+        new_rids = list(range(R, R + k))
+        get_tracer().emit(
+            "grow_fleet", k=k, donor=donor, donor_ltail=donor_ltail,
+            n_replicas=R + k,
+        )
+        if catch_up:
+            for rid in new_rids:
+                self.sync(rid)
+        return new_rids
 
     # --------------------------------------------------------- fencing
 
@@ -609,6 +712,109 @@ class NodeReplicated(_FusedTier):
             "fault-clone", rid=rid, donor=donor, donor_ltail=donor_ltail,
         )
         return donor, donor_ltail
+
+    # ------------------------------------------- durability (durable/)
+
+    @property
+    def wal(self):
+        """The attached write-ahead log (None when not durable)."""
+        return self._wal
+
+    @_locked
+    def attach_wal(self, wal, backfill: bool = True) -> None:
+        """Attach a `durable/wal.py:WriteAheadLog`: every later
+        combiner append is persisted into it (fsync per its policy),
+        and the exec loop drives segment reclamation from GC-head
+        progress. `backfill=True` persists the entries the ring holds
+        past the WAL's tail (`[wal.tail, tail)`, `core/log.py:
+        ring_slice`); a WAL ahead of the log is refused."""
+        if self._wal is not None:
+            raise RuntimeError("a WAL is already attached")
+        tail = int(self.log.tail)
+        wal_tail = wal.tail
+        if wal_tail > tail:
+            raise ValueError(
+                f"WAL tail {wal_tail} is ahead of the log tail {tail}; "
+                f"recover the WAL into the fleet first "
+                f"(durable/recovery.py)"
+            )
+        if wal_tail < tail:
+            if not backfill:
+                raise ValueError(
+                    f"WAL tail {wal_tail} is behind the log tail "
+                    f"{tail} and backfill=False"
+                )
+            opcodes, args = ring_slice(self.spec, self.log,
+                                       wal_tail, tail)
+            wal.append(wal_tail, [
+                (int(opcodes[i]), *(int(a) for a in args[i]))
+                for i in range(opcodes.shape[0])
+            ])
+        self._wal = wal
+        get_tracer().emit("wal-attach", tail=tail,
+                          backfilled=tail - wal_tail)
+
+    @_locked
+    def detach_wal(self):
+        """Detach and return the WAL (not closed — the caller owns its
+        lifecycle)."""
+        wal, self._wal = self._wal, None
+        return wal
+
+    def wal_sync(self) -> int:
+        """fsync the attached WAL — the serve frontend's durable-ack
+        barrier. Not under the combiner lock: fsync latency must not
+        stall concurrent rounds; the WAL has its own lock."""
+        wal = self._wal
+        if wal is None:
+            raise RuntimeError("no WAL attached (attach_wal)")
+        return wal.sync()
+
+    @_locked
+    def checkpoint(self, path: str) -> None:
+        """Durable snapshot of log + all replica states
+        (`core/checkpoint.py`, the reference's file format)."""
+        from node_replication_torch.core.checkpoint import save_snapshot
+
+        save_snapshot(path, self.spec, self.log, self.states)
+
+    @classmethod
+    def restore(cls, path: str, dispatch: Dispatch,
+                **kwargs) -> "NodeReplicated":
+        """Rebuild a NodeReplicated from a snapshot (on `device=` of
+        `kwargs`, the card by default). Thread registrations are not
+        part of a snapshot; re-register after restore."""
+        from node_replication_torch.core.checkpoint import (
+            load_snapshot,
+            peek_spec,
+        )
+
+        spec = peek_spec(path)
+        nr = cls(dispatch, n_replicas=spec.n_replicas,
+                 log_entries=spec.capacity, gc_slack=spec.gc_slack,
+                 **kwargs)
+        _, nr.log, nr.states = load_snapshot(path, nr.states)
+        return nr
+
+    @_locked
+    def recover(self, base_states=None,
+                base_pos: int | None = None) -> None:
+        """Discard replica states and rebuild them by replay from
+        position 0 (needs `tail <= capacity`) or from a snapshot's
+        `base_states` at `base_pos`. In-flight responses are lost,
+        matching a crash."""
+        from node_replication_torch.core.checkpoint import recover_states
+
+        self.log, self.states = recover_states(
+            self.dispatch, self.spec, self.log,
+            base_states=base_states, base_pos=base_pos,
+            window=self.exec_window,
+        )
+        self._inflight = [deque() for _ in range(self.n_replicas)]
+        # crash semantics: begun-but-unfinished split rounds die too
+        self._pending_batch.clear()
+        # full-fleet rebuild: every replica is freshly consistent
+        self._fenced = None
 
     # ---------------------------------------------------- writes/reads
 
@@ -771,6 +977,15 @@ class NodeReplicated(_FusedTier):
             self._note_fused_sample(
                 "pallas_fused", pad, time.perf_counter() - t0, fkey
             )
+        if self._wal is not None:
+            # same order as the chain: journal once the ops ARE in the
+            # in-memory log, before any response is delivered
+            self._wal.append(pos0, ops)
+            if fenced is None or not fenced.any():
+                floor = pos0 + n
+            else:
+                floor = min(int(lts[fenced].min()), pos0 + n)
+            self._wal.maybe_reclaim(floor)
         self._fused_rounds += 1
         self._m_engine_fused.inc()
         if pending is not None:
@@ -834,6 +1049,10 @@ class NodeReplicated(_FusedTier):
             with debug_checks(self.debug):
                 self.log = self._append_call(opcodes, args, n)
             sp.fence(self.log)
+        if self._wal is not None:
+            # WAL write AFTER the device append, under the same lock: a
+            # record exists only for ops that ARE in the in-memory log
+            self._wal.append(pos0, ops)
         inflight = self._inflight[rid]
         for j, tid in enumerate(tids):
             inflight.append((pos0 + j, tid))
@@ -1044,6 +1263,9 @@ class NodeReplicated(_FusedTier):
             },
             "exec": {
                 "engine": self.engine,
+                # the configured bound, as the reference reports it; a
+                # scan round may run fewer (`_round_window`), and its
+                # `exec-round` trace event carries what it ran
                 "window": self.exec_window,
                 "rounds": self._exec_rounds,
                 "idle_rounds": self._idle_rounds,
@@ -1102,10 +1324,16 @@ class NodeReplicated(_FusedTier):
         t0 = time.perf_counter() if tracer.enabled else 0.0
         f_arr = (None if fenced is None
                  else torch.from_numpy(fenced).to(self.device))
+        window = self._round_window(
+            tail - int(live.min()) if live.size else 1)
         with debug_checks(self.debug):
-            self.log, self.states, resps = self._exec_call(f_arr)
+            self.log, self.states, resps = self._exec_call(f_arr, window)
         ltails_after = self._ltails_host()
         self._m_lag.observe(tail - int(ltails_after.min()))
+        if self._wal is not None:
+            # GC/head coupling (`durable/wal.py`): min(ltails) is the
+            # head this round just computed (<= head under fencing)
+            self._wal.maybe_reclaim(int(ltails_after.min()))
         resps_np = resps.cpu().numpy()
         for r in range(self.n_replicas):
             q = self._inflight[r]
@@ -1125,7 +1353,7 @@ class NodeReplicated(_FusedTier):
                 duration_s=time.perf_counter() - t0,
                 fenced=tracer.fence_spans,
                 engine=self.engine,
-                window=self.exec_window,
+                window=window,
                 progressed=progressed,
                 advanced=int((ltails_after - ltails_before).sum()),
             )

@@ -1,6 +1,7 @@
-"""Models of the port: the dense hashmap, the open-addressing hashmap and
-the vspace (flat and 4-level radix); the others follow the order in
-ROADMAP.md queue 1."""
+"""Models of the port: the dense hashmap, the open-addressing hashmap,
+the vspace (flat and 4-level radix) and the sequence register (the
+serve verifier's oracle); the others follow the order in ROADMAP.md
+queue 1."""
 
 from node_replication_torch.models.hashmap import (
     ABSENT,
@@ -16,6 +17,7 @@ from node_replication_torch.models.oahashmap import (
     OA_REMOVE,
     make_oahashmap,
 )
+from node_replication_torch.models.seqreg import SR_GET, SR_SET, make_seqreg
 from node_replication_torch.models.vspace import (
     UNMAPPED,
     VS_IDENTIFY,
@@ -38,4 +40,4 @@ __all__ = ["ABSENT", "HM_GET", "HM_PUT", "HM_REMOVE", "make_hashmap",
            "UNMAPPED", "VS_IDENTIFY", "VS_MAP", "VS_RESOLVED", "VS_UNMAP",
            "VSR_IDENTIFY", "VSR_MAP", "VSR_MAP_DEVICE", "VSR_RESOLVED",
            "VSR_TABLES", "VSR_UNMAP", "VSR_UNMAP_TABLE", "make_vspace",
-           "make_vspace_radix"]
+           "make_vspace_radix", "SR_GET", "SR_SET", "make_seqreg"]

@@ -36,3 +36,26 @@ def tree_map(fn, tree, *rest):
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like `template` whose leaves are `leaves`, taken in
+    `tree_leaves` order (dicts in sorted-key order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if _is_namedtuple(t):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        if t is None:
+            return None
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out

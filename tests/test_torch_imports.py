@@ -72,6 +72,49 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert not {f: b for f, b in bad.items() if b}
 
 
+SERVING_PATH = ("models/seqreg.py", "core/checkpoint.py", "serve/__init__.py",
+                "serve/errors.py", "serve/future.py", "serve/overload.py",
+                "serve/client.py", "serve/frontend.py", "fault/__init__.py",
+                "fault/health.py", "fault/repair.py", "durable/__init__.py",
+                "durable/wal.py", "durable/recovery.py")
+
+
+def test_serving_path_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(SERVING_PATH) <= files
+    for rel in SERVING_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def test_serving_entry_points_without_a_card_raise(monkeypatch, tmp_path):
+    from node_replication_torch.durable import recover_fleet
+    from node_replication_torch.models import make_seqreg
+    from node_replication_torch.serve import ServeFrontend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (
+        lambda: make_seqreg(4).make_state(),
+        lambda: NodeReplicated(make_seqreg(4), 2),
+        lambda: recover_fleet(str(tmp_path / "a"), make_hashmap(8)),
+        lambda: ServeFrontend.from_recovery(str(tmp_path / "b"),
+                                            make_seqreg(4)),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
+    # a snapshot restores onto the card unless the caller asks for the CPU
+    nr = NodeReplicated(make_seqreg(4), 2, log_entries=256, gc_slack=64,
+                        device="cpu")
+    nr.execute_mut_batch([(1, 1, 5)], rid=0)
+    nr.checkpoint(str(tmp_path / "s.npz"))
+    with pytest.raises(NoCudaDeviceError):
+        NodeReplicated.restore(str(tmp_path / "s.npz"), make_seqreg(4))
+    back = NodeReplicated.restore(str(tmp_path / "s.npz"), make_seqreg(4),
+                                  device="cpu")
+    assert int(back.log.tail) == 1
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     # the scanner itself: every spelling of a jax import is caught
     src = tmp_path / "m.py"

@@ -475,3 +475,54 @@ def test_oahashmap_kernel_equals_plain(dev, R, N, probe, W):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert (want[3] == -2).any() == (len(same_home) > probe)
+
+
+def test_serve_frontend_over_k1_equals_the_chain(dev):
+    """A small `ServeFrontend` over a hashmap fleet that forces the fused
+    tier (every round one K1 launch) against the same closed-loop stream
+    over a chain fleet, at both pipeline depths: every response and
+    read, the ring, the cursors and the states are equal, and every
+    write round of the K1 fleet was a K1 launch."""
+    from node_replication_torch.core.replica import NodeReplicated
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    K, R = 37, 5
+    rng = np.random.default_rng(77)
+    stream = []
+    for _ in range(400):
+        rid = int(rng.integers(R))
+        if rng.random() < 0.8:
+            stream.append(("w", (int(rng.integers(1, 3)),
+                                 int(rng.integers(-K, 2 * K)),
+                                 int(rng.integers(1 << 20))), rid))
+        else:
+            stream.append(("r", (1, int(rng.integers(K))), rid))
+    n_writes = sum(k == "w" for k, _, _ in stream)
+    for depth in (0, 1):
+        fleets, outs = [], []
+        for engine in ("pallas", "combined"):
+            nr = NodeReplicated(make_hashmap(K), n_replicas=R,
+                                log_entries=256, gc_slack=16,
+                                engine=engine, device=dev)
+            before = FUSED_KERNEL.launches
+            fe = ServeFrontend(nr, ServeConfig(batch_linger_s=0.0,
+                                               pipeline_depth=depth))
+            out = []
+            for kind, op, rid in stream:
+                out.append(fe.submit(op, rid=rid).result(timeout=60.0)
+                           if kind == "w" else fe.read(op, rid=rid))
+            fe.close()
+            launched = FUSED_KERNEL.launches - before
+            assert launched == (n_writes if engine == "pallas" else 0)
+            assert nr.stats()["fused_rounds"] == launched
+            nr.sync()
+            fleets.append(nr)
+            outs.append(out)
+        assert outs[0] == outs[1]
+        k1, chain = fleets
+        assert int(k1.log.tail) == n_writes > 256  # the ring wrapped
+        for f in ("opcodes", "args", "head", "tail", "ctail", "ltails"):
+            assert torch.equal(getattr(k1.log, f), getattr(chain.log, f)), f
+        for f in ("values", "present"):
+            assert torch.equal(k1.states[f], chain.states[f]), f

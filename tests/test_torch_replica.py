@@ -219,3 +219,54 @@ def test_fault_plane_matches_reference():
     assert [f["action"] for f in tplan.fired] == ["raise", "corrupt"]
     _same_state(jn, tn, "corrupted")
     assert not tn.replicas_equal()
+
+
+@pytest.mark.parametrize("fence", [None, 0, 2])
+def test_exec_round_equals_reference_static_window(fence):
+    # the port's scan round replays only up to the largest lag of a
+    # live replica (`_round_window`), where the reference scans the
+    # whole static exec_window every round: hold each round's progress,
+    # ring, cursors, states and delivered responses against the
+    # reference, with live lags of up to four windows and a fenced
+    # replica left behind
+    from node_replication_torch.utils.trace import get_tracer
+
+    W = 8
+    kw = {**KW, "exec_window": W}
+    jn = JNR(j_make_hashmap(K), engine="scan", **kw)
+    tn = TNR(t_make_hashmap(K), engine="scan", device="cpu", **kw)
+    rng = np.random.default_rng(50 + (3 if fence is None else fence))
+    ops = _ops(rng, 30)
+    assert jn.execute_mut_batch(ops, 0) == tn.execute_mut_batch(ops, 0)
+    if fence is not None:
+        jn.fence_replica(fence)
+        tn.fence_replica(fence)
+    live = [r for r in range(R) if r != fence]
+    pending = []
+    for r, n in zip(live, (3 * W - 1, W + 3)):
+        ops = _ops(rng, n)
+        pending.append((jn.begin_mut_batch(ops, r),
+                        tn.begin_mut_batch(ops, r)))
+    _same_log(jn, tn, "begun")
+    tracer = get_tracer()
+    tracer.enable(None)
+    try:
+        rounds = 0
+        while True:
+            progressed = jn._exec_round()
+            assert tn._exec_round() == progressed, rounds
+            _same_log(jn, tn, f"round {rounds}")
+            _same_state(jn, tn, f"round {rounds}")
+            if not progressed:
+                break
+            rounds += 1
+        windows = [e["window"] for e in tracer.events()
+                   if e["event"] == "exec-round"]
+    finally:
+        tracer.disable()
+    assert rounds >= 4
+    assert windows[0] == W and min(windows) < W
+    for jp, tp in pending:
+        assert jn.finish_mut_batch(jp) == tn.finish_mut_batch(tp)
+    _same_log(jn, tn, "finished")
+    _same_state(jn, tn, "finished")
