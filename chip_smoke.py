@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 6 minutes
+    python3 chip_smoke.py            # needs one CUDA card; about 7 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
 
-Four models, end to end, from numpy seeds, then the serving path. The replicated hashmap at the
-flagship width (R = 4096 replicas, K = 10000 keys):
+Four models, end to end, from numpy seeds, then the serving path, then
+CNR and the other models. The replicated hashmap at the flagship width
+(R = 4096 replicas, K = 10000 keys):
 
 1. build every CUDA source under `node_replication_torch/csrc/` (one
    nvcc per source, all at once);
@@ -106,9 +107,46 @@ The serving path (`serve/`, `fault/`, `durable/`):
    acked keys read back from every rid; snapshot bytes, records
    replayed, recovery seconds.
 
+CNR, `cnr`'s multi-log node replication (`core/multilog.py`,
+`core/cnr.py`), at the flagship widths with L = 8 logs (the default of
+`benches/hashmap.py --cmp --logs`), LogMapper key % 8:
+
+15. the CNR step: 16 steps of `make_multilog_step` over
+   `make_partitioned_hashmap(10000, 8)` (512 writes a log, 4096 a
+   step, and one read a replica; the 2^12 rings wrap), against the
+   sequential fold on `make_hashmap(10000)` and a numpy map; dispatches/s,
+   host enqueue against device time, the device's idle share (no kernel
+   of the package runs here);
+16. `MultiLogReplicated(make_hashmap(10000), key % 8, nlogs=8,
+   n_replicas=4096, log_entries=2^16)` with `engine="pallas"` against
+   `engine="scan"`: first K1 against its plain version at the per-log
+   windows (W = 32, 64); then 29 batches of 256 ops from rotating rids,
+   responses, rings, int64 cursors and states bit-identical and equal to
+   a dict; every per-log sub-batch one K1 launch (the wrapper's count,
+   `stats()`, and `torch.profiler` over the last 4 batches, after one
+   batch that warms the tracer up); K1's device time per per-log round
+   against its bound at the mean per-log window; batch latency fused
+   against scan;
+17. phase 16's K1 fleet behind `ServeFrontend` (rids 0-7,
+   batch_max_ops 256): 16 closed-loop clients of 250 ops, 50/50
+   PUT/REMOVE, each on its own 625 keys; every response against a dict
+   seeded from the fleet, the touched keys read back from another rid,
+   the fleet equal to the dicts; acked ops/s, p50/p99, rounds, K1
+   launches a round, then a profiled segment: a round's host wall
+   against its device time, K1 a launch against its bound at the mean
+   per-log sub-batch;
+18. the other models, no kernel among them, at R = 16 and 32 writes a
+   replica a step: the stack and the queue at `benches/stack.py`'s
+   capacity 2^16, the sorted set at 2^16 keys (combined step = scan
+   step = host model), synthetic at `benches/synthetic.py`'s costs (n =
+   200,000, 20/5/2/1; its scan step = a numpy twin), memfs at
+   `benches/nrfs.py --full` widths through the CNR step
+   (`make_partitioned_memfs(4096, 64, 8)` = the fold).
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
-are zeroed just before each main-path phase (4, 5, 7, 8, 10-14) and
-read just after; a kernel that its path never launched fails the run.
+are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
+17) and read just after; a kernel that its path never launched fails
+the run.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 "device": ...}`; any failure exits non-zero before them. Without a
@@ -2306,6 +2344,853 @@ def phase_crash_recovery(dev) -> dict:
         shutil.rmtree(CRASH_DIR, ignore_errors=True)
 
 
+# ------------------------------------------------------ CNR (multi-log)
+
+CNR_L = 8              # logs: `benches/hashmap.py --cmp --logs` default
+CNR_B = 512            # writes a log a step: 4096 a step, 1 per replica
+CNR_STEPS = 16
+CNR_ROUNDS, CNR_ROUND = 24, 256   # phase 16's batches
+CNR_PROFILED = 4                  # phase 16's profiled batches
+CNR_SV_PER = 250                  # phase 17's ops per client
+# phase 18: `benches/stack.py`, `lockfree.py`, `nrfs.py --full` and
+# `synthetic.py` widths at R = 16, batch 32 per replica
+M_R, M_BW, M_STEPS = 16, 32, 8
+M_CAP, M_KEYS = 1 << 16, 1 << 16
+FS_FILES, FS_BLOCKS = 4096, 64
+SYN = dict(n=200_000, cold_reads=20, cold_writes=5, hot_reads=2,
+           hot_writes=1)
+
+
+def cnr_mapper(opcode, args):
+    """The flagship CNR LogMapper: key % 8. K is a multiple of 8, so the
+    raw keys of one slot (`k % K`) share a log."""
+    return args[0] % CNR_L
+
+
+def _cnr_step_batches(rng, dev, steps):
+    """`steps` LogMapper-partitioned flagship batches: 512 uniform keys
+    of log l's congruence class a log, 50/50 PUT/REMOVE, and one GET a
+    replica."""
+    import torch
+
+    out = []
+    for _ in range(steps):
+        keys = (np.arange(CNR_L)[:, None]
+                + CNR_L * rng.integers(0, K // CNR_L, (CNR_L, CNR_B)))
+        args = np.zeros((CNR_L, CNR_B, 3), np.int32)
+        args[..., 0] = keys
+        args[..., 1] = rng.integers(1, 1 << 31, (CNR_L, CNR_B))
+        opc = rng.integers(1, 3, (CNR_L, CNR_B)).astype(np.int32)
+        counts = np.full(CNR_L, CNR_B, np.int64)
+        rd_opc = np.ones((R, 1), np.int32)
+        rd_args = np.zeros((R, 1, 3), np.int32)
+        rd_args[..., 0] = rng.integers(0, K, (R, 1))
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in
+                         (opc, args, counts, rd_opc, rd_args)))
+    return out
+
+
+def phase_cnr_step(dev, rng) -> dict:
+    """The CNR step path at the flagship widths: `make_multilog_step`
+    over `make_partitioned_hashmap(10000, 8)` (every log's window one
+    combined replay into its own partition) against the sequential fold
+    on the monolithic `make_hashmap(10000)` and a numpy map; then what
+    sets the partitioned step's pace. No kernel runs here."""
+    import torch
+
+    from node_replication_torch.core.multilog import (
+        MultiLogSpec,
+        make_multilog_step,
+        multilog_init,
+    )
+    from node_replication_torch.core.replica import replicate_state
+    from node_replication_torch.models import (
+        make_hashmap,
+        make_partitioned_hashmap,
+    )
+
+    pm = make_partitioned_hashmap(K, CNR_L)
+    spec = MultiLogSpec(nlogs=CNR_L, capacity=1 << 12, n_replicas=R,
+                        arg_width=3, gc_slack=512)
+    steps = {"partitioned": make_multilog_step(pm.full, spec, CNR_B, 1,
+                                               partitioned=pm),
+             "fold": make_multilog_step(make_hashmap(K), spec, CNR_B, 1)}
+    batches = _cnr_step_batches(rng, dev, CNR_STEPS)
+    init = lambda: (multilog_init(spec, dev),  # noqa: E731
+                    replicate_state(pm.full.init_state(dev), R))
+
+    def run(step):
+        ml, st = init()
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            ml, st, wr, rd = step(ml, st, *b)
+            outs.append((wr, rd))
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return ml, st, outs, queued, time.perf_counter() - t0
+
+    steps["partitioned"](*init(), *batches[0])  # warm the allocator
+    res = {name: run(step) for name, step in steps.items()}
+    (ml_p, st_p, out_p, q_p, t_p), (ml_f, st_f, out_f, _, t_f) = \
+        res["partitioned"], res["fold"]
+    for f in ml_p._fields:
+        if not torch.equal(getattr(ml_p, f), getattr(ml_f, f)):
+            raise AssertionError(f"phase 15: multilog field {f} differs")
+    for f in ("values", "present"):
+        if not torch.equal(st_p[f], st_f[f]):
+            raise AssertionError(f"phase 15: states differ in {f}")
+    values, present = np.zeros(K, np.int64), np.zeros(K, bool)
+    for i, (b, (wr, rd), (wr_f, rd_f)) in enumerate(zip(batches, out_p,
+                                                        out_f)):
+        if not (torch.equal(wr, wr_f) and torch.equal(rd, rd_f)):
+            raise AssertionError(f"phase 15: step {i} responses differ")
+        opc, args = b[0].cpu().numpy(), b[1].cpu().numpy()
+        want = np.zeros((CNR_L, CNR_B), np.int64)
+        for l in range(CNR_L):
+            for j in range(CNR_B):
+                k = args[l, j, 0]
+                if opc[l, j] == 1:
+                    values[k], present[k] = args[l, j, 1], True
+                else:
+                    want[l, j] = present[k]
+                    values[k], present[k] = 0, False
+        wr_np = wr.cpu().numpy()
+        if not (wr_np == want[:, None, :]).all():
+            raise AssertionError(f"phase 15: step {i} write responses "
+                                 f"differ from the numpy map")
+        rk = b[4][:, 0, 0].cpu().numpy()
+        if not np.array_equal(rd.cpu().numpy()[:, 0],
+                              np.where(present[rk], values[rk], -1)):
+            raise AssertionError(f"phase 15: step {i} reads differ from "
+                                 f"the numpy map")
+    if not (np.array_equal(st_p["values"][0].cpu().numpy(), values)
+            and np.array_equal(st_p["present"][0].cpu().numpy(), present)
+            and (st_p["values"] == st_p["values"][0:1]).all()):
+        raise AssertionError("phase 15: final state differs from the "
+                             "numpy map")
+    n_disp = CNR_STEPS * (CNR_L * CNR_B + R)
+    kernels = device_kernels(lambda: run(steps["partitioned"]), CNR_STEPS)
+    dev_ms = sum(k[0] for k in kernels)
+    wall_ms = t_p / CNR_STEPS * 1e3
+    out = {"steps": CNR_STEPS, "L": CNR_L, "B": CNR_B, "R": R, "K": K,
+           "dispatches": n_disp,
+           "partitioned_dispatches_per_s": n_disp / t_p,
+           "fold_dispatches_per_s": n_disp / t_f,
+           "enqueue_ms": q_p / CNR_STEPS * 1e3, "wall_ms": wall_ms,
+           "device_ms": dev_ms or None,
+           "idle_share": 1 - dev_ms / wall_ms if dev_ms else None,
+           "kernels": [{"ms": m, "per_step": c, "name": n[:80]}
+                       for m, c, n in kernels[:8]],
+           "tail": int(ml_p.tail[0]), "launches": {}}
+    log(f"phase 15: CNR step R={R} K={K} L={CNR_L} {CNR_B} writes a log "
+        f"+ 1 read a replica x {CNR_STEPS} steps (ring {spec.capacity}, "
+        f"tail {out['tail']}): partitioned bit-identical to the fold and "
+        f"to a numpy map; partitioned {n_disp / t_p:.6g} dispatches/s, "
+        f"fold {n_disp / t_f:.6g} dispatches/s (fenced); partitioned "
+        f"step: host enqueues it in {out['enqueue_ms']:.4f} ms, wall "
+        f"{wall_ms:.4f} ms, device "
+        + (f"{dev_ms:.4f} ms, idle {100 * out['idle_share']:.1f}%; top "
+           + ", ".join(f"{n[:40]} x{c:g} {m:.4f} ms"
+                       for m, c, n in kernels[:5])
+           if dev_ms else "not measured")
+        + "; no kernel of this package runs here (plain PyTorch ops)")
+    del res, ml_p, st_p, ml_f, st_f, out_p, out_f
+    return out
+
+
+def _cnr_round_ops(rng, n):
+    keys = rng.integers(0, K, n)
+    kinds = rng.integers(1, 3, n)
+    vals = rng.integers(1, 1 << 31, n)
+    return [(1, int(k), int(v)) if o == 1 else (2, int(k))
+            for o, k, v in zip(kinds, keys, vals)]
+
+
+def _pads(ops):
+    """The per-log windows K1 runs for one batch: its sub-batch sizes
+    rounded up to a power of two."""
+    sizes = np.bincount([cnr_mapper(o[0], o[1:]) % CNR_L for o in ops],
+                        minlength=CNR_L)
+    return [1 << (int(n) - 1).bit_length() for n in sizes if n]
+
+
+def _apply_model(model, ops):
+    want = []
+    for op in ops:
+        if op[0] == 1:
+            model[op[1] % K] = op[2]
+            want.append(0)
+        else:
+            want.append(int(model.pop(op[1] % K, None) is not None))
+    return want
+
+
+def _k1_at_cnr_windows(dev, rng) -> dict:
+    """K1 against its plain version at the per-log windows of phase 16
+    (W = 32 and 64, R = 4096, a ring of 2^16 wrapping in the window)."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    kp = -(-K // 8) * 8
+    spec = LogSpec(capacity=1 << 16, n_replicas=R, arg_width=3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    vals, pres = random_planes(gen, dev, kp)
+    ring = (torch.zeros(spec.capacity, dtype=torch.int32, device=dev),
+            torch.zeros((spec.capacity, 3), dtype=torch.int32, device=dev))
+    out = {}
+    for W in (32, 64):
+        count = W - 3
+        opc = np.zeros(W, np.int32)
+        opc[:count] = rng.integers(1, 3, count)
+        args = np.zeros((W, 3), np.int32)
+        args[:count, 0] = CNR_L * rng.integers(0, K // CNR_L, count) + 3
+        args[:count, 1] = rng.integers(1, 1 << 31, count)
+        inputs = (spec, torch.tensor(spec.capacity - 7, dtype=torch.int64,
+                                     device=dev), count,
+                  torch.from_numpy(opc).to(dev),
+                  torch.from_numpy(args).to(dev), *ring, vals, pres, K)
+        err = max_abs_err(hashmap_fused_round(*inputs),
+                          hashmap_fused_round_plain(*inputs))
+        if err:
+            raise AssertionError(f"phase 16: K1 at W={W} disagrees with "
+                                 f"its plain version: {err}")
+        out[W] = {"max_abs_err": err,
+                  "ms": cuda_ms(lambda: hashmap_fused_round(*inputs), 10),
+                  "plain_ms": cuda_ms(
+                      lambda: hashmap_fused_round_plain(*inputs), 3)}
+    log(f"phase 16: K1 at the per-log windows R={R}: " + ", ".join(
+        f"W={W} bit-identical, kernel {c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.2f} ms" for W, c in out.items()))
+    return out
+
+
+def phase_cnr_rounds(dev, rng):
+    """`MultiLogReplicated` over the flagship hashmap (L = 8, R = 4096,
+    ring 2^16) with `engine="pallas"` against `engine="scan"`: batches
+    of 256 ops from rotating rids, every per-log sub-batch one K1 launch
+    on its log's row of the stacked ring, against a dict; the last few
+    batches profiled. Returns the result and the K1 fleet, which phase
+    17 serves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from node_replication_torch import MultiLogReplicated
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+
+    check = _k1_at_cnr_windows(dev, rng)
+    torch.cuda.empty_cache()
+
+    def fleet(engine):
+        return MultiLogReplicated(make_hashmap(K), cnr_mapper, nlogs=CNR_L,
+                                  n_replicas=R, log_entries=1 << 16,
+                                  engine=engine, device=dev)
+
+    n = CNR_ROUNDS + 1 + CNR_PROFILED  # one batch warms the tracer up
+    batches = [((i * 517) % R, _cnr_round_ops(rng, CNR_ROUND))
+               for i in range(n)]
+    model: dict[int, int] = {}
+    reset_launch_counts()
+    k1, scan = fleet("pallas"), fleet("scan")
+    lat = {"pallas": [], "scan": []}
+    for i, (rid, ops) in enumerate(batches[:CNR_ROUNDS]):
+        want = _apply_model(model, ops)
+        got = {}
+        for name, f in (("pallas", k1), ("scan", scan)):
+            t0 = time.perf_counter()
+            got[name] = f.execute_mut_batch(ops, rid)
+            lat[name].append(time.perf_counter() - t0)
+        if not got["pallas"] == got["scan"] == want:
+            raise AssertionError(f"phase 16: batch {i} responses differ")
+    # the first profiled batch is the tracer's warm-up step, traced and
+    # left out; the profiler records the CNR_PROFILED batches after it
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        rid, ops = batches[CNR_ROUNDS]
+        got_k = [k1.execute_mut_batch(ops, rid)]
+        torch.cuda.synchronize()
+        prof.step()
+        f0 = k1.stats()["fused_rounds"]
+        got_k += [k1.execute_mut_batch(ops, rid)
+                  for rid, ops in batches[CNR_ROUNDS + 1:]]
+        torch.cuda.synchronize()
+    prof_rounds = k1.stats()["fused_rounds"] - f0
+    for (rid, ops), g in zip(batches[CNR_ROUNDS:], got_k):
+        want = _apply_model(model, ops)
+        if not g == scan.execute_mut_batch(ops, rid) == want:
+            raise AssertionError("phase 16: a profiled batch differs")
+    launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                "hashmap_fused_round": FUSED_KERNEL.launches}
+    k1.sync()
+    scan.sync()
+    st, ss = k1.stats(), scan.stats()
+    if not (st["exec_rounds"] == 0 and st["fused_rounds"]
+            == sum(st["combine_rounds"])
+            == launches["hashmap_fused_round"] > 0):
+        raise AssertionError(f"phase 16: not every per-log sub-batch was "
+                             f"one K1 launch: {st}, launches {launches}")
+    if ss["fused_rounds"] != 0 or st["tails"] != ss["tails"]:
+        raise AssertionError(f"phase 16: the scan fleet {ss}")
+    for f in k1.ml._fields:
+        if not torch.equal(getattr(k1.ml, f), getattr(scan.ml, f)):
+            raise AssertionError(f"phase 16: multilog field {f} differs")
+    for f in ("values", "present"):
+        if not torch.equal(k1.states[f], scan.states[f]):
+            raise AssertionError(f"phase 16: states differ in {f}")
+    if not k1.replicas_equal():
+        raise AssertionError("phase 16: replicas differ")
+    values, present = np.zeros(K, np.int32), np.zeros(K, bool)
+    for k, v in model.items():
+        values[k], present[k] = v, True
+    if not (np.array_equal(k1.states["values"][0].cpu().numpy(), values)
+            and np.array_equal(k1.states["present"][0].cpu().numpy(),
+                               present)):
+        raise AssertionError("phase 16: state differs from the dict")
+    # the profiled batches: K1 kernels counted by the tracer (exactly
+    # one a per-log round), device time per per-log round, and the
+    # bound at each round's window
+    # (the schedule's `ProfilerStep#` range spans the kernels it holds:
+    # it is no kernel and is left out)
+    k1_ev = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith("ProfilerStep")]
+    k1_count = sum(e.count for e in k1_ev if "hashmap_round" in e.key)
+    if k1_count != prof_rounds:
+        raise AssertionError(f"phase 16: the profiler saw {k1_count} K1 "
+                             f"launches in {prof_rounds} fused rounds")
+    k1_ms = sum(e.self_device_time_total for e in k1_ev
+                if "hashmap_round" in e.key) / 1e3 / k1_count
+    dev_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3 / prof_rounds
+    pads = [p for _, ops in batches[CNR_ROUNDS + 1:] for p in _pads(ops)]
+    mean_w = statistics.mean(pads)
+    bound_ms, by = bound(k1_round_bytes(R, mean_w), 4 * mean_w * R)
+    top = sorted(((e.self_device_time_total / 1e3 / prof_rounds,
+                   e.count / prof_rounds, e.key[:60]) for e in k1_ev),
+                 reverse=True)[:6]
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in lat.items()}
+    out = {"rounds": n, "ops_per_round": CNR_ROUND, "R": R, "K": K,
+           "L": CNR_L, "per_log_rounds": st["fused_rounds"],
+           "launches": launches, "round_ms": med, "k1_check": check,
+           "profiled_rounds": prof_rounds, "profiled_k1": k1_count,
+           "mean_window": mean_w,
+           "k1_device_ms": k1_ms, "device_ms": dev_ms,
+           "bound_ms": bound_ms, "bound_by": by,
+           "kernels": [{"ms": m, "per_round": c, "name": k}
+                       for m, c, k in top]}
+    log(f"phase 16: MultiLogReplicated R={R} K={K} L={CNR_L} ring 2^16: "
+        f"{n} batches of {CNR_ROUND} ops from rotating rids, pallas and "
+        f"scan bit-identical (responses, rings, cursors, states) and "
+        f"equal to a dict; {st['fused_rounds']} per-log rounds, each one "
+        f"K1 launch ({launches['hashmap_fused_round']} launches, "
+        f"0 exec rounds); batch latency (median, fenced by the response "
+        f"readbacks) pallas {med['pallas']:.3f} ms, scan "
+        f"{med['scan']:.3f} ms")
+    log(f"phase 16: profiled {CNR_PROFILED} batches: {k1_count} K1 "
+        f"kernels seen by the profiler for {prof_rounds} per-log rounds "
+        f"(mean window {mean_w:.2f}); K1 {k1_ms:.4f} ms a launch against a "
+        f"bound of {bound_ms:.4f} ms; all device time a per-log round "
+        f"{dev_ms:.4f} ms: "
+        + ", ".join(f"{k[:40]} x{c:.2f} {m:.4f} ms" for m, c, k in top))
+    del scan
+    torch.cuda.empty_cache()
+    return out, k1
+
+
+def phase_cnr_serve(dev, rng, k1) -> dict:
+    """Phase 16's K1 fleet behind `ServeFrontend` on rids 0-7
+    (batch_max_ops 256): 16 closed-loop clients of 250 ops, 50/50
+    PUT/REMOVE, each on its own 625 keys; every answer against a dict
+    seeded from the fleet, every touched key read back from every rid;
+    then a profiled segment: device time per round against host wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    reg = get_registry()
+    reg.enable()
+    count = lambda: reg.counter("serve.batches").value  # noqa: E731
+    values = k1.states["values"][0].cpu().numpy()
+    present = k1.states["present"][0].cpu().numpy()
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    for c, m in enumerate(models):
+        for slot in range(c * SV_SLICE, (c + 1) * SV_SLICE):
+            if present[slot]:
+                m.vals[slot] = int(values[slot])
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001)
+    out = {}
+    reset_launch_counts()
+    for seg, per in (("serve", CNR_SV_PER), ("profiled", 16)):
+        ops = [hm_client_ops(rng, c, per) for c in range(SV_CLIENTS)]
+        touched = [set() for _ in range(SV_CLIENTS)]
+
+        def check(c, i, resp):
+            want = models[c].apply(ops[c][i])
+            touched[c].add(ops[c][i][1] % K)
+            return (None if resp == want else
+                    f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+        b0, l0, f0 = count(), FUSED_KERNEL.launches, \
+            k1.stats()["fused_rounds"]
+        with ServeFrontend(k1, cfg, rids=range(SV_RIDS)) as fe:
+            if seg == "profiled":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    time.sleep(0.05)
+                    r = serve_clients(fe, SV_CLIENTS, per,
+                                      lambda c, i: ops[c][i], check,
+                                      lambda c: c % SV_RIDS)
+                    torch.cuda.synchronize()
+            else:
+                r = serve_clients(fe, SV_CLIENTS, per,
+                                  lambda c, i: ops[c][i], check,
+                                  lambda c: c % SV_RIDS)
+            if r["errors"] or r["completed"] != r["ops"]:
+                raise AssertionError(f"phase 17 {seg}: {r['completed']} of "
+                                     f"{r['ops']} ops; {r['errors']}")
+            t0 = time.perf_counter()
+            # each touched key from a rid the client did not write on:
+            # the read syncs the key's own log only
+            r["reads"] = 0
+            for c, m in enumerate(models):
+                rid = (c + 1) % SV_RIDS
+                for slot in sorted(touched[c]):
+                    got = fe.read((1, slot), rid=rid)
+                    r["reads"] += 1
+                    if got != m.vals.get(slot, -1):
+                        raise AssertionError(
+                            f"phase 17 {seg}: key {slot} reads {got} on "
+                            f"replica {rid}, acked {m.vals.get(slot, -1)}")
+            r["read_s"] = time.perf_counter() - t0
+        st = k1.stats()
+        r.update(rounds=count() - b0,
+                 k1_launches=FUSED_KERNEL.launches - l0,
+                 fused=st["fused_rounds"] - f0,
+                 exec_rounds=st["exec_rounds"])
+        r["mean_batch"] = r["completed"] / max(1, r["rounds"])
+        r["k1_per_round"] = r["k1_launches"] / max(1, r["rounds"])
+        if not (r["k1_launches"] == r["fused"] > 0
+                and r["exec_rounds"] == 0):
+            raise AssertionError(f"phase 17 {seg}: not every per-log round "
+                                 f"was K1: {r}")
+        check_fleet_state(k1, models, f"phase 17 {seg}")
+        out[seg] = r
+    p = out["profiled"]
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rounds = max(1, p["rounds"])
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / rounds
+    k1_ev = [e for e in ev if "hashmap_round" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3 / rounds
+    k1_n = sum(e.count for e in k1_ev)
+    # K1 a launch, and its bound at the mean per-log sub-batch (ops a
+    # K1 launch, from the wrapper's count)
+    k1_launch_ms = (sum(e.self_device_time_total for e in k1_ev) / 1e3
+                    / k1_n if k1_n else None)
+    sub_w = p["completed"] / max(1, p["k1_launches"])
+    k1_bound_ms, k1_by = bound(k1_round_bytes(R, sub_w), 4 * sub_w * R)
+    wall_ms = p["wall_s"] * 1e3 / rounds
+    p.update(round_wall_ms=wall_ms, device_ms=dev_ms or None,
+             k1_ms=k1_ms or None, k1_launch_ms=k1_launch_ms,
+             k1_profiled=k1_n, mean_sub_batch=sub_w,
+             k1_bound_ms=k1_bound_ms, k1_bound_by=k1_by,
+             device_busy=dev_ms / wall_ms if dev_ms else None)
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    s = out["serve"]
+    log(f"phase 17: CNR served R={R} K={K} L={CNR_L} rids {SV_RIDS}: "
+        f"{s['completed']} ops acked by {SV_CLIENTS} clients, every "
+        f"response equal to the client dicts, 0 lost, duplicated or "
+        f"reordered; {s['acked_ops_per_s']:.1f} acked ops/s, p50 "
+        f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms; {s['rounds']} "
+        f"rounds (mean batch {s['mean_batch']:.2f}), "
+        f"{s['k1_per_round']:.2f} K1 launches a round, 0 exec rounds; "
+        f"{s['reads']} reads of the touched keys from other rids in "
+        f"{s['read_s']:.1f} s; replicas equal and equal to the dicts")
+    log(f"phase 17: profiled segment, {p['rounds']} rounds "
+        f"({p['k1_per_round']:.2f} K1 a round): host wall "
+        f"{wall_ms:.4f} ms a round, device "
+        + (f"{dev_ms:.4f} ms (K1 {k1_ms:.4f} ms), busy "
+           f"{100 * p['device_busy']:.1f}%" if dev_ms else "not measured")
+        + "; K1 "
+        + (f"{k1_launch_ms:.4f} ms a launch ({k1_n} seen by the profiler)"
+           if k1_n else "not measured")
+        + f" against a bound of {k1_bound_ms:.4f} ms at the mean per-log "
+        f"sub-batch of {sub_w:.2f} ops; launches {out['launches']}")
+    return out
+
+
+def _syn_mix(x):
+    x = ((x ^ (x >> np.uint64(16))) * np.uint64(0x7FEB352D)) \
+        & np.uint64(0xFFFFFFFF)
+    x = ((x ^ (x >> np.uint64(15))) * np.uint64(0x846CA68B)) \
+        & np.uint64(0xFFFFFFFF)
+    return x ^ (x >> np.uint64(16))
+
+
+def _syn_lines(seed, count, n, salt):
+    x = (np.uint64(seed & 0xFFFFFFFF)
+         + np.uint64((salt * 0x9E3779B9) & 0xFFFFFFFF)
+         + np.arange(count, dtype=np.uint64)) & np.uint64(0xFFFFFFFF)
+    return (_syn_mix(x) % np.uint64(n)).astype(np.int64)
+
+
+class SyntheticModel:
+    """numpy twin of `models/synthetic.py` (one replica)."""
+
+    def __init__(self, n, cold_reads, cold_writes, hot_reads, hot_writes,
+                 hot_set=1024):
+        self.lines = np.zeros(n, np.int64)
+        self.n, self.hot = n, min(hot_set, n)
+        self.cr, self.cw, self.hr, self.hw = (cold_reads, cold_writes,
+                                              hot_reads, hot_writes)
+
+    def _sum(self, seed):
+        idx = np.concatenate([_syn_lines(seed, self.cr, self.n, 1),
+                              _syn_lines(seed, self.hr, self.hot, 2)])
+        return int(self.lines[idx].sum())
+
+    @staticmethod
+    def _i32(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    def write(self, seed):
+        s = self._sum(seed)
+        idx = np.concatenate([_syn_lines(seed, self.cw, self.n, 3),
+                              _syn_lines(seed, self.hw, self.hot, 4)])
+        np.add.at(self.lines, idx, self._i32(seed + s))
+        self.lines = self._i32(self.lines)
+        return self._i32(s)
+
+    def read(self, seed):
+        return self._i32(self._sum(seed))
+
+
+def _m_batches(rng, dev, wr_of, rd_of):
+    import torch
+
+    out = []
+    for _ in range(M_STEPS):
+        wo, wa = wr_of(rng, (M_R, M_BW))
+        ro, ra = rd_of(rng, (M_R, 1))
+        out.append(tuple(torch.from_numpy(a).to(dev)
+                         for a in (wo, wa, ro, ra)))
+    return out
+
+
+def _args(*cols):
+    a = np.zeros(cols[0].shape + (3,), np.int32)
+    for i, c in enumerate(cols):
+        a[..., i] = c
+    return a
+
+
+def _run_steps(step, spec, d, dev, batches):
+    import torch
+
+    from node_replication_torch import log_init
+    from node_replication_torch.core.replica import replicate_state
+
+    lg, st = log_init(spec, dev), replicate_state(d.init_state(dev), M_R)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        lg, st, wr, rd = step(lg, st, *b)
+        outs.append((wr, rd))
+    torch.cuda.synchronize()
+    return lg, st, outs, time.perf_counter() - t0
+
+
+def _combined_vs_scan(name, d, dev, batches, model_check) -> dict:
+    """`make_step(combined=True)` against `make_step(combined=False)` on
+    the same batches: logs, states and every response equal; then
+    `model_check(batches, outs, state0)` against a host model."""
+    import torch
+
+    from node_replication_torch import LogSpec, make_step
+
+    spec = LogSpec(capacity=1 << 14, n_replicas=M_R, arg_width=3,
+                   gc_slack=M_R * M_BW)
+    res = {c: _run_steps(make_step(d, spec, M_BW, 1, combined=c), spec, d,
+                         dev, batches) for c in (True, False)}
+    (lc, sc, oc, tc), (ls, ss, os_, ts) = res[True], res[False]
+    for f in lc._fields:
+        if not torch.equal(getattr(lc, f), getattr(ls, f)):
+            raise AssertionError(f"phase 18 {name}: log field {f} differs")
+    for f in sc:
+        if not torch.equal(sc[f], ss[f]):
+            raise AssertionError(f"phase 18 {name}: states differ in {f}")
+        if not (sc[f] == sc[f][0:1]).all():
+            raise AssertionError(f"phase 18 {name}: replicas differ")
+    for i, (a, b) in enumerate(zip(oc, os_)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"phase 18 {name}: step {i} responses "
+                                 f"differ")
+    model_check(batches, oc, {f: v[0].cpu().numpy() for f, v in sc.items()})
+    n_disp = len(batches) * M_R * (M_BW + 1)
+    return {"combined_dispatches_per_s": n_disp / tc,
+            "scan_dispatches_per_s": n_disp / ts, "steps": len(batches)}
+
+
+def _fold_check(name, apply, read, final):
+    """A host-model check of a step path: the window is the [R, Bw]
+    batch in replica-major order, every replica answers its own ops."""
+    def check(batches, outs, state0):
+        for i, (b, (wr, rd)) in enumerate(zip(batches, outs)):
+            wo, wa = b[0].cpu().numpy(), b[1].cpu().numpy()
+            want = np.array([[apply(int(wo[r, j]), wa[r, j])
+                              for j in range(M_BW)] for r in range(M_R)])
+            if not np.array_equal(wr.cpu().numpy(), want):
+                raise AssertionError(f"phase 18 {name}: step {i} write "
+                                     f"responses differ from the model")
+            ro, ra = b[2].cpu().numpy(), b[3].cpu().numpy()
+            want = np.array([[read(int(ro[r, 0]), ra[r, 0])]
+                             for r in range(M_R)])
+            if not np.array_equal(rd.cpu().numpy(), want):
+                raise AssertionError(f"phase 18 {name}: step {i} reads "
+                                     f"differ from the model")
+        final(state0)
+    return check
+
+
+def phase_models(dev, rng) -> dict:
+    """The other models on the card, no kernel among them: the stack and
+    the queue at `benches/stack.py`'s capacity 2^16, the sorted set at
+    2^16 keys and synthetic at `benches/synthetic.py`'s costs, each
+    combined step (or, for synthetic, its only step, the scan) against
+    the scan step and a host model; memfs at `benches/nrfs.py --full`
+    widths through the CNR step (`make_partitioned_memfs(4096, 64, 8)`)
+    against the sequential fold. R = 16, 32 writes a replica a step."""
+    import torch
+
+    from node_replication_torch import LogSpec, make_step
+    from node_replication_torch.core.multilog import (
+        MultiLogSpec,
+        make_multilog_step,
+        multilog_init,
+        partition_ops,
+    )
+    from node_replication_torch.core.replica import replicate_state
+    from node_replication_torch.models import (
+        make_memfs,
+        make_partitioned_memfs,
+        make_queue,
+        make_sortedset,
+        make_stack,
+        make_synthetic,
+    )
+
+    out = {}
+    t0 = time.perf_counter()
+    push_pop = lambda r, s: (r.integers(1, 3, s).astype(np.int32),  # noqa
+                             _args(r.integers(1, 1 << 31, s)))
+    peek_len = lambda r, s: (r.integers(1, 3, s).astype(np.int32),  # noqa
+                             _args(np.zeros(s)))
+
+    # stack: a Python list
+    stack: list[int] = []
+
+    def st_apply(o, a):
+        if o == 1:
+            if len(stack) >= M_CAP:
+                return -1
+            stack.append(int(a[0]))
+            return len(stack)
+        return stack.pop() if stack else -1
+
+    def st_read(o, a):
+        return (stack[-1] if stack else -1) if o == 1 else len(stack)
+
+    def st_final(s):
+        if int(s["top"]) != len(stack) or list(
+                s["buf"][:len(stack)]) != stack:
+            raise AssertionError("phase 18 stack: state differs")
+
+    out["stack"] = _combined_vs_scan(
+        "stack", make_stack(M_CAP), dev, _m_batches(rng, dev, push_pop,
+                                                    peek_len),
+        _fold_check("stack", st_apply, st_read, st_final))
+
+    # queue: a deque
+    from collections import deque
+
+    q: deque = deque()
+
+    def q_apply(o, a):
+        if o == 1:
+            if len(q) >= M_CAP:
+                return -1
+            q.append(int(a[0]))
+            return len(q)
+        return q.popleft() if q else -1
+
+    def q_read(o, a):
+        return (q[0] if q else -1) if o == 1 else len(q)
+
+    def q_final(s):
+        n = int(s["tail"]) - int(s["head"])
+        idx = (int(s["head"]) + np.arange(n)) % M_CAP
+        if n != len(q) or list(s["buf"][idx]) != list(q):
+            raise AssertionError("phase 18 queue: state differs")
+
+    out["queue"] = _combined_vs_scan(
+        "queue", make_queue(M_CAP), dev, _m_batches(rng, dev, push_pop,
+                                                    peek_len),
+        _fold_check("queue", q_apply, q_read, q_final))
+
+    # sorted set: a Python set, 80% writes as `benches/lockfree.py`
+    present: set[int] = set()
+
+    def ss_apply(o, a):
+        k = int(a[0]) % M_KEYS
+        was = k in present
+        if o == 1:
+            present.add(k)
+            return int(not was)
+        present.discard(k)
+        return int(was)
+
+    def ss_read(o, a):
+        if o == 1:
+            return int(int(a[0]) % M_KEYS in present)
+        if o == 2:
+            return sum(1 for k in present if a[0] <= k < a[1])
+        return sum(1 for k in present if k < a[0])
+
+    def ss_final(s):
+        if set(np.nonzero(s["present"])[0].tolist()) != present:
+            raise AssertionError("phase 18 sortedset: state differs")
+
+    ss_wr = lambda r, s: (r.integers(1, 3, s).astype(np.int32),  # noqa
+                          _args(r.integers(0, M_KEYS, s)))
+    ss_rd = lambda r, s: (r.integers(1, 4, s).astype(np.int32),  # noqa
+                          _args(r.integers(0, M_KEYS, s),
+                                r.integers(0, M_KEYS, s)))
+    out["sortedset"] = _combined_vs_scan(
+        "sortedset", make_sortedset(M_KEYS), dev,
+        _m_batches(rng, dev, ss_wr, ss_rd),
+        _fold_check("sortedset", ss_apply, ss_read, ss_final))
+
+    # synthetic: the scan step (its only tier) against a numpy twin
+    syn = make_synthetic(**SYN)
+    sm = SyntheticModel(**SYN)
+    spec = LogSpec(capacity=1 << 14, n_replicas=M_R, arg_width=3,
+                   gc_slack=M_R * M_BW)
+    seeds = lambda r, s: (np.ones(s, np.int32),  # noqa: E731
+                          _args(r.integers(-(1 << 31), 1 << 31, s)))
+    batches = _m_batches(rng, dev, seeds, seeds)
+    _, st, outs, ts = _run_steps(make_step(syn, spec, M_BW, 1), spec, syn,
+                                 dev, batches)
+
+    def syn_final(s):
+        if not np.array_equal(s["lines"].astype(np.int64), sm.lines):
+            raise AssertionError("phase 18 synthetic: state differs")
+
+    _fold_check("synthetic", lambda o, a: sm.write(int(a[0])),
+                lambda o, a: sm.read(int(a[0])), syn_final)(
+        batches, outs, {f: v[0].cpu().numpy() for f, v in st.items()})
+    if not (st["lines"] == st["lines"][0:1]).all():
+        raise AssertionError("phase 18 synthetic: replicas differ")
+    out["synthetic"] = {"scan_dispatches_per_s":
+                        len(batches) * M_R * (M_BW + 1) / ts}
+
+    # memfs through the CNR step: partitioned against the fold
+    L = CNR_L
+    pm = make_partitioned_memfs(FS_FILES, FS_BLOCKS, L)
+    mspec = MultiLogSpec(nlogs=L, capacity=1 << 12, n_replicas=M_R,
+                         arg_width=3, gc_slack=512)
+    step_ops = []
+    for _ in range(M_STEPS):
+        n = M_R * M_BW
+        fd = rng.integers(0, FS_FILES, n)
+        blk = rng.integers(0, FS_BLOCKS, n)
+        kinds = rng.choice([1, 3], n)  # nrfs: WRITE, READ_LOGGED
+        step_ops.append([(int(o), (int(f), int(b), int(b) + 1))
+                         for o, f, b in zip(kinds, fd, blk)])
+    # the step's static per-log batch: the busiest log's bucket
+    B = max(int(np.bincount([o[1][0] % L for o in ops], minlength=L).max())
+            for ops in step_ops)
+    steps = {"partitioned": make_multilog_step(pm.full, mspec, B, 1,
+                                               partitioned=pm),
+             "fold": make_multilog_step(make_memfs(FS_FILES, FS_BLOCKS),
+                                        mspec, B, 1)}
+    fs_batches = []
+    for ops in step_ops:
+        opc, args, counts, _ = partition_ops(cnr_mapper, L, ops, 3,
+                                             pad_to=B, device=dev)
+        rd = np.zeros((M_R, 1, 3), np.int32)
+        rd[..., 0] = rng.integers(0, FS_FILES, (M_R, 1))
+        rd[..., 1] = rng.integers(0, FS_BLOCKS, (M_R, 1))
+        fs_batches.append((opc, args, counts,
+                           torch.full((M_R, 1), 2, dtype=torch.int32,
+                                      device=dev),  # FS_SIZE, as nrfs
+                           torch.from_numpy(rd).to(dev)))
+    res = {}
+    for name, step in steps.items():
+        ml = multilog_init(mspec, dev)
+        st = replicate_state(pm.full.init_state(dev), M_R)
+        outs = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in fs_batches:
+            ml, st, wr, rd = step(ml, st, *b)
+            outs.append((wr, rd))
+        torch.cuda.synchronize()
+        res[name] = (ml, st, outs, time.perf_counter() - t1)
+    (mp, sp, op_, tp), (mf, sf, of, tf) = res["partitioned"], res["fold"]
+    for f in mp._fields:
+        if not torch.equal(getattr(mp, f), getattr(mf, f)):
+            raise AssertionError(f"phase 18 memfs: multilog field {f} "
+                                 f"differs")
+    for f in sp:
+        if not (torch.equal(sp[f], sf[f]) and (sp[f] == sp[f][0:1]).all()):
+            raise AssertionError(f"phase 18 memfs: states differ in {f}")
+    for i, (a, b) in enumerate(zip(op_, of)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"phase 18 memfs: step {i} responses "
+                                 f"differ")
+    n_disp = M_STEPS * (M_R * M_BW + M_R)
+    out["memfs"] = {"partitioned_dispatches_per_s": n_disp / tp,
+                    "fold_dispatches_per_s": n_disp / tf, "B": B}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {}
+    log(f"phase 18: other models at R={M_R}, {M_BW} writes + 1 read a "
+        f"replica x {M_STEPS} steps, no kernel of this package runs here "
+        f"(plain PyTorch ops): stack and queue (capacity {M_CAP}), sorted "
+        f"set ({M_KEYS} keys) combined = scan = host model; synthetic "
+        f"(n={SYN['n']}, 20/5/2/1) scan = numpy twin; memfs "
+        f"({FS_FILES} files x {FS_BLOCKS} blocks, L={L}) CNR step "
+        f"partitioned = fold; dispatches/s: " + ", ".join(
+            f"{m} " + "/".join(f"{k.split('_')[0]} {v:.6g}"
+                               for k, v in r.items()
+                               if k.endswith("per_s"))
+            for m, r in out.items() if isinstance(r, dict) and r)
+        + f"; {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2359,6 +3244,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["hashmap_serve"] = phase_hashmap_serve(dev, rng)
         res["crash"] = phase_crash_recovery(dev)
+        torch.cuda.empty_cache()
+        res["cnr_step"] = phase_cnr_step(dev, rng)
+        torch.cuda.empty_cache()
+        res["cnr_rounds"], k1_fleet = phase_cnr_rounds(dev, rng)
+        res["cnr_serve"] = phase_cnr_serve(dev, rng, k1_fleet)
+        del k1_fleet
+        torch.cuda.empty_cache()
+        res["models"] = phase_models(dev, rng)
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -2373,7 +3266,8 @@ def main() -> int:
     oa_src = "node_replication_torch/csrc/oahashmap_replay.cu"
     oa_ref = "node_replication_tpu/ops/pallas_oahashmap.py"
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
-        "step", "replica", "seqreg_serve", "hashmap_serve", "crash"))
+        "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
+        "cnr_rounds", "cnr_serve"))
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
          hm_launches("hashmap_replay")),
@@ -2407,6 +3301,21 @@ def main() -> int:
         "launches": sum(res[p]["launches"]["hashmap_fused_round"]
                         for p in ("hashmap_serve", "crash")),
     }
+    # and a third: CNR's per-log rounds (phases 16-17), one
+    # launch per per-log sub-batch, at phase 16's mean per-log window
+    cr = res["cnr_rounds"]
+    res["fused"]["max_abs_err"] = max(
+        [res["fused"]["max_abs_err"]]
+        + [c["max_abs_err"] for c in cr["k1_check"].values()])
+    res["fused"]["cnr"] = {
+        "R": R, "L": CNR_L, "mean_window": cr["mean_window"],
+        "device_ms": cr["k1_device_ms"], "bound_ms": cr["bound_ms"],
+        "bound_by": cr["bound_by"],
+        "ms": {W: c["ms"] for W, c in cr["k1_check"].items()},
+        "plain_ms": {W: c["plain_ms"] for W, c in cr["k1_check"].items()},
+        "launches": sum(res[p]["launches"]["hashmap_fused_round"]
+                        for p in ("cnr_rounds", "cnr_serve")),
+    }
     kernels = [{
         "name": kname, "route": "cuda", "source": src, "replaces": ref,
         "launches": launches, "max_abs_err": p["max_abs_err"],
@@ -2418,6 +3327,7 @@ def main() -> int:
         # step's window, under step_window)
         **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
         **({"served": p["served"]} if "served" in p else {}),
+        **({"cnr": p["cnr"]} if "cnr" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

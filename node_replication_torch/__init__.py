@@ -11,14 +11,15 @@ Entry points run on the card unless the caller asks for another
 device: `device=None` means `torch.device("cuda")` and raises without
 one; pass `device="cpu"` for the CPU.
 
-Ported so far (ROADMAP.md queue 1 lists the rest): the hashmap, vspace,
-open-addressing and sequence-register models, the log, the lock-step
-step, `NodeReplicated` (with `grow_fleet`, the WAL and snapshots),
-every replay and fused-round kernel, and the serving path: `serve/`
-(`ServeFrontend`), `fault/` (injection, health, repair) and `durable/`
-(WAL, recovery).
+Ported so far (ROADMAP.md queue 1 lists the rest): every model of the
+reference, the log, the lock-step step, `NodeReplicated` (with
+`grow_fleet`, the WAL and snapshots), CNR (`core/multilog.py`,
+`MultiLogReplicated`, the partitioned models), every replay and
+fused-round kernel, and the serving path: `serve/` (`ServeFrontend`),
+`fault/` (injection, health, repair) and `durable/` (WAL, recovery).
 """
 
+from node_replication_torch.core.cnr import MultiLogReplicated
 from node_replication_torch.core.log import (
     DEFAULT_LOG_ENTRIES,
     GC_FROM_HEAD,
@@ -57,6 +58,7 @@ __all__ = [
     "is_replica_synced_for_reads", "log_append", "log_exec_all",
     "log_init", "log_reset", "log_space", "MAX_PENDING_OPS",
     "MAX_THREADS_PER_REPLICA", "NodeReplicated", "ReplicaToken",
-    "make_step", "HM_GET", "HM_PUT", "HM_REMOVE", "make_hashmap", "NOOP",
+    "MultiLogReplicated", "make_step", "HM_GET", "HM_PUT", "HM_REMOVE",
+    "make_hashmap", "NOOP",
     "Dispatch", "apply_read", "apply_write", "encode_ops",
 ]

@@ -114,11 +114,14 @@ class _PendingRound:
     `done` marks a round `begin` already completed."""
 
     __slots__ = ("rid", "tids", "n", "pos0", "target", "batch",
-                 "fused_resps", "done", "t_chain", "pad", "fkey", "tier")
+                 "fused_resps", "done", "t_chain", "pad", "fkey", "tier",
+                 "log_idx")
 
     def __init__(self, rid: int, tids: list[int], n: int, pos0: int,
-                 batch: bool = False):
+                 batch: bool = False, log_idx: int = 0):
         self.rid = rid
+        #: the log a CNR sub-round appended to (`core/cnr.py`)
+        self.log_idx = log_idx
         self.tids = tids
         self.n = n
         self.pos0 = pos0

@@ -12,7 +12,9 @@ plane's hooks (follower mode with `read_only`/`enable_writes`, the
 hashmap fleet with the fused tier each combiner round is one kernel
 launch (K1, `csrc/hashmap_replay.cu`), issued on the worker thread's
 current CUDA stream; a future resolves only after `finish_mut_batch`
-has read the round's responses back to the host.
+has read the round's responses back to the host. Over a
+`MultiLogReplicated` a batch splits into one combiner pass per mapped
+log, each one K1 launch on a hashmap fleet.
 
 Turns `NodeReplicated` into a servable system: many OS-thread clients
 submit ops; each replica has a BOUNDED
@@ -669,7 +671,7 @@ class _SubmissionQueue:
 
 
 class ServeFrontend:
-    """Request frontend over a `NodeReplicated`.
+    """Request frontend over a `NodeReplicated`/`MultiLogReplicated`.
 
     One bounded queue + one worker (the elected combiner) per replica.
     Use as a context manager for guaranteed drain-on-exit:
@@ -694,7 +696,7 @@ class ServeFrontend:
         if not hasattr(nr, "execute_mut_batch"):
             raise TypeError(
                 f"{type(nr).__name__} has no execute_mut_batch; the "
-                f"frontend serves NodeReplicated"
+                f"frontend serves NodeReplicated/MultiLogReplicated"
             )
         self._nr = nr
         self.cfg = config or ServeConfig()
@@ -859,7 +861,7 @@ class ServeFrontend:
 
     @property
     def nr(self):
-        """The wrapped `NodeReplicated` (read
+        """The wrapped `NodeReplicated`/`MultiLogReplicated` (read
         access for recovery verification and ops tooling; mutate it
         only through the frontend)."""
         return self._nr

@@ -319,3 +319,55 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert {p.name for p in kernel_lib.sources()} == {
         "hashmap_replay.cu", "oahashmap_replay.cu", "vspace_radix_replay.cu",
         "vspace_replay.cu"}
+
+
+CNR_PATH = ("core/multilog.py", "core/cnr.py", "ops/windowkit.py",
+            "models/partitioned.py", "models/stack.py", "models/queue.py",
+            "models/sortedset.py", "models/memfs.py", "models/synthetic.py")
+
+
+def test_cnr_modules_are_scanned_and_stand_alone():
+    for rel in CNR_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert path.exists(), rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def test_cnr_entry_points_without_a_card_raise(monkeypatch):
+    import node_replication_torch as nrt
+    from node_replication_torch.core.multilog import (
+        MultiLogSpec,
+        multilog_init,
+        partition_ops,
+    )
+    from node_replication_torch.models import (
+        make_memfs,
+        make_partitioned_hashmap,
+        make_queue,
+        make_sortedset,
+        make_stack,
+        make_synthetic,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mapper = lambda opc, args: args[0]  # noqa: E731
+    spec = MultiLogSpec(nlogs=2, capacity=64, n_replicas=2, gc_slack=8)
+    for entry in (
+        lambda: nrt.MultiLogReplicated(make_hashmap(8), mapper, 2, 2),
+        lambda: nrt.MultiLogReplicated(make_hashmap(8), mapper, 2, 2,
+                                       engine="pallas"),
+        lambda: multilog_init(spec),
+        lambda: partition_ops(mapper, 2, [(1, (0, 1))], 3),
+        lambda: make_partitioned_hashmap(8, 2).full.make_state(),
+        lambda: make_stack(4).make_state(),
+        lambda: make_queue(4).make_state(),
+        lambda: make_sortedset(4).make_state(),
+        lambda: make_memfs(4, 2).make_state(),
+        lambda: make_synthetic(16).make_state(),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
+    c = nrt.MultiLogReplicated(make_hashmap(8), mapper, 2, 2,
+                               device="cpu")
+    assert c.execute_mut((1, 3, 7), c.register(0)) == 0
+    assert c.execute((1, 3), c.register(1)) == 7

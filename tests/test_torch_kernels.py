@@ -526,3 +526,40 @@ def test_serve_frontend_over_k1_equals_the_chain(dev):
             assert torch.equal(getattr(k1.log, f), getattr(chain.log, f)), f
         for f in ("values", "present"):
             assert torch.equal(k1.states[f], chain.states[f]), f
+
+
+@pytest.mark.parametrize("R,K,L", [(5, 37, 3), (33, 1000, 8)])
+def test_cnr_per_log_rounds_over_k1_equal_the_scan_tier(dev, R, K, L):
+    """`MultiLogReplicated` over a hashmap on the fused tier: every
+    per-log sub-batch is one K1 launch on that log's row of the stacked
+    ring, against the scan tier on the same batches (rotating rids,
+    sub-batches of 1 to 64 ops, the rings wrapping): responses, every
+    ring and cursor row, and every replica's state are equal."""
+    from node_replication_torch.core.cnr import MultiLogReplicated
+    from node_replication_torch.models import make_hashmap
+
+    mapper = lambda opc, args: args[0]  # noqa: E731
+    fleets = {e: MultiLogReplicated(make_hashmap(K), mapper, nlogs=L,
+                                    n_replicas=R, log_entries=256,
+                                    gc_slack=16, engine=e, device=dev)
+              for e in ("pallas", "scan")}
+    rng = np.random.default_rng(R)
+    before = FUSED_KERNEL.launches
+    for i in range(40):
+        n = int(rng.integers(1, 64 * L // 4))
+        ops = [(int(rng.integers(1, 3)), int(rng.integers(-K, 2 * K)),
+                int(rng.integers(1 << 20))) for _ in range(n)]
+        rid = i % R
+        outs = [f.execute_mut_batch(ops, rid) for f in fleets.values()]
+        assert outs[0] == outs[1]
+    k1, scan = fleets["pallas"], fleets["scan"]
+    st = k1.stats()
+    assert st["exec_rounds"] == 0
+    assert FUSED_KERNEL.launches - before == st["fused_rounds"] \
+        == sum(st["combine_rounds"])
+    assert max(st["tails"]) > 256  # the rings wrapped
+    scan.sync()
+    for f in k1.ml._fields:
+        assert torch.equal(getattr(k1.ml, f), getattr(scan.ml, f)), f
+    for f in ("values", "present"):
+        assert torch.equal(k1.states[f], scan.states[f]), f
