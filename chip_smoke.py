@@ -143,10 +143,43 @@ CNR, `cnr`'s multi-log node replication (`core/multilog.py`,
    `benches/nrfs.py --full` widths through the CNR step
    (`make_partitioned_memfs(4096, 64, 8)` = the fold).
 
+The mesh (`parallel/`), "N shards" being `cuda:i % device_count()`
+for i < N (one shard a card while there are cards, else all on
+`cuda:0`; the mapping is printed):
+
+19. the mesh-fused hashmap flagship: `NodeReplicated(make_hashmap(
+   10000), 4096, log_entries=2^16, engine="pallas",
+   mesh=replica_mesh(4))`, phase 5's 36 rounds of 256 ops with a read
+   on each shard, rounds 24-29 with a replica of shard 2 fenced, plus a
+   warm-up and 4 profiled rounds; against un-meshed `"pallas"` and
+   `"combined"` fleets and a dict; every round `mesh_fused` with
+   exactly 4 K1 launches (the wrapper's count, `stats()`,
+   `torch.profiler`); first K1 against its plain version at a shard's
+   shape (R = 1024, W = 256) with its device time and bound; meshed
+   against un-meshed round latency; a round's host wall against its
+   device time;
+20. the chain tiers on 4 shards: a `"scan"` fleet (`shmap`) and a
+   `"combined"` fleet (`gspmd`), 4 rounds of 256 each against their
+   un-meshed twins; then a 1024-entry backlog appended with every
+   cursor equal, replayed by `sync()` through the ring tier (chunk 256,
+   W = 1024), against an un-meshed `sync()`; ring seconds against scan;
+21. the mesh-fused flat vspace: phase 8's fleet (R = 256) on 4 shards of
+   64, 24 rounds of 1024 ops with reads, 4 K5 launches a round, rounds
+   16-19 fenced on the chain, against un-meshed pallas and combined
+   fleets and the numpy table; then K5 against its plain version at a
+   shard's shape (R = 64) with its device time and bound;
+22. phase 19's fleet served (rids 0-7, batch_max_ops 256, 16 clients of
+   250 ops) against per-client dicts, every round mesh-fused, the
+   frontend's `device_of_rid` and `stats()["mesh"]` against
+   `replica_device`; then `MultiLogReplicated(..., nlogs=8,
+   n_replicas=4096, engine="scan", mesh=make_mesh(2, 2))`, 8 batches of
+   256 against the un-meshed fleet and a dict, `replica_device` by mesh
+   row.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17) and read just after; a kernel that its path never launched fails
-the run.
+17, 19-22) and read just after; a kernel that its path never launched
+fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 "device": ...}`; any failure exits non-zero before them. Without a
@@ -2624,6 +2657,9 @@ def phase_cnr_rounds(dev, rng):
         got_k = [k1.execute_mut_batch(ops, rid)]
         torch.cuda.synchronize()
         prof.step()
+        # the active step starts before the first launch (a launch
+        # right after the step can land in the warm-up's discard)
+        time.sleep(0.05)
         f0 = k1.stats()["fused_rounds"]
         got_k += [k1.execute_mut_batch(ops, rid)
                   for rid, ops in batches[CNR_ROUNDS + 1:]]
@@ -3191,6 +3227,688 @@ def phase_models(dev, rng) -> dict:
     return out
 
 
+# ------------------------------------------------- the mesh (parallel/)
+
+MESH_SHARDS = 4        # phases 19-22: R = 4096 on 4 shards of 1024
+MESH_PROFILED = 4      # phase 19's profiled rounds (after a warm-up)
+MESH_CHAIN_ROUNDS = 4  # phase 20's rounds a tier
+MESH_BACKLOG = 1024    # phase 20's ring backlog: 4 chunks of 256
+MESH_VS_ROUNDS = 24    # phase 21's rounds of VS_ROUND
+MESH_SV_PER = 250      # phase 22's ops a client (phase 17's)
+MESH_CNR_BATCHES = 8   # phase 22's CNR batches of CNR_ROUND
+
+
+def queued_ms(call, n: int = 20) -> float:
+    """Device time of one call of `call()` in ms from CUDA events around
+    `n` calls queued behind a ~20 ms spin kernel: the host has enqueued
+    them all before the device reaches the first, so the events span
+    device work only. Late in a full run `torch.profiler` has seen none
+    of a lone kernel call's launches, so the mesh phases' per-shard
+    checks time them this way."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def mesh_devices(n: int):
+    """N shards: one a card while there are cards, then round robin."""
+    import torch
+
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def _same_fleets(a, b, label: str) -> None:
+    """Two fleets' rings, int64 cursors and states bit-identical."""
+    import torch
+
+    for f in ("opcodes", "args", "head", "tail", "ctail", "ltails"):
+        if not torch.equal(getattr(a.log, f), getattr(b.log, f)):
+            raise AssertionError(f"{label}: log field {f} differs")
+    for f in a.states:
+        if not torch.equal(a.states[f], b.states[f]):
+            raise AssertionError(f"{label}: states differ in {f}")
+
+
+def _k1_shard_check(dev, rng, Rl: int) -> dict:
+    """K1 against its plain version at a shard's shape (R / shards
+    replicas, W = 256, a 2^16 ring wrapping in the window), unfenced and
+    fenced, with its event and device time and its bound."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    kp = -(-K // 8) * 8
+    spec = LogSpec(capacity=1 << 16, n_replicas=Rl, arg_width=3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    vals = torch.randint(-(1 << 30), 1 << 30, (kp, Rl), generator=gen,
+                         device=dev, dtype=torch.int32)
+    pres = torch.randint(0, 2, (kp, Rl), generator=gen, device=dev,
+                         dtype=torch.int32)
+    ring = (torch.zeros(spec.capacity, dtype=torch.int32, device=dev),
+            torch.zeros((spec.capacity, 3), dtype=torch.int32, device=dev))
+    W = W_ROUND
+    opc = rng.integers(1, 3, W).astype(np.int32)
+    args = np.zeros((W, 3), np.int32)
+    args[:, 0] = rng.integers(-K, 2 * K, W)
+    args[:, 1] = rng.integers(1, 1 << 31, W)
+    fen = torch.zeros(Rl, dtype=torch.int32, device=dev)
+    fen[[1, Rl // 2, Rl - 1]] = 1
+    err = 0
+    for f in (None, fen):
+        inputs = (spec, torch.tensor(spec.capacity - 100, dtype=torch.int64,
+                                     device=dev), W - 5,
+                  torch.from_numpy(opc).to(dev),
+                  torch.from_numpy(args).to(dev), *ring, vals, pres, K, f)
+        err = max(err, max_abs_err(hashmap_fused_round(*inputs),
+                                   hashmap_fused_round_plain(*inputs)))
+    if err:
+        raise AssertionError(f"phase 19: K1 at R={Rl} disagrees with its "
+                             f"plain version: {err}")
+    inputs = inputs[:-1] + (None,)
+    ms = cuda_ms(lambda: hashmap_fused_round(*inputs), 10)
+    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*inputs), 2)
+    dt = {"device_ms": queued_ms(lambda: hashmap_fused_round(*inputs))}
+    n_bytes = k1_round_bytes(Rl, W)
+    bound_ms, by = bound(n_bytes, 4 * W * Rl)
+    log(f"phase 19: K1 at a shard's shape R={Rl} K={K} W={W} ring 2^16 "
+        f"(wrapping), fenced and not: bit-identical; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({n_bytes:.0f} "
+        f"bytes)")
+    log(f"phase 19: K1 per shard device time {dt['device_ms']:.4f} ms "
+        f"(CUDA events over queued calls)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **dt,
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
+            "R": Rl, "W": W}
+
+
+def phase_mesh_fused(dev, rng):
+    """The mesh-fused hashmap flagship: `NodeReplicated(make_hashmap(K),
+    R, log_entries=2^16, engine="pallas", mesh=replica_mesh(4))` against
+    un-meshed `"pallas"` and `"combined"` fleets and a dict, phase 5's
+    rounds plus a fenced stretch on shard 2; every round 4 K1 launches
+    (the wrapper's count, `stats()`, `torch.profiler`). Returns the
+    result and the meshed fleet, which phase 22 serves."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.models import HM_GET, HM_PUT, make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.parallel import replica_mesh
+
+    Rl = R // MESH_SHARDS
+    check = _k1_shard_check(dev, rng, Rl)
+    torch.cuda.empty_cache()
+    devs = mesh_devices(MESH_SHARDS)
+    log(f"phase 19: {MESH_SHARDS} shards on " + ", ".join(
+        f"shard {s}: {d}" for s, d in enumerate(devs)))
+    reg = get_registry()
+    reg.enable()
+    mesh_rounds = reg.counter("nr.exec.mesh.mesh_fused")
+
+    def fleet(engine, mesh=None):
+        return NodeReplicated(make_hashmap(K), R, log_entries=1 << 16,
+                              engine=engine, mesh=mesh,
+                              **({} if mesh else {"device": dev}))
+
+    reset_launch_counts()
+    nm = fleet("pallas", replica_mesh(MESH_SHARDS, devices=devs))
+    nk, nc = fleet("pallas"), fleet("combined")
+    fleets = {"mesh": nm, "pallas": nk, "combined": nc}
+    readers = [1, Rl + 7, 2 * Rl + 3, R - 1]  # one on each shard
+    toks = {n: [f.register(r) for r in readers] for n, f in fleets.items()}
+    fenced_rid = 2 * Rl + 5               # on shard 2
+    fenced_rounds = range(24, 30)
+    model: dict[int, int] = {}
+    lat = {n: [] for n in fleets}
+    mesh_launches = 0
+    m0 = mesh_rounds.value
+    n_rounds = 36 + 1 + MESH_PROFILED
+    batches = []
+    for rnd in range(n_rounds):
+        rid = int(rng.integers(R))
+        if rid == fenced_rid:
+            rid = 0
+        opc = rng.choice(np.array([1, 2]), W_ROUND)
+        keys = rng.integers(0, K, W_ROUND)
+        vals = rng.integers(1, 1 << 31, W_ROUND)
+        batches.append((rid, keys, [
+            (int(o), int(k), int(v)) if o == HM_PUT else (int(o), int(k))
+            for o, k, v in zip(opc, keys, vals)]))
+
+    def drive(rnd, rid, ops, timed=True):
+        got = {}
+        for name, f in fleets.items():
+            before = FUSED_KERNEL.launches
+            t0 = time.perf_counter()
+            got[name] = f.execute_mut_batch(ops, rid)
+            if timed:
+                lat[name].append(time.perf_counter() - t0)
+            if name == "mesh":
+                n = FUSED_KERNEL.launches - before
+                if n != MESH_SHARDS or f.last_round_tier != "mesh_fused":
+                    raise AssertionError(
+                        f"phase 19: round {rnd}: {n} K1 launches, tier "
+                        f"{f.last_round_tier}")
+        return got
+
+    for rnd, (rid, keys, ops) in enumerate(batches[:36]):
+        if rnd == fenced_rounds[0]:
+            for f in fleets.values():
+                f.fence_replica(fenced_rid)
+        if rnd == fenced_rounds[-1] + 1:
+            for f in fleets.values():
+                f.clone_replica_from(fenced_rid, donor=0)
+                f.unfence_replica(fenced_rid)
+        want = _apply_model(model, ops)
+        l0 = FUSED_KERNEL.launches
+        got = drive(rnd, rid, ops)
+        mesh_launches += MESH_SHARDS
+        del l0
+        if not got["mesh"] == got["pallas"] == got["combined"] == want:
+            raise AssertionError(f"phase 19: round {rnd}: responses differ")
+        for i, r in enumerate(readers):
+            k = int(keys[(rnd + i) % W_ROUND])
+            outs = {f.execute((HM_GET, k), toks[n][i])
+                    for n, f in fleets.items()}
+            if outs != {model.get(k, -1)}:
+                raise AssertionError(f"phase 19: round {rnd}: read of {k} "
+                                     f"on replica {r}: {outs}")
+    # profiled rounds: the first is the tracer's warm-up step, traced
+    # and left out; the tracer counts K1 kernels in the others
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        rid, _, ops = batches[36]
+        got_m = [nm.execute_mut_batch(ops, rid)]
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.05)  # as phase 16: the active step starts first
+        f0 = nm.stats()["fused_rounds"]
+        for rid, _, ops in batches[37:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got_m.append(nm.execute_mut_batch(ops, rid))
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    prof_rounds = nm.stats()["fused_rounds"] - f0
+    mesh_launches += MESH_SHARDS * (1 + MESH_PROFILED)
+    for (rid, _, ops), g in zip(batches[36:], got_m):
+        want = _apply_model(model, ops)
+        outs = [nk.execute_mut_batch(ops, rid),
+                nc.execute_mut_batch(ops, rid)]
+        if not g == outs[0] == outs[1] == want:
+            raise AssertionError("phase 19: a profiled round differs")
+    launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                "hashmap_fused_round": FUSED_KERNEL.launches}
+    for f in fleets.values():
+        f.sync()
+    sm = nm.stats()
+    if not (sm["fused_rounds"] == n_rounds and sm["exec_rounds"] == 0
+            and mesh_rounds.value - m0 == n_rounds
+            and sm["mesh_devices"] == MESH_SHARDS):
+        raise AssertionError(f"phase 19: not every round was one meshed "
+                             f"round: {sm}")
+    if nk.stats()["fused_rounds"] + mesh_launches != \
+            launches["hashmap_fused_round"]:
+        raise AssertionError(f"phase 19: K1 launches {launches} against "
+                             f"{mesh_launches} meshed")
+    _same_fleets(nm, nk, "phase 19 (mesh against pallas)")
+    _same_fleets(nm, nc, "phase 19 (mesh against combined)")
+    if not nm.replicas_equal():
+        raise AssertionError("phase 19: replicas differ")
+    values = nm.states["values"][0].cpu().numpy()
+    present = nm.states["present"][0].cpu().numpy()
+    if set(np.nonzero(present)[0].tolist()) != set(model) or any(
+            int(values[k]) != v for k, v in model.items()):
+        raise AssertionError("phase 19: state differs from the dict")
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and not e.key.startswith("ProfilerStep")]
+    k1_ev = [e for e in ev if "hashmap_round" in e.key]
+    k1_count = sum(e.count for e in k1_ev)
+    if k1_count != MESH_SHARDS * prof_rounds:
+        raise AssertionError(f"phase 19: the profiler saw {k1_count} K1 "
+                             f"launches in {prof_rounds} meshed rounds")
+    k1_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3 / k1_count
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / prof_rounds
+    wall_ms = statistics.mean(walls) * 1e3
+    top = sorted(((e.self_device_time_total / 1e3 / prof_rounds,
+                   e.count / prof_rounds, e.key[:60]) for e in ev),
+                 reverse=True)[:6]
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in lat.items()}
+    out = {"rounds": n_rounds, "shards": MESH_SHARDS,
+           "devices": [str(d) for d in devs], "R_per_shard": Rl,
+           "launches": launches, "mesh_launches": mesh_launches,
+           "round_ms": med, "k1_check": check,
+           "profiled_rounds": prof_rounds, "profiled_k1": k1_count,
+           "k1_device_ms": k1_ms, "device_ms": dev_ms,
+           "round_wall_ms": wall_ms, "device_busy": dev_ms / wall_ms,
+           "kernels": [{"ms": m, "per_round": c, "name": k}
+                       for m, c, k in top]}
+    log(f"phase 19: mesh-fused NodeReplicated R={R} K={K} over "
+        f"{MESH_SHARDS} shards of {Rl}: {n_rounds} rounds of {W_ROUND} ops "
+        f"+ {len(readers)} reads (one a shard), rounds {fenced_rounds[0]}-"
+        f"{fenced_rounds[-1]} with replica {fenced_rid} (shard 2) fenced; "
+        f"meshed = pallas = combined = the dict (responses, rings, "
+        f"cursors, states); every round mesh_fused with {MESH_SHARDS} K1 "
+        f"launches (wrapper {mesh_launches}, stats {sm['fused_rounds']} "
+        f"rounds); round latency (median) mesh {med['mesh']:.3f} ms, "
+        f"pallas {med['pallas']:.3f} ms, combined {med['combined']:.3f} ms")
+    log(f"phase 19: profiled {prof_rounds} meshed rounds: {k1_count} K1 "
+        f"kernels seen by the profiler; K1 {k1_ms:.4f} ms a shard launch "
+        f"against a bound of {check['bound_ms']:.4f} ms; a round's host "
+        f"wall {wall_ms:.4f} ms, device {dev_ms:.4f} ms (busy "
+        f"{100 * dev_ms / wall_ms:.1f}%): "
+        + ", ".join(f"{k[:40]} x{c:.2f} {m:.4f} ms" for m, c, k in top))
+    del nk, nc, fleets
+    torch.cuda.empty_cache()
+    return out, nm
+
+
+def phase_mesh_chain(dev, rng) -> dict:
+    """The chain tiers on the mesh at the flagship widths: a `"scan"`
+    fleet (collectives `auto` -> `shmap`) and a `"combined"` fleet (->
+    `gspmd`) on 4 shards, each against its un-meshed twin; then a
+    backlog of 1024 entries appended with every cursor equal, which
+    `sync()` replays through the ring tier (chunk 256, W = 1024), equal
+    to an un-meshed `sync()`."""
+    import torch
+
+    from node_replication_torch import NodeReplicated, log_append
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.parallel import replica_mesh
+
+    reg = get_registry()
+    reg.enable()
+    ring = reg.counter("nr.exec.engine.ring")
+    devs = mesh_devices(MESH_SHARDS)
+    mesh = replica_mesh(MESH_SHARDS, devices=devs)
+    out = {}
+    reset_launch_counts()
+    for engine, tier in (("scan", "shmap"), ("combined", "gspmd")):
+        nm = NodeReplicated(make_hashmap(K), R, log_entries=1 << 16,
+                            engine=engine, mesh=mesh)
+        nu = NodeReplicated(make_hashmap(K), R, log_entries=1 << 16,
+                            engine=engine, device=dev)
+        if nm._mesh_tier != tier:
+            raise AssertionError(f"phase 20: {engine} took "
+                                 f"{nm._mesh_tier}, not {tier}")
+        model: dict[int, int] = {}
+        lat = {"mesh": [], "unmeshed": []}
+        for rnd in range(MESH_CHAIN_ROUNDS):
+            ops = _cnr_round_ops(rng, W_ROUND)
+            want = _apply_model(model, ops)
+            rid = int(rng.integers(R))
+            got = []
+            for name, f in (("mesh", nm), ("unmeshed", nu)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got.append(f.execute_mut_batch(ops, rid))
+                lat[name].append(time.perf_counter() - t0)
+            if not got[0] == got[1] == want:
+                raise AssertionError(f"phase 20 {tier}: round {rnd} "
+                                     f"responses differ")
+        _same_fleets(nm, nu, f"phase 20 {tier}")
+        r = {"tier": tier, "round_ms": {k: statistics.median(v) * 1e3
+                                        for k, v in lat.items()},
+             "stats": {k: nm.stats()[k] for k in ("exec_rounds",
+                                                  "mesh_devices")}}
+        if engine == "scan":
+            # the ring tier: a backlog appended with every cursor equal
+            opc = rng.integers(1, 3, MESH_BACKLOG).astype(np.int32)
+            args = np.zeros((MESH_BACKLOG, 3), np.int32)
+            args[:, 0] = rng.integers(0, K, MESH_BACKLOG)
+            args[:, 1] = rng.integers(1, 1 << 31, MESH_BACKLOG)
+            for f in (nm, nu):
+                f.log = log_append(f.spec, f.log,
+                                   torch.from_numpy(opc).to(dev),
+                                   torch.from_numpy(args).to(dev),
+                                   MESH_BACKLOG)
+            r0 = ring.value
+            secs = {}
+            for name, f in (("ring", nm), ("scan", nu)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f.sync()
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+            if not (ring.value - r0 >= 1 and nm._ring_rounds >= 1
+                    and nu._ring_rounds == 0):
+                raise AssertionError(f"phase 20: the ring tier did not "
+                                     f"run ({ring.value - r0} passes)")
+            _same_fleets(nm, nu, "phase 20 after the ring pass")
+            r.update(ring_passes=nm._ring_rounds, chunk=min(
+                nm.exec_window, MESH_BACKLOG // MESH_SHARDS),
+                backlog=MESH_BACKLOG, ring_s=secs["ring"],
+                scan_s=secs["scan"])
+            log(f"phase 20: ring catch-up of a {MESH_BACKLOG}-entry backlog "
+                f"on {MESH_SHARDS} shards (chunk {r['chunk']}, "
+                f"{nm._ring_rounds} pass): {secs['ring']:.3f} s, the "
+                f"un-meshed scan sync {secs['scan']:.3f} s; bit-identical")
+        log(f"phase 20: {engine} fleet on {MESH_SHARDS} shards ({tier}) vs "
+            f"un-meshed: {MESH_CHAIN_ROUNDS} rounds of {W_ROUND} ops "
+            f"bit-identical and equal to a dict; round latency (median) "
+            f"mesh {r['round_ms']['mesh']:.3f} ms, un-meshed "
+            f"{r['round_ms']['unmeshed']:.3f} ms")
+        out[tier] = r
+        del nm, nu
+        torch.cuda.empty_cache()
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 20: a chain tier launched a kernel: "
+                             f"{out['launches']}")
+    return out
+
+
+def phase_mesh_vspace(dev, rng) -> dict:
+    """The mesh-fused flat vspace: phase 8's fleet on 4 shards of 64,
+    against un-meshed `"pallas"` and `"combined"` fleets and the numpy
+    page table; every unfenced round 4 K5 launches, a fenced stretch on
+    the chain; then K5 against its plain version at a shard's shape."""
+    import torch
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.models import make_vspace
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops import vspace as vs
+    from node_replication_torch.ops.encoding import encode_ops
+    from node_replication_torch.parallel import replica_mesh
+
+    reg = get_registry()
+    reg.enable()
+    fallback = reg.counter("nr.exec.engine.fused_fallback")
+    devs = mesh_devices(MESH_SHARDS)
+    Rl = VS_R // MESH_SHARDS
+
+    def fleet(engine, mesh=None):
+        return NodeReplicated(make_vspace(VS_P, max_span=VS_SPAN), VS_R,
+                              engine=engine, mesh=mesh,
+                              **({} if mesh else {"device": dev}))
+
+    vs.reset_launch_counts()
+    nm = fleet("pallas", replica_mesh(MESH_SHARDS, devices=devs))
+    nk, nc = fleet("pallas"), fleet("combined")
+    fleets = {"mesh": nm, "pallas": nk, "combined": nc}
+    readers = [1, Rl + 2, 2 * Rl + 3, VS_R - 1]
+    toks = {n: [f.register(r) for r in readers] for n, f in fleets.items()}
+    fenced_rid = 2 * Rl + Rl // 2
+    fenced_rounds = range(16, 20)
+    model = np.zeros(VS_P, np.int64)
+    lat = {n: [] for n in fleets}
+    mesh_launches, fb0 = 0, fallback.value
+    for rnd in range(MESH_VS_ROUNDS):
+        if rnd == fenced_rounds[0]:
+            for f in fleets.values():
+                f.fence_replica(fenced_rid)
+        if rnd == fenced_rounds[-1] + 1:
+            for f in fleets.values():
+                f.clone_replica_from(fenced_rid, donor=0)
+                f.unfence_replica(fenced_rid)
+        opc, args = vs_window(rng, VS_ROUND)
+        ops = [(1, int(a[0]), int(a[1]), int(a[2])) if o == 1
+               else (2, int(a[0]), int(a[1])) for o, a in zip(opc, args)]
+        want = [np_vspace_apply(model, op) for op in ops]
+        rid = int(rng.integers(VS_R))
+        if rid == fenced_rid:
+            rid = 0
+        got = {}
+        for name, f in fleets.items():
+            before = vs.FUSED_KERNEL.launches
+            t0 = time.perf_counter()
+            got[name] = f.execute_mut_batch(ops, rid)
+            lat[name].append(time.perf_counter() - t0)
+            if name == "mesh":
+                n = vs.FUSED_KERNEL.launches - before
+                fenced = rnd in fenced_rounds
+                if n != (0 if fenced else MESH_SHARDS) or \
+                        f.last_round_tier != ("combined" if fenced
+                                              else "mesh_fused"):
+                    raise AssertionError(
+                        f"phase 21: round {rnd}: {n} K5 launches, tier "
+                        f"{f.last_round_tier}")
+                mesh_launches += n
+        if not got["mesh"] == got["pallas"] == got["combined"] == want:
+            raise AssertionError(f"phase 21: round {rnd}: responses differ")
+        for i, r in enumerate(readers):
+            a = args[(rnd + i) % VS_ROUND]
+            op = (1, int(a[0])) if i % 2 else (2, int(a[0]), int(a[2]))
+            outs = {f.execute(op, toks[n][i]) for n, f in fleets.items()}
+            if outs != {np_vspace_read(model, op)}:
+                raise AssertionError(f"phase 21: round {rnd}: read {op} "
+                                     f"on replica {r}: {outs}")
+    launches = {k.name: k.launches for k in (
+        vs.REPLAY_KERNEL, vs.PLAN_KERNEL, vs.FUSED_KERNEL)}
+    if fallback.value - fb0 < 2 * len(fenced_rounds):
+        raise AssertionError("phase 21: fenced rounds did not fall back")
+    for f in fleets.values():
+        f.sync()
+    sm = nm.stats()
+    if sm["fused_rounds"] != MESH_VS_ROUNDS - len(fenced_rounds) or \
+            mesh_launches != MESH_SHARDS * sm["fused_rounds"]:
+        raise AssertionError(f"phase 21: {sm['fused_rounds']} meshed "
+                             f"rounds, {mesh_launches} K5 launches")
+    _same_fleets(nm, nk, "phase 21 (mesh against pallas)")
+    _same_fleets(nm, nc, "phase 21 (mesh against combined)")
+    if not nm.replicas_equal():
+        raise AssertionError("phase 21: replicas differ")
+    if not np.array_equal(nm.states["frames"][0].cpu().numpy(), model):
+        raise AssertionError("phase 21: frames differ from the numpy model")
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in lat.items()}
+    log(f"phase 21: mesh-fused vspace R={VS_R} P={VS_P} on {MESH_SHARDS} "
+        f"shards of {Rl} ({', '.join(str(d) for d in devs)}): "
+        f"{MESH_VS_ROUNDS} rounds of {VS_ROUND} ops + reads, rounds "
+        f"{fenced_rounds[0]}-{fenced_rounds[-1]} fenced (replica "
+        f"{fenced_rid}, shard 2) on the chain; meshed = pallas = combined "
+        f"= the numpy table; {mesh_launches} K5 launches, {MESH_SHARDS} a "
+        f"meshed round; round latency (median) mesh {med['mesh']:.3f} ms, "
+        f"pallas {med['pallas']:.3f} ms, combined {med['combined']:.3f} ms")
+    # K5 alone at a shard's shape, on shard 0's own log and rows
+    sh = nm._placed.shards[0]
+    opc_np, args_np = vs_window(rng, VS_ROUND, inert=True)
+    opcodes, args, count = encode_ops(
+        [(int(o), *map(int, a)) for o, a in zip(opc_np, args_np)], 3,
+        device=sh.device)
+    lg, frames = sh.log, sh.states["frames"]
+    spec = nm._shard_spec()
+    call = (spec, lg.tail, count, opcodes, args, lg.opcodes, lg.args,
+            frames, VS_P, VS_SPAN)
+    err = max_abs_err(vs.vspace_fused_round(*call),
+                      vs.vspace_fused_round_plain(*call))
+    if err:
+        raise AssertionError(f"phase 21: K5 at R={Rl} disagrees with its "
+                             f"plain version: {err}")
+    ms = cuda_ms(lambda: vs.vspace_fused_round(*call), 10)
+    plain_ms = cuda_ms(lambda: vs.vspace_fused_round_plain(*call), 2)
+    dt = {"device_ms": queued_ms(lambda: vs.vspace_fused_round(*call))}
+    L = nm.spec.capacity
+    n_bytes = vs_bytes(Rl, VS_ROUND, extra=4 * 2 * L * 4)
+    bound_ms, by = bound(n_bytes, vs_ops(args_np, opc_np, Rl))
+    log(f"phase 21: K5 at a shard's shape R={Rl} W={VS_ROUND}: "
+        f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bound {bound_ms:.4f} ms ({n_bytes} bytes)")
+    log(f"phase 21: K5 per shard device time {dt['device_ms']:.4f} ms "
+        f"(CUDA events over queued calls)")
+    return {"rounds": MESH_VS_ROUNDS, "round_ms": med,
+            "launches": launches, "mesh_launches": mesh_launches,
+            "fused_rounds": sm["fused_rounds"],
+            "k5_check": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **dt, "bytes": n_bytes, "bound_ms": bound_ms,
+                         "bound_by": by, "R": Rl, "W": VS_ROUND}}
+
+
+def phase_mesh_serve(dev, rng, nm) -> dict:
+    """Phase 19's meshed fleet behind `ServeFrontend(rids=range(8),
+    batch_max_ops=256)`: 16 closed-loop clients of 250 ops against
+    per-client dicts, every round mesh-fused, the frontend's device map
+    equal to `replica_device`; then CNR on a 2 x 2 mesh
+    (`engine="scan"`) against the un-meshed fleet and a dict."""
+    import torch
+
+    from node_replication_torch import MultiLogReplicated
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.parallel import make_mesh
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    reg = get_registry()
+    reg.enable()
+    count = lambda: reg.counter("serve.batches").value  # noqa: E731
+    values = nm.states["values"][0].cpu().numpy()
+    present = nm.states["present"][0].cpu().numpy()
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    for c, m in enumerate(models):
+        for slot in range(c * SV_SLICE, (c + 1) * SV_SLICE):
+            if present[slot]:
+                m.vals[slot] = int(values[slot])
+    ops = [hm_client_ops(rng, c, MESH_SV_PER) for c in range(SV_CLIENTS)]
+    touched = [set() for _ in range(SV_CLIENTS)]
+
+    def check(c, i, resp):
+        want = models[c].apply(ops[c][i])
+        touched[c].add(ops[c][i][1] % K)
+        return (None if resp == want else
+                f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+    reset_launch_counts()
+    b0, f0 = count(), nm.stats()["fused_rounds"]
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001)
+    with ServeFrontend(nm, cfg, rids=range(SV_RIDS)) as fe:
+        dev_map = dict(fe.device_of_rid)
+        want_map = {r: str(nm.replica_device(r)) for r in range(SV_RIDS)}
+        r = serve_clients(fe, SV_CLIENTS, MESH_SV_PER,
+                          lambda c, i: ops[c][i], check,
+                          lambda c: c % SV_RIDS)
+        if r["errors"] or r["completed"] != r["ops"]:
+            raise AssertionError(f"phase 22: {r['completed']} of "
+                                 f"{r['ops']} ops; {r['errors']}")
+        r["reads"] = 0
+        for c, m in enumerate(models):
+            rid = (c + 1) % SV_RIDS
+            for slot in sorted(touched[c]):
+                got = fe.read((1, slot), rid=rid)
+                r["reads"] += 1
+                if got != m.vals.get(slot, -1):
+                    raise AssertionError(f"phase 22: key {slot} reads {got} "
+                                         f"on replica {rid}")
+        st_fe = fe.stats()
+    st = nm.stats()
+    r.update(rounds=count() - b0, fused=st["fused_rounds"] - f0,
+             k1_launches=FUSED_KERNEL.launches)
+    r["mean_batch"] = r["completed"] / max(1, r["rounds"])
+    if dev_map != want_map or st_fe["mesh"]["device_of_rid"] != want_map \
+            or sum(st_fe["mesh"]["replicas_per_device"].values()) != SV_RIDS:
+        raise AssertionError(f"phase 22: device map {st_fe.get('mesh')} "
+                             f"against {want_map}")
+    if not (r["fused"] == r["rounds"] > 0
+            and r["k1_launches"] == MESH_SHARDS * r["fused"]
+            and nm.last_round_tier == "mesh_fused"):
+        raise AssertionError(f"phase 22: not every served round was "
+                             f"mesh-fused: {r}")
+    check_fleet_state(nm, models, "phase 22 served")
+    log(f"phase 22: the meshed flagship served (rids {SV_RIDS}, "
+        f"{MESH_SHARDS} shards, device map {sorted(set(dev_map.values()))}):"
+        f" {r['completed']} ops acked by {SV_CLIENTS} clients, every "
+        f"response equal to the client dicts; {r['acked_ops_per_s']:.1f} "
+        f"acked ops/s, p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms; "
+        f"{r['rounds']} rounds (mean batch {r['mean_batch']:.2f}), every "
+        f"one mesh-fused, {r['k1_launches']} K1 launches; {r['reads']} "
+        f"reads from other rids; replicas equal the dicts")
+    out = {"serve": r, "launches": {
+        "hashmap_replay": REPLAY_KERNEL.launches,
+        "hashmap_fused_round": FUSED_KERNEL.launches}}
+    del nm
+    torch.cuda.empty_cache()
+    # CNR on a ('replica', 'log') = (2, 2) mesh, the scan engine
+    devs = mesh_devices(4)
+    mesh = make_mesh(2, 2, devices=devs)
+
+    def cnr(mesh=None):
+        return MultiLogReplicated(
+            make_hashmap(K), cnr_mapper, nlogs=CNR_L, n_replicas=R,
+            log_entries=1 << 16, engine="scan", mesh=mesh,
+            **({} if mesh else {"device": dev}))
+
+    cm, cu = cnr(mesh), cnr()
+    model: dict[int, int] = {}
+    t = {"mesh": 0.0, "unmeshed": 0.0}
+    for i in range(MESH_CNR_BATCHES):
+        ops_b = _cnr_round_ops(rng, CNR_ROUND)
+        want = _apply_model(model, ops_b)
+        rid = (i * 517) % R
+        got = []
+        for name, f in (("mesh", cm), ("unmeshed", cu)):
+            t0 = time.perf_counter()
+            got.append(f.execute_mut_batch(ops_b, rid))
+            t[name] += time.perf_counter() - t0
+        if not got[0] == got[1] == want:
+            raise AssertionError(f"phase 22 CNR: batch {i} differs")
+    for f in (cm, cu):
+        f.sync()
+    for fld in cm.ml._fields:
+        if not torch.equal(getattr(cm.ml, fld), getattr(cu.ml, fld)):
+            raise AssertionError(f"phase 22 CNR: field {fld} differs")
+    for fld in ("values", "present"):
+        if not torch.equal(cm.states[fld], cu.states[fld]):
+            raise AssertionError(f"phase 22 CNR: states differ in {fld}")
+    rows = [row.flat[0] for row in mesh.devices]
+    for rid in (0, R // 2 - 1, R // 2, R - 1):
+        if cm.replica_device(rid) != rows[rid // (R // 2)]:
+            raise AssertionError(f"phase 22 CNR: replica {rid} on "
+                                 f"{cm.replica_device(rid)}")
+    snap = cm.snapshot()["mesh"]
+    if snap != {"devices": 4, "tier": "gspmd",
+                "shape": {"replica": 2, "log": 2}}:
+        raise AssertionError(f"phase 22 CNR: snapshot mesh {snap}")
+    out["cnr"] = {"batches": MESH_CNR_BATCHES,
+                  "batch_ms": {k: v / MESH_CNR_BATCHES * 1e3
+                               for k, v in t.items()},
+                  "exec_rounds": cm.stats()["exec_rounds"]}
+    log(f"phase 22: CNR R={R} K={K} L={CNR_L} on a 2 x 2 mesh "
+        f"({', '.join(str(d) for d in devs)}), engine scan: "
+        f"{MESH_CNR_BATCHES} batches of {CNR_ROUND} equal to the un-meshed "
+        f"fleet and a dict (rings, cursors, states); replica_device by "
+        f"mesh row; batch latency mesh "
+        f"{out['cnr']['batch_ms']['mesh']:.1f} ms, un-meshed "
+        f"{out['cnr']['batch_ms']['unmeshed']:.1f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3252,6 +3970,12 @@ def main() -> int:
         del k1_fleet
         torch.cuda.empty_cache()
         res["models"] = phase_models(dev, rng)
+        torch.cuda.empty_cache()
+        res["mesh_fused"], mesh_fleet = phase_mesh_fused(dev, rng)
+        res["mesh_chain"] = phase_mesh_chain(dev, rng)
+        res["mesh_vspace"] = phase_mesh_vspace(dev, rng)
+        res["mesh_serve"] = phase_mesh_serve(dev, rng, mesh_fleet)
+        del mesh_fleet
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -3265,9 +3989,15 @@ def main() -> int:
     rx_src = "node_replication_torch/csrc/vspace_radix_replay.cu"
     oa_src = "node_replication_torch/csrc/oahashmap_replay.cu"
     oa_ref = "node_replication_tpu/ops/pallas_oahashmap.py"
+    # the meshed paths' K1 launches: phase 19's meshed fleet (not its
+    # un-meshed twins) and phase 22's served rounds
+    mf, mv = res["mesh_fused"], res["mesh_vspace"]
+    k1_mesh = mf["mesh_launches"] + \
+        res["mesh_serve"]["launches"]["hashmap_fused_round"]
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
-        "cnr_rounds", "cnr_serve"))
+        "cnr_rounds", "cnr_serve", "mesh_chain")) + (
+        k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
          hm_launches("hashmap_replay")),
@@ -3280,7 +4010,8 @@ def main() -> int:
          res["vspace_step"]["launches"]["plan"]["vspace_plan_replay"]),
         ("vspace_fused_round", vs_src, f"{vs_ref}:901",
          res["vspace_replica"]["fused_kernel"],
-         res["vspace_replica"]["launches"]["vspace_fused_round"]),
+         res["vspace_replica"]["launches"]["vspace_fused_round"]
+         + mv["mesh_launches"]),
         ("vspace_radix_replay", rx_src, f"{vs_ref}:217",
          res["radix_replay"],
          res["radix_step"]["launches"]["pallas"]["vspace_radix_replay"]),
@@ -3316,6 +4047,23 @@ def main() -> int:
         "launches": sum(res[p]["launches"]["hashmap_fused_round"]
                         for p in ("cnr_rounds", "cnr_serve")),
     }
+    # and both fused kernels once per mesh shard (phases 19-22): the
+    # per-shard shape's checks and times, and the in-path device time
+    for p, chk, n, extra in (
+            (res["fused"], mf["k1_check"], k1_mesh,
+             {"in_path_device_ms": mf["k1_device_ms"],
+              "profiled_launches": mf["profiled_k1"]}),
+            (res["vspace_replica"]["fused_kernel"], mv["k5_check"],
+             mv["mesh_launches"], {})):
+        p["max_abs_err"] = max(p["max_abs_err"], chk["max_abs_err"])
+        p["mesh"] = {
+            "shards": MESH_SHARDS, "devices": mf["devices"],
+            "R_per_shard": chk["R"], "W": chk["W"],
+            "launches_per_round": MESH_SHARDS, "launches": n,
+            "max_abs_err": chk["max_abs_err"], "ms": chk["ms"],
+            "plain_ms": chk["plain_ms"], "device_ms": chk["device_ms"],
+            "bound_ms": chk["bound_ms"], "bound_by": chk["bound_by"],
+            **extra}
     kernels = [{
         "name": kname, "route": "cuda", "source": src, "replaces": ref,
         "launches": launches, "max_abs_err": p["max_abs_err"],
@@ -3328,6 +4076,7 @@ def main() -> int:
         **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
         **({"served": p["served"]} if "served" in p else {}),
         **({"cnr": p["cnr"]} if "cnr" in p else {}),
+        **({"mesh": p["mesh"]} if "mesh" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

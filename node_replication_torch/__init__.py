@@ -15,8 +15,11 @@ Ported so far (ROADMAP.md queue 1 lists the rest): every model of the
 reference, the log, the lock-step step, `NodeReplicated` (with
 `grow_fleet`, the WAL and snapshots), CNR (`core/multilog.py`,
 `MultiLogReplicated`, the partitioned models), every replay and
-fused-round kernel, and the serving path: `serve/` (`ServeFrontend`),
-`fault/` (injection, health, repair) and `durable/` (WAL, recovery).
+fused-round kernel, the serving path: `serve/` (`ServeFrontend`),
+`fault/` (injection, health, repair) and `durable/` (WAL, recovery),
+and mesh placement: `parallel/` (`NodeReplicated(mesh=...)`,
+`MultiLogReplicated(mesh=...)`, the shmap, gspmd, mesh-fused and ring
+tiers).
 """
 
 from node_replication_torch.core.cnr import MultiLogReplicated
@@ -52,6 +55,18 @@ from node_replication_torch.ops.encoding import (
     apply_write,
     encode_ops,
 )
+from node_replication_torch.parallel import (
+    MachineTopology,
+    MeshFusedEngine,
+    ReplicaStrategy,
+    make_mesh,
+    make_ring_exec,
+    make_shmap_exec,
+    make_shmap_step,
+    place,
+    replica_mesh,
+    shard_step,
+)
 
 __all__ = [
     "DEFAULT_LOG_ENTRIES", "GC_FROM_HEAD", "LogSpec", "LogState",
@@ -61,4 +76,7 @@ __all__ = [
     "MultiLogReplicated", "make_step", "HM_GET", "HM_PUT", "HM_REMOVE",
     "make_hashmap", "NOOP",
     "Dispatch", "apply_read", "apply_write", "encode_ops",
+    "MeshFusedEngine", "ReplicaStrategy", "make_mesh", "make_ring_exec",
+    "make_shmap_exec", "make_shmap_step", "place", "replica_mesh",
+    "shard_step", "MachineTopology",
 ]

@@ -17,8 +17,12 @@ sub-batch of a model with a fused engine (the hashmap's K1,
 ONE kernel launch on that log's row of the stacked ring.
 
 `device=None` runs on the card and raises without one; pass
-`device="cpu"` to run on the CPU. Not in this package yet: `mesh=`
-(ROADMAP.md queue 1 item 6, `parallel/`).
+`device="cpu"` to run on the CPU. `mesh=` takes a ('replica', 'log')
+`parallel.Mesh`: replica states and the ltails' replica columns are
+placed by mesh row (`parallel/mesh.py:place`), every exec round runs
+on each row shard with the lattice joined on the host (the
+reference's GSPMD tier), and the fused per-log tier stays un-meshed, as
+in the reference.
 
 By design, as `NodeReplicated`'s scan round: an exec round stops at
 the largest lag of the log's replicas (host cursors it already reads)
@@ -111,11 +115,39 @@ class MultiLogReplicated(_FusedTier):
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "MultiLogReplicated(mesh=) needs parallel/ (ROADMAP.md "
-                "queue 1 item 6), which this package does not have yet"
+            from node_replication_torch.parallel.mesh import (
+                Mesh,
+                row_devices,
             )
+
+            if not isinstance(mesh, Mesh) or not {
+                "replica", "log"
+            } <= set(mesh.axis_names):
+                raise ValueError(
+                    f"MultiLogReplicated needs a ('replica', 'log') "
+                    f"Mesh (parallel/mesh.py:make_mesh); got {mesh!r}"
+                )
+            shape = mesh.shape
+            if n_replicas % shape["replica"]:
+                raise ValueError(
+                    f"R={n_replicas} replicas cannot shard over "
+                    f"{shape['replica']} mesh rows"
+                )
+            if nlogs % shape["log"]:
+                raise ValueError(
+                    f"L={nlogs} logs cannot shard over "
+                    f"{shape['log']} mesh columns"
+                )
+            home = row_devices(mesh)[0]
+            if device is not None and resolve_device(device) != home:
+                raise ValueError(
+                    f"device={device!r} is not the mesh's home device "
+                    f"{home} (mesh row 0's)"
+                )
+            device = home
         self.device = resolve_device(device)
+        self._ml = self._states = None
+        self._placed = None
         self.spec = MultiLogSpec(
             nlogs=nlogs,
             capacity=log_entries,
@@ -131,6 +163,20 @@ class MultiLogReplicated(_FusedTier):
         self.ml = multilog_init(self.spec, self.device)
         self.states = replicate_state(dispatch.init_state(self.device),
                                       n_replicas)
+        self.mesh = None
+        self._mesh_shards = 0
+        if mesh is not None:
+            from node_replication_torch.parallel.mesh import (
+                announce_placement,
+                place,
+            )
+
+            self.mesh = mesh
+            self._mesh_shards = mesh.size
+            announce_placement(mesh, n_replicas, "MultiLogReplicated",
+                               "gspmd")
+            self._placed = place(self._ml, self._states, mesh)
+            self._ml = self._states = None
 
         # one combiner pass at a time across all logs; reentrant so a
         # watchdog gc_callback can re-enter sync_log on the same thread
@@ -162,7 +208,48 @@ class MultiLogReplicated(_FusedTier):
         # chain. CNR has no fencing, so no fenced round is built.
         if engine not in ("auto", "scan", "pallas"):
             raise ValueError(f"unknown engine {engine!r}")
-        self._init_fused_tier(engine, dispatch, reg, "cnr")
+        self._init_fused_tier(engine, dispatch, reg, "cnr",
+                              mesh=self.mesh)
+        if self.mesh is not None:
+            self._m_mesh_round = reg.counter("cnr.exec.mesh.gspmd")
+            self._m_mesh_sync_bytes = reg.counter("mesh.sync_bytes")
+
+    # ------------------------------------------------------------ placement
+
+    @property
+    def ml(self):
+        """The stacked logs (on a mesh: the global view on the home
+        device)."""
+        return self._ml if self._placed is None else self._placed.log
+
+    @ml.setter
+    def ml(self, ml) -> None:
+        if self._placed is None:
+            self._ml = ml
+        else:
+            self._placed = self._placed.with_log(ml)
+
+    @property
+    def states(self):
+        """The replica states (on a mesh: the global view on the home
+        device)."""
+        if self._placed is None:
+            return self._states
+        return self._placed.states
+
+    @states.setter
+    def states(self, states) -> None:
+        if self._placed is None:
+            self._states = states
+        else:
+            self._placed = self._placed.with_states(states)
+
+    def _fleet_trees(self) -> tuple:
+        """The fleet's tensors as trees, for `utils/fence.py:fence`
+        (no global view is built)."""
+        if self._placed is None:
+            return (self._ml, self._states)
+        return tuple(self._placed.trees())
 
     # ------------------------------------------------------------------ API
 
@@ -175,11 +262,14 @@ class MultiLogReplicated(_FusedTier):
         return self.spec.nlogs
 
     def replica_device(self, rid: int) -> torch.device:
-        """The device holding replica `rid`'s state: the fleet's one
-        device (this package has no mesh yet)."""
+        """The device holding replica `rid`'s state: the first device
+        of its mesh row, or the fleet's one device un-meshed (the
+        reference returns None there)."""
         if not 0 <= rid < self.n_replicas:
             raise ValueError(f"replica {rid} out of range")
-        return self.device
+        if self._placed is None:
+            return self.device
+        return self._placed.shards[self._placed.shard_of(rid)[0]].device
 
     def _cursors(self, log_idx: int) -> tuple[np.ndarray, int]:
         """One readback of log `log_idx`'s `(ltails, tail)`."""
@@ -261,11 +351,18 @@ class MultiLogReplicated(_FusedTier):
             rounds = self._watchdog(rounds, h, "read-sync")
         args = np.zeros((1, self.spec.arg_width), np.int32)
         args[0, : len(op) - 1] = op[1:]
-        state = tree_map(lambda a: a[rid:rid + 1], self.states)
+        if self._placed is None:
+            state = tree_map(lambda a: a[rid:rid + 1], self._states)
+            dev = self.device
+        else:
+            s, i = self._placed.shard_of(rid)
+            sh = self._placed.shards[s]
+            state = tree_map(lambda a: a[i:i + 1], sh.states)
+            dev = sh.device
         resp = apply_read(
             self.dispatch, state,
-            torch.tensor([op[0]], dtype=torch.int32, device=self.device),
-            torch.from_numpy(args).to(self.device),
+            torch.tensor([op[0]], dtype=torch.int32, device=dev),
+            torch.from_numpy(args).to(dev),
         )
         return int(resp[0])
 
@@ -430,7 +527,7 @@ class MultiLogReplicated(_FusedTier):
             while int(self.ml.ltails[log_idx, rid]) < target:
                 self._exec_round(log_idx)
                 rounds = self._watchdog(rounds, log_idx, "combine-replay")
-            sp.fence(self.ml, self.states)
+            sp.fence(*self._fleet_trees())
         self.last_round_tier = "scan"
         self._tier_by_rid[rid] = "scan"
         self._pos_by_rid[rid] = pending.pos0
@@ -689,7 +786,13 @@ class MultiLogReplicated(_FusedTier):
                 "fused_rounds": self._fused_rounds,
                 "fused_tier": self._fused_tier_state(),
             },
-            "mesh": None,
+            "mesh": (
+                None if self.mesh is None else {
+                    "devices": self._mesh_shards,
+                    "tier": "gspmd",
+                    "shape": dict(self.mesh.shape),
+                }
+            ),
             "device": str(self.device),
             "metrics": get_registry().snapshot(),
         }
@@ -710,18 +813,25 @@ class MultiLogReplicated(_FusedTier):
         self._exec_rounds += 1
         self._m_rounds.inc()
         window = max(1, min(self.exec_window, tail - int(lt_before.min())))
-        ml = self.ml
         sl = slice(log_idx, log_idx + 1)
-        self.states, resps, lt = _exec_one_log(
-            self.spec, self.dispatch, ml.opcodes[sl], ml.args[sl],
-            ml.tail[sl], self.states, ml.ltails[sl], window,
-        )
-        lt = lt[0]
-        ml.ltails[log_idx] = lt
-        ml.ctail[log_idx] = torch.maximum(ml.ctail[log_idx], lt.max())
-        ml.head[log_idx] = lt.min()
+        if self._placed is None:
+            ml = self._ml
+            self._states, resps, lt = _exec_one_log(
+                self.spec, self.dispatch, ml.opcodes[sl], ml.args[sl],
+                ml.tail[sl], self._states, ml.ltails[sl], window,
+            )
+            lt, resps = lt[0], resps[0]
+            ml.ltails[log_idx] = lt
+            ml.ctail[log_idx] = torch.maximum(ml.ctail[log_idx], lt.max())
+            ml.head[log_idx] = lt.min()
+        else:
+            lt, resps = self._mesh_exec_log(log_idx, window)
         lt_after = lt.cpu().numpy()
-        resps_np = resps[0].cpu().numpy()
+        resps_np = resps.cpu().numpy()
+        if self.mesh is not None:
+            self._m_mesh_round.inc()
+            self._m_mesh_sync_bytes.inc(resps_np.nbytes + lt_before.nbytes
+                                        + 8 + lt_after.nbytes)
         for r in range(self.n_replicas):
             q = self._inflight.get((r, log_idx))
             if not q:
@@ -731,6 +841,41 @@ class MultiLogReplicated(_FusedTier):
                 self._resps[(r, tid)].append(
                     int(resps_np[r, pos - int(lt_before[r])])
                 )
+
+    def _mesh_exec_log(self, log_idx: int, window: int):
+        """One exec round of log `log_idx` on every row shard, then the
+        log's cursor lattice joined on the host (`ctail = max`, `head =
+        min` of its ltails) and written into each shard's log row.
+        Returns the log's global `(ltails int64[R], resps int32[R,
+        window])` on the home device."""
+        fleet = self._placed
+        home = fleet.home
+        sl = slice(log_idx, log_idx + 1)
+        parts, states, resps = [], [], []
+        for sh in fleet.shards:
+            ml = sh.log
+            st, r, lt = _exec_one_log(
+                self.spec, self.dispatch, ml.opcodes[sl], ml.args[sl],
+                ml.tail[sl], sh.states, ml.ltails[sl], window,
+            )
+            parts.append(lt[0])
+            states.append(st)
+            resps.append(r[0])
+        lt = torch.cat([p.to(home) for p in parts])
+        ctail = torch.maximum(fleet.shards[0].log.ctail[log_idx].to(home),
+                              lt.max())
+        head = lt.min()
+        for sh, part in zip(fleet.shards, parts):
+            # every shard owns its ltails; ctail/head are the device's
+            # copy, written once per device
+            sh.log.ltails[log_idx] = part
+        for d in fleet.devices():
+            ml = next(sh.log for sh in fleet.shards if sh.device == d)
+            ml.ctail[log_idx] = ctail.to(d)
+            ml.head[log_idx] = head.to(d)
+        self._placed = fleet.with_shards([sh.log for sh in fleet.shards],
+                                         states)
+        return lt, torch.cat([r.to(home) for r in resps])
 
     def _watchdog(self, rounds: int, log_idx: int, where: str) -> int:
         rounds += 1

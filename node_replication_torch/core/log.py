@@ -42,6 +42,10 @@ _m_idle_skips = get_registry().counter("log.engine.idle_skip")
 # fused tier: whole combiner rounds executed as one kernel launch
 # (`ops/replay.py:FusedHashmapEngine`), counted per round
 _m_engine_pallas_fused = get_registry().counter("log.engine.pallas_fused")
+# mesh tiers (`parallel/collectives.py`): shmap exec builds, and fused
+# rounds run once per mesh shard (`MeshFusedEngine`)
+_m_engine_shmap = get_registry().counter("log.engine.shmap")
+_m_engine_mesh_fused = get_registry().counter("log.engine.mesh_fused")
 
 DEFAULT_LOG_ENTRIES = 1 << 16
 GC_FROM_HEAD = 8192

@@ -8,12 +8,12 @@ until the combiner's own ops are applied, reads gated on the completed
 tail, the help-GC-before-append rule, fencing, the split round, and the
 fused one-launch tier with its winner-selection calibration, the
 donor-snapshot join (`grow_fleet`), the write-ahead log (`attach_wal`,
-`durable/wal.py`) and `checkpoint`/`restore`/`recover`
-(`core/checkpoint.py`).
-
-Not in this package yet (ROADMAP.md queue 1): `mesh=`, and with it the
-mesh catch-up tier (`_ring_catchup`, the reference's fourth WAL
-reclaim site).
+`durable/wal.py`), `checkpoint`/`restore`/`recover`
+(`core/checkpoint.py`), and mesh placement (`mesh=`, `parallel/`): the
+replica axis sharded over the mesh rows, the exec round run per shard
+with the cursor lattice joined on the host (`collectives='shmap'` or
+`'gspmd'`), the mesh-fused tier (one fused launch per shard) and the
+ring catch-up tier of `sync()`.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from node_replication_torch.analysis.locks import make_rlock
 from node_replication_torch.core.log import (
     LogSpec,
     WARN_ROUNDS,
+    gather_window,
     log_append,
     log_catchup_all,
     log_exec_all,
@@ -218,18 +219,25 @@ class _FusedTier:
         return tuple(int(r) for r in np.where(f)[0])
 
     def _init_fused_tier(self, engine: str, dispatch, reg, prefix: str,
-                         debug: bool = False) -> None:
+                         debug: bool = False, mesh=None,
+                         mesh_fused: bool = False) -> None:
         """`engine='pallas'` FORCES the tier (the model must carry a
-        `fused_factory`; debug checks have no fused twin);
-        `engine='auto'` with a fused-capable dispatch arms the measured
-        calibration on a CUDA device (the reference arms it on a TPU;
-        NR_TPU_FUSED_CAL=1 is the CPU-test hook); otherwise off."""
+        `fused_factory`; debug checks have no fused twin; on a mesh the
+        host must run the mesh-fused composition, `mesh_fused=True`,
+        NodeReplicated only); `engine='auto'` with a fused-capable
+        dispatch arms the measured calibration on a CUDA device (the
+        reference arms it on a TPU; NR_TPU_FUSED_CAL=1 is the CPU-test
+        hook); otherwise off."""
         self._fused = None
         self._fused_spec = None
         self._fused_mode = "off"
         self._fused_choice: bool | None = False
         self._fused_verdicts: dict[tuple, bool] = {}
-        self._fused_tier_name = "pallas_fused"
+        self._fused_mesh = mesh if mesh_fused else None
+        self._fused_tier_name = (
+            "mesh_fused" if self._fused_mesh is not None
+            else "pallas_fused"
+        )
         self._fused_samples: dict[str, dict[tuple, list]] = {
             "pallas_fused": {}, "chain": {},
         }
@@ -249,6 +257,12 @@ class _FusedTier:
                     f"engine='pallas' but {dispatch.name} has no "
                     f"fused_factory (no fused kernel for this model)"
                 )
+            if mesh is not None and not mesh_fused:
+                raise ValueError(
+                    "engine='pallas' does not take mesh= here (the "
+                    "mesh-fused composition is NodeReplicated-only; "
+                    "the CNR per-log tier runs un-meshed)"
+                )
             if debug:
                 raise ValueError(
                     "engine='pallas' has no debug-check twin; use "
@@ -263,6 +277,7 @@ class _FusedTier:
         elif (
             engine == "auto"
             and dispatch.fused_factory is not None
+            and (mesh is None or mesh_fused)
             and not debug
             and (self.device.type == "cuda"
                  or os.environ.get("NR_TPU_FUSED_CAL") == "1")
@@ -271,6 +286,15 @@ class _FusedTier:
             self._fused_choice = None  # calibration pending
 
     def _build_fused_engine(self, spec: LogSpec):
+        """The dispatch's own fused engine un-meshed, the per-shard
+        `MeshFusedEngine` on a mesh; both raise ValueError for an
+        unsupported config."""
+        if self._fused_mesh is not None:
+            from node_replication_torch.parallel.collectives import (
+                MeshFusedEngine,
+            )
+
+            return MeshFusedEngine(self.dispatch, spec, self._fused_mesh)
         return self.dispatch.fused_factory(spec, device=self.device)
 
     def _fused_engine(self):
@@ -394,7 +418,10 @@ class NodeReplicated(_FusedTier):
     """N replicas of one `Dispatch` data structure behind a shared log.
 
     `device=None` runs on the card (`torch.device("cuda")`) and raises
-    without one; pass `device="cpu"` to run on the CPU.
+    without one; pass `device="cpu"` to run on the CPU. With `mesh=`
+    (a `parallel.Mesh`, a shard count, or a `ReplicaStrategy`) the
+    fleet is placed over the mesh rows and `device` is the home device,
+    mesh row 0's; `log` and `states` read as the global view there.
     """
 
     def __init__(
@@ -407,9 +434,37 @@ class NodeReplicated(_FusedTier):
         gc_callback: Callable[[int, int], None] | None = None,
         debug: bool | None = None,
         engine: str = "auto",
+        mesh=None,
+        collectives: str = "auto",
         device=None,
     ):
+        if mesh is not None:
+            from node_replication_torch.parallel.mesh import (
+                ReplicaStrategy,
+                replica_mesh,
+                row_devices,
+            )
+
+            if isinstance(mesh, int):
+                mesh = replica_mesh(mesh)
+            elif isinstance(mesh, ReplicaStrategy):
+                mesh = replica_mesh(strategy=mesh)
+            if "replica" not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh {mesh.axis_names} has no 'replica' axis"
+                )
+            home = row_devices(mesh)[0]
+            if device is not None and resolve_device(device) != home:
+                raise ValueError(
+                    f"device={device!r} is not the mesh's home device "
+                    f"{home} (mesh row 0's)"
+                )
+            device = home
         self.device = resolve_device(device)
+        # un-meshed fleet; `_placed` (parallel/mesh.py) replaces both
+        # once the fleet is placed over a mesh
+        self._log = self._states = None
+        self._placed = None
         kw = {}
         if log_entries is not None:
             kw["capacity"] = log_entries
@@ -490,8 +545,161 @@ class NodeReplicated(_FusedTier):
         # defers to the model's own window_canonical opt-in
         self._union = True if engine == "combined" else None
         self._m_engine = reg.counter(f"nr.exec.engine.{self.engine}")
+
+        # mesh placement (`parallel/`): states and ltails shard over the
+        # mesh's 'replica' rows, the ring planes and scalar cursors are
+        # copied per device. `collectives` picks the exec tier: 'shmap'
+        # = the scan exec on each shard (`make_shmap_exec`), 'gspmd' =
+        # the wrapper's own engine exec on each shard, 'auto' = gspmd
+        # for the combined engine or debug checks, else shmap. Both join
+        # the cursor lattice on the host.
+        if collectives not in ("auto", "shmap", "gspmd"):
+            raise ValueError(f"unknown collectives tier {collectives!r}")
+        self.mesh = None
+        self._mesh_shards = 0
+        self._mesh_tier = None
+        self._ring_rounds = 0
+        self._shmap_cache: dict = {}
+        self._ring_fn = None
+        if mesh is not None:
+            from node_replication_torch.parallel.mesh import (
+                announce_placement,
+            )
+
+            shards = mesh.shape["replica"]
+            if n_replicas % shards:
+                raise ValueError(
+                    f"R={n_replicas} replicas cannot shard over "
+                    f"{shards} mesh shards"
+                )
+            if collectives == "auto":
+                tier = (
+                    "gspmd"
+                    if (self.engine == "combined" or self.debug)
+                    else "shmap"
+                )
+            else:
+                tier = collectives
+            if tier == "shmap" and self.debug:
+                raise ValueError(
+                    "collectives='shmap' has no debug-check twin; use "
+                    "the gspmd tier (or debug=False) on a mesh"
+                )
+            self.mesh = mesh
+            self._mesh_shards = shards
+            self._mesh_tier = tier
+            self._m_mesh_round = reg.counter(f"nr.exec.mesh.{tier}")
+            self._m_mesh_sync_bytes = reg.counter("mesh.sync_bytes")
+            self._m_mesh_dur = reg.histogram("mesh.round.duration_s")
+            self._m_ring = reg.counter("nr.exec.engine.ring")
+            self._m_mesh_fused_round = reg.counter(
+                "nr.exec.mesh.mesh_fused"
+            )
+            announce_placement(mesh, n_replicas, "NodeReplicated", tier)
         self._init_fused_tier(engine, dispatch, reg, "nr",
-                              debug=self.debug)
+                              debug=self.debug, mesh=self.mesh,
+                              mesh_fused=True)
+        self._place_on_mesh()
+
+    # -------------------------------------------------------- placement
+
+    @property
+    def log(self):
+        """The log (on a mesh: the global view on the home device)."""
+        return self._log if self._placed is None else self._placed.log
+
+    @log.setter
+    def log(self, log) -> None:
+        if self._placed is None:
+            self._log = log
+        else:
+            self._placed = self._placed.with_log(log)
+
+    @property
+    def states(self):
+        """The replica states (on a mesh: the global view on the home
+        device, one copy of every shard's rows)."""
+        if self._placed is None:
+            return self._states
+        return self._placed.states
+
+    @states.setter
+    def states(self, states) -> None:
+        if self._placed is None:
+            self._states = states
+        else:
+            self._placed = self._placed.with_states(states)
+
+    def _fleet_trees(self) -> tuple:
+        """The fleet's tensors as trees, for `utils/fence.py:fence`
+        (no global view is built)."""
+        if self._placed is None:
+            return (self._log, self._states)
+        return tuple(self._placed.trees())
+
+    @_locked
+    def _place_on_mesh(self) -> None:
+        """Place the un-meshed fleet over the mesh (construction, and
+        after `grow_fleet` changes the shard rows); a new placement is a
+        new (R, capacity, devices) point, so an auto-mode verdict is
+        recalibrated. No-op un-meshed."""
+        if self.mesh is None:
+            return
+        from node_replication_torch.parallel.mesh import place
+
+        self._placed = place(self._log, self._states, self.mesh)
+        self._log = self._states = None
+        self._reset_fused_calibration()
+
+    def _shard_spec(self) -> LogSpec:
+        return dataclasses.replace(
+            self.spec, n_replicas=self.n_replicas // self._mesh_shards)
+
+    @_locked
+    def _shmap_fn(self, window: int, fenced: bool):
+        """Build-once cache of the explicit-collective exec
+        (`parallel/collectives.py:make_shmap_exec`), keyed (window,
+        fenced)."""
+        fn = self._shmap_cache.get((window, fenced))
+        if fn is None:
+            from node_replication_torch.parallel.collectives import (
+                make_shmap_exec,
+            )
+
+            fn = make_shmap_exec(self.dispatch, self.spec, self.mesh,
+                                 window, fenced=fenced)
+            self._shmap_cache[(window, fenced)] = fn
+        return fn
+
+    def _mesh_exec(self, fenced, window: int):
+        """One replay round over a placed fleet: the shmap exec, or the
+        wrapper's own engine exec on each shard (gspmd); the lattice is
+        joined across shards. Returns the global responses."""
+        if self._mesh_tier == "shmap":
+            extra = () if fenced is None else (fenced,)
+            self._placed, resps = self._shmap_fn(
+                window, fenced is not None)(self._placed, *extra)
+            return resps
+        from node_replication_torch.parallel.collectives import (
+            sharded_exec,
+        )
+
+        spec, d = self._shard_spec(), self.dispatch
+
+        def shard_exec(sh, fen):
+            if self.engine == "combined":
+                lg, st, r = log_catchup_all(
+                    spec, d, sh.log, sh.states, window, union=self._union,
+                    fenced=fen, idle_check=False,
+                )
+            else:
+                lg, st, r = log_exec_all(spec, d, sh.log, sh.states, window,
+                                         fenced=fen)
+            return lg.ltails, st, r
+
+        self._placed, resps = sharded_exec(self._placed, shard_exec,
+                                           fenced)
+        return resps
 
     # ------------------------------------------------------------ calls
 
@@ -539,11 +747,15 @@ class NodeReplicated(_FusedTier):
         return int(self._ltails_host()[rid])
 
     def replica_device(self, rid: int) -> torch.device:
-        """The device holding replica `rid`'s state: the fleet's one
-        device (this package has no mesh yet)."""
+        """The device holding replica `rid`'s state: its mesh shard's
+        (the first device of its mesh row; rows split the replica axis
+        into contiguous blocks), or the fleet's one device un-meshed
+        (the reference returns None there)."""
         if not 0 <= rid < self.n_replicas:
             raise ValueError(f"replica {rid} out of range")
-        return self.device
+        if self._placed is None:
+            return self.device
+        return self._placed.shards[self._placed.shard_of(rid)[0]].device
 
     @_locked
     def register(self, rid: int = 0) -> ReplicaToken:
@@ -580,6 +792,14 @@ class NodeReplicated(_FusedTier):
         if k < 1:
             raise ValueError("grow_fleet needs k >= 1")
         R = self.n_replicas
+        if self.mesh is not None and (R + k) % self._mesh_shards:
+            # validated BEFORE any state mutates: an indivisible fleet
+            # cannot keep the mesh rows balanced
+            raise ValueError(
+                f"grown fleet of {R + k} replicas cannot shard over "
+                f"{self._mesh_shards} mesh shards (grow in multiples "
+                f"of the shard count)"
+            )
         ltails = self._ltails_host()
         if donor is None:
             # never clone from a fenced (possibly corrupt) replica
@@ -595,20 +815,23 @@ class NodeReplicated(_FusedTier):
         donor_ltail = int(ltails[donor])
 
         self.spec = dataclasses.replace(self.spec, n_replicas=R + k)
-        self.states = tree_map(
+        states = tree_map(
             lambda x: torch.cat(
                 [x, x[donor:donor + 1].expand((k,) + tuple(x.shape[1:]))],
                 dim=0,
             ),
             self.states,
         )
-        self.log = self.log._replace(
+        log = self.log._replace(
             ltails=torch.cat([
                 self.log.ltails,
                 torch.full((k,), donor_ltail, dtype=torch.int64,
                            device=self.device),
             ])
         )
+        # the mesh rows change with R: unplace, then place anew
+        self._placed = None
+        self._log, self._states = log, states
         self._threads_per_replica.extend([0] * k)
         self._inflight.extend(deque() for _ in range(k))
         if self._fenced is not None:
@@ -616,7 +839,9 @@ class NodeReplicated(_FusedTier):
                 [self._fenced, np.zeros(k, bool)]
             )
         self._fused = None
+        self._shmap_cache = {}
         self._reset_fused_calibration()
+        self._place_on_mesh()
         new_rids = list(range(R, R + k))
         get_tracer().emit(
             "grow_fleet", k=k, donor=donor, donor_ltail=donor_ltail,
@@ -878,13 +1103,23 @@ class NodeReplicated(_FusedTier):
         Caller holds the combiner lock and has fence-checked."""
         args = np.zeros((1, self.spec.arg_width), np.int32)
         args[0, : len(op) - 1] = op[1:]
-        state = tree_map(lambda a: a[rid:rid + 1], self.states)
+        state, dev = self._replica_rows(rid)
         resp = apply_read(
             self.dispatch, state,
-            torch.tensor([op[0]], dtype=torch.int32, device=self.device),
-            torch.from_numpy(args).to(self.device),
+            torch.tensor([op[0]], dtype=torch.int32, device=dev),
+            torch.from_numpy(args).to(dev),
         )
         return int(resp[0])
+
+    def _replica_rows(self, rid: int):
+        """`(states of replica rid as a one-row fleet, its device)`,
+        read from its shard on a mesh."""
+        if self._placed is None:
+            return tree_map(lambda a: a[rid:rid + 1], self._states), \
+                self.device
+        s, i = self._placed.shard_of(rid)
+        sh = self._placed.shards[s]
+        return tree_map(lambda a: a[i:i + 1], sh.states), sh.device
 
     @_locked
     def read_lag(self, rid: int) -> int:
@@ -966,16 +1201,23 @@ class NodeReplicated(_FusedTier):
         t0 = time.perf_counter()
         fenced = self._fenced
         extra = {"deferred": True} if pending is not None else {}
+        if eng.tier == "mesh_fused":
+            extra["devices"] = eng.devices
         with span("fused-round", rid=rid, n=n, pos0=pos0,
                   window=pad, **extra) as sp:
-            self.log, self.states, resps = eng.round(
-                self.log, self.states, opcodes, args, n, fenced=fenced
-            )
+            if self._placed is not None:
+                self._placed, resps = eng.round(
+                    self._placed, opcodes, args, n, fenced=fenced)
+            else:
+                self.log, self.states, resps = eng.round(
+                    self.log, self.states, opcodes, args, n,
+                    fenced=fenced,
+                )
             if pending is None:
                 # the response readback is also the round's host
                 # fence; only replica `rid`'s row is delivered
                 resps_np = resps[rid, :n].cpu().numpy()
-                sp.fence(self.log, self.states)
+                sp.fence(*self._fleet_trees())
         if timing:
             self._note_fused_sample(
                 "pallas_fused", pad, time.perf_counter() - t0, fkey
@@ -991,6 +1233,9 @@ class NodeReplicated(_FusedTier):
             self._wal.maybe_reclaim(floor)
         self._fused_rounds += 1
         self._m_engine_fused.inc()
+        if eng.tier == "mesh_fused":
+            # a mesh round by tier, next to the shmap/gspmd chain rounds
+            self._m_mesh_fused_round.inc()
         if pending is not None:
             pending.fused_resps = resps
             pending.tier = eng.tier
@@ -1090,7 +1335,7 @@ class NodeReplicated(_FusedTier):
             while int(self._ltails_host()[rid]) < target:
                 self._exec_round()
                 rounds = self._watchdog(rounds, "combine-replay")
-            sp.fence(self.log, self.states)
+            sp.fence(*self._fleet_trees())
         self.last_round_tier = self.engine
         self._tier_by_rid[rid] = self.engine
         self._pos_by_rid[rid] = pending.pos0
@@ -1199,7 +1444,9 @@ class NodeReplicated(_FusedTier):
     @_locked
     def sync(self, rid: int | None = None) -> None:
         """Catch replicas up with the log tail; `rid=None` syncs every
-        UNFENCED replica."""
+        UNFENCED replica. On a mesh a large uniform backlog takes the
+        ring tier first (`_ring_catchup`), then ordinary exec rounds
+        the remainder."""
         if rid is not None and self._is_fenced(rid):
             raise ReplicaFencedError(rid)
         rounds = 0
@@ -1216,8 +1463,72 @@ class NodeReplicated(_FusedTier):
                 done = int(ltails[rid]) >= tail
             if done:
                 return
+            if self._ring_catchup():
+                continue  # made >= 2 * shards positions of progress
             self._exec_round()
             rounds = self._watchdog(rounds, "sync")
+
+    @_locked
+    def _ring_catchup(self) -> bool:
+        """One ring-replay pass over the pending window, the mesh
+        catch-up tier (`nr.exec.engine.ring`;
+        `parallel/collectives.py:make_ring_exec`). Eligible only where
+        it equals the scan rounds it replaces: a mesh on the shmap tier,
+        no replica fenced (the ring applies the window to every shard),
+        no responses owed (the ring produces none), every cursor at one
+        position. Applies `chunk * shards` entries (chunk the largest
+        power of two <= min(exec_window, pending / shards)) in log
+        order to every replica, and joins the lattice on the host:
+        ltails, ctail and head land at the window's end. Returns False
+        when ineligible; progress is >= 2 * shards positions."""
+        if self.mesh is None or self._mesh_tier == "gspmd":
+            return False
+        if self._fenced is not None or any(self._inflight):
+            return False
+        log = self.log
+        cur = torch.cat([log.ltails, log.tail.reshape(1)]).cpu().numpy()
+        lts, tail = cur[:-1], int(cur[-1])
+        lt = int(lts.min())
+        if int(lts.max()) != lt:
+            return False
+        shards = self._mesh_shards
+        pending = tail - lt
+        if shards < 2 or pending < 2 * shards:
+            return False
+        chunk = min(self.exec_window,
+                    1 << ((pending // shards).bit_length() - 1))
+        W = chunk * shards
+        opc, args = gather_window(self.spec, log.opcodes, log.args, lt,
+                                  tail, W)
+        if self._ring_fn is None:
+            from node_replication_torch.parallel.collectives import (
+                make_ring_exec,
+            )
+
+            self._ring_fn = make_ring_exec(self.dispatch, self.mesh)
+        with span("ring-exec", window=W, chunk=chunk, shards=shards,
+                  start=lt) as sp:
+            self._placed = self._ring_fn(opc, args, self._placed)
+            sp.fence(*self._fleet_trees())
+        # every replica consumed [lt, lt + W) in order: the cursors
+        # land at lt + W (no fenced mask, by eligibility)
+        new_lt = lt + W
+        self.log = log._replace(
+            ltails=torch.full((self.n_replicas,), new_lt,
+                              dtype=torch.int64, device=self.device),
+            ctail=torch.clamp(log.ctail, min=new_lt),
+            head=torch.full_like(log.head, new_lt),
+        )
+        if self._wal is not None:
+            self._wal.maybe_reclaim(new_lt)
+        self._ring_rounds += 1
+        self._m_ring.inc()
+        # each shard forwards its chunk 2 * shards - 1 hops: about
+        # twice the window, counted once per pass
+        self._m_mesh_sync_bytes.inc(
+            2 * (opc.numel() * opc.element_size()
+                 + args.numel() * args.element_size()))
+        return True
 
     @_locked
     def stats(self) -> dict:
@@ -1231,11 +1542,11 @@ class NodeReplicated(_FusedTier):
             "min_ltail": int(ltails.min()),
             "exec_rounds": self._exec_rounds,
             "idle_rounds": self._idle_rounds,
-            "ring_rounds": 0,
+            "ring_rounds": self._ring_rounds,
             "engine": self.engine,
             "fused_rounds": self._fused_rounds,
             "fused_tier": self._fused_tier_state(),
-            "mesh_devices": 0,
+            "mesh_devices": self._mesh_shards,
             "max_lag": tail - int(ltails.min()),
         }
 
@@ -1272,11 +1583,19 @@ class NodeReplicated(_FusedTier):
                 "window": self.exec_window,
                 "rounds": self._exec_rounds,
                 "idle_rounds": self._idle_rounds,
-                "ring_rounds": 0,
+                "ring_rounds": self._ring_rounds,
                 "fused_rounds": self._fused_rounds,
                 "fused_tier": self._fused_tier_state(),
             },
-            "mesh": None,
+            # shard shape only; the per-rid lookup is replica_device()
+            "mesh": (
+                None if self.mesh is None else {
+                    "devices": self._mesh_shards,
+                    "tier": self._mesh_tier,
+                    "replicas_per_device":
+                        self.n_replicas // self._mesh_shards,
+                }
+            ),
             "device": str(self.device),
             "metrics": get_registry().snapshot(),
         }
@@ -1285,13 +1604,24 @@ class NodeReplicated(_FusedTier):
     def verify(self, fn: Callable[[Any], Any], rid: int = 0):
         """Force-sync, then hand replica `rid`'s state (numpy) to `fn`."""
         self.sync()
-        state = tree_map(lambda a: a[rid].cpu().numpy(), self.states)
+        rows, _ = self._replica_rows(rid)
+        state = tree_map(lambda a: a[0].cpu().numpy(), rows)
         return fn(state)
 
     @_locked
     def replicas_equal(self) -> bool:
-        """All replicas converged to identical state."""
-        return states_equal(self.states)
+        """All replicas converged to identical state (on a mesh: each
+        shard's rows, and every shard against shard 0's first row)."""
+        if self._placed is None:
+            return states_equal(self._states)
+        first = self._placed.shards[0].states
+        return all(
+            states_equal(sh.states) and all(
+                bool(torch.equal(a[:1].to(b.device), b[:1]))
+                for a, b in zip(tree_leaves(first),
+                                tree_leaves(sh.states)))
+            for sh in self._placed.shards
+        )
 
     # ------------------------------------------------------- internals
 
@@ -1324,13 +1654,20 @@ class NodeReplicated(_FusedTier):
         self._m_rounds.inc()
         self._m_engine.inc()
         tracer = get_tracer()
-        t0 = time.perf_counter() if tracer.enabled else 0.0
+        # mesh rounds always time: the round-duration histogram is part
+        # of the mesh.* metrics
+        t0 = (time.perf_counter()
+              if (tracer.enabled or self.mesh is not None) else 0.0)
         f_arr = (None if fenced is None
                  else torch.from_numpy(fenced).to(self.device))
         window = self._round_window(
             tail - int(live.min()) if live.size else 1)
         with debug_checks(self.debug):
-            self.log, self.states, resps = self._exec_call(f_arr, window)
+            if self._placed is not None:
+                resps = self._mesh_exec(f_arr, window)
+            else:
+                self.log, self.states, resps = self._exec_call(f_arr,
+                                                               window)
         ltails_after = self._ltails_host()
         self._m_lag.observe(tail - int(ltails_after.min()))
         if self._wal is not None:
@@ -1346,11 +1683,26 @@ class NodeReplicated(_FusedTier):
                     [int(resps_np[r, pos - int(ltails_before[r])])]
                 )
         progressed = bool(np.any(ltails_after > ltails_before))
+        sync_bytes = 0
+        if self.mesh is not None:
+            # rounds by tier, round time, and the bytes this round
+            # brought back to the host (responses and the two cursor
+            # readbacks)
+            sync_bytes = resps_np.nbytes + cur.nbytes + ltails_after.nbytes
+            self._m_mesh_round.inc()
+            self._m_mesh_dur.observe(time.perf_counter() - t0)
+            self._m_mesh_sync_bytes.inc(sync_bytes)
         if tracer.enabled:
             if tracer.fence_spans:
                 from node_replication_torch.utils.fence import fence
 
-                fence(self.log, self.states)
+                fence(*self._fleet_trees())
+            extra = (
+                {"mesh_tier": self._mesh_tier,
+                 "mesh_devices": self._mesh_shards,
+                 "sync_bytes": sync_bytes}
+                if self.mesh is not None else {}
+            )
             tracer.emit(
                 "exec-round",
                 duration_s=time.perf_counter() - t0,
@@ -1359,6 +1711,7 @@ class NodeReplicated(_FusedTier):
                 window=window,
                 progressed=progressed,
                 advanced=int((ltails_after - ltails_before).sum()),
+                **extra,
             )
         return progressed
 

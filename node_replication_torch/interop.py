@@ -19,7 +19,10 @@ imports the JAX package.
   128]` with ONE canonical `pd`/`pdpt`/`pml4 int32[l]`;
 - open-addressing map planes `keys`/`vals`/`flag`, `int32[R, N]` in the
   model layout or `int32[R, ROWS, 128]` in the kernel layout
-  (`ops/oahashmap.py`).
+  (`ops/oahashmap.py`);
+- a meshed fleet: the reference's sharded arrays read as numpy give
+  their global view, which `fleet_from_numpy` places over a port
+  `parallel.Mesh` (`fleet_to_numpy` gathers it back).
 """
 
 from __future__ import annotations
@@ -143,3 +146,22 @@ def oahashmap_from_numpy(states, device=None, layout: str = "model") -> dict:
 
 def oahashmap_to_numpy(states: dict) -> dict:
     return _to_numpy(states)
+
+
+def fleet_from_numpy(log, states, mesh, states_from=states_from_numpy):
+    """A port `parallel.mesh.Placed` fleet from a fleet's global view
+    as numpy (a reference meshed fleet's `log`/`states`: `np.asarray`
+    of a sharded array is its global value): the log's six fields and
+    the states, converted by `states_from` (default: hashmap model
+    layout) onto the mesh's home device, then placed over `mesh`."""
+    from node_replication_torch.parallel.mesh import place, row_devices
+
+    home = row_devices(mesh)[0]
+    return place(log_from_numpy(log, home), states_from(states, home),
+                 mesh)
+
+
+def fleet_to_numpy(fleet) -> tuple[dict, dict]:
+    """A placed fleet's global view as numpy `(log fields, states)`."""
+    log, states = fleet.gather()
+    return log_to_numpy(log), _to_numpy(states)

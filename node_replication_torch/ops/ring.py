@@ -92,7 +92,10 @@ class FusedEngineHost:
         from node_replication_torch.utils.trace import get_tracer
 
         n_launch = self.launches(window)
-        _corelog._m_engine_pallas_fused.inc()
+        if self.tier == "mesh_fused":
+            _corelog._m_engine_mesh_fused.inc()
+        else:
+            _corelog._m_engine_pallas_fused.inc()
         self._m_launches.inc(n_launch)
         self._m_ops.inc(int(count))
         self._m_window.observe(window)

@@ -7,8 +7,10 @@ yet: `ServeConfig(obs_port=...)` needs `obs/export.py` and
 raises `NotImplementedError` naming the module when either is set
 (there is no `threads()`, the profiler's role map); the replication
 plane's hooks (follower mode with `read_only`/`enable_writes`, the
-`ack_barrier`, `add_backpressure_source`) and the mesh's
-`device_of_rid` map come with the ports of `repl/` and `mesh=`. On a
+`ack_barrier`, `add_backpressure_source`) come with the port of
+`repl/`. Over a meshed fleet `device_of_rid` maps each served replica
+to its shard's device (`replica_device`), and `stats()["mesh"]` counts
+the replicas per device. On a
 hashmap fleet with the fused tier each combiner round is one kernel
 launch (K1, `csrc/hashmap_replay.cu`), issued on the worker thread's
 current CUDA stream; a future resolves only after `finish_mut_batch`
@@ -808,6 +810,11 @@ class ServeFrontend:
         # but counted so SLO accounting stays honest
         self._m_late = reg.counter("serve.deadline_late_success")
 
+        #: meshed fleet (`NodeReplicated(mesh=...)`): served replica ->
+        #: the device its shard lives on, the one its worker's rounds
+        #: land on (`stats()["mesh"]`)
+        self.device_of_rid: dict[int, str] = {}
+
         with self._lock:
             for rid in (rids if rids is not None
                         else range(nr.n_replicas)):
@@ -815,9 +822,14 @@ class ServeFrontend:
                 if rid in self._queues:
                     raise ValueError(f"replica {rid} served twice")
                 self._store_replica(rid, self._new_replica(rid))
+                self._record_device(rid)
 
         if auto_start:
             self.start()
+
+    def _record_device(self, rid: int) -> None:
+        if getattr(self._nr, "mesh", None) is not None:
+            self.device_of_rid[rid] = str(self._nr.replica_device(rid))
 
     # ------------------------------------------------------------ lifecycle
 
@@ -950,6 +962,7 @@ class ServeFrontend:
                 if rid in self._queues:
                     raise ValueError(f"replica {rid} served twice")
                 self._store_replica(rid, self._new_replica(rid))
+                self._record_device(rid)
             started = self._started
         get_tracer().emit("serve-grow", rids=list(map(int, new_rids)))
         if started:
@@ -1334,6 +1347,7 @@ class ServeFrontend:
             retired_prio = dict(self._retired_prio)
             rehomed = self._rehomed
             failed = sorted(self._failed)
+            dev_map = dict(self.device_of_rid)
         per = {rid: q.stats() for rid, q in queues}
         agg = {
             k: sum(s[k] for s in per.values())
@@ -1354,6 +1368,15 @@ class ServeFrontend:
         agg["replicas"] = per
         if self.governor is not None:
             agg["overload"] = self.governor.stats()
+        if dev_map:
+            per_dev: dict[str, int] = {}
+            for dev in dev_map.values():
+                per_dev[dev] = per_dev.get(dev, 0) + 1
+            agg["mesh"] = {
+                "devices": len(per_dev),
+                "replicas_per_device": per_dev,
+                "device_of_rid": dict(sorted(dev_map.items())),
+            }
         return agg
 
     # ------------------------------------------------------------ worker

@@ -163,8 +163,13 @@ class TestMultiLogReplicated:
         assert events["j"] == events["t"] == [(1, 0)]
 
     def test_mesh_and_bad_engine_refused(self):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            cnr(make_hashmap(16), nlogs=2, mesh=object())
+        # a mesh that is not a ('replica', 'log') Mesh, as the
+        # reference refuses it
+        for mk, cls, kw in ((make_hashmap, MultiLogReplicated,
+                             {"device": CPU}),
+                            (jm.make_hashmap, JMulti, {})):
+            with pytest.raises(ValueError, match="'replica', 'log'"):
+                cls(mk(16), _key_mapper, nlogs=2, mesh=object(), **kw)
         for mk, cls, kw in ((make_hashmap, MultiLogReplicated,
                              {"device": CPU}),
                             (jm.make_hashmap, JMulti, {})):

@@ -371,3 +371,46 @@ def test_cnr_entry_points_without_a_card_raise(monkeypatch):
                                device="cpu")
     assert c.execute_mut((1, 3, 7), c.register(0)) == 0
     assert c.execute((1, 3), c.register(1)) == 7
+
+
+PARALLEL_PATH = ("parallel/__init__.py", "parallel/topology.py",
+                 "parallel/mesh.py", "parallel/collectives.py")
+
+
+def test_parallel_modules_are_scanned_and_stand_alone():
+    for rel in PARALLEL_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert path.exists(), rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+    import node_replication_torch.parallel as par
+
+    assert len(par.__all__) == 10
+
+
+def test_mesh_entry_points_without_a_card_raise(monkeypatch):
+    import node_replication_torch as nrt
+    from node_replication_torch.parallel import (
+        MachineTopology,
+        ReplicaStrategy,
+        make_mesh,
+        replica_mesh,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mapper = lambda opc, args: args[0]  # noqa: E731
+    for entry in (
+        lambda: MachineTopology(),
+        lambda: make_mesh(),
+        lambda: replica_mesh(2),
+        lambda: NodeReplicated(make_hashmap(8), 2, mesh=2),
+        lambda: NodeReplicated(make_hashmap(8), 2,
+                               mesh=ReplicaStrategy.PER_DEVICE),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
+    # an explicit CPU mesh is the caller asking for the CPU
+    mesh = make_mesh(2, 2, devices=["cpu"] * 4)
+    c = nrt.MultiLogReplicated(make_hashmap(8), mapper, 2, 2, mesh=mesh)
+    assert c.device == torch.device("cpu")
+    assert c.execute_mut((1, 3, 7), c.register(0)) == 0
+    assert c.execute((1, 3), c.register(1)) == 7

@@ -563,3 +563,155 @@ def test_cnr_per_log_rounds_over_k1_equal_the_scan_tier(dev, R, K, L):
         assert torch.equal(getattr(k1.ml, f), getattr(scan.ml, f)), f
     for f in ("values", "present"):
         assert torch.equal(k1.states[f], scan.states[f]), f
+
+
+# ------------------------------------------------ mesh-fused (K1, K5 per shard)
+
+
+def _mesh_fleets(make, dev, devices, R, **kw):
+    """(meshed pallas fleet over `devices`, un-meshed pallas fleet,
+    un-meshed chain fleet) of one model."""
+    from node_replication_torch.core.replica import NodeReplicated
+    from node_replication_torch.parallel import replica_mesh
+
+    mesh = replica_mesh(len(devices), devices=devices)
+    return (
+        NodeReplicated(make(), n_replicas=R, engine="pallas", mesh=mesh,
+                       **kw),
+        NodeReplicated(make(), n_replicas=R, engine="pallas", device=dev,
+                       **kw),
+        NodeReplicated(make(), n_replicas=R, engine="combined",
+                       device=dev, **kw),
+    )
+
+
+def _fleets_equal(a, b):
+    for f in ("opcodes", "args", "head", "tail", "ctail", "ltails"):
+        assert torch.equal(getattr(a.log, f).to(b.log.tail.device),
+                           getattr(b.log, f)), f
+    for f in b.states:
+        assert torch.equal(a.states[f].to(b.log.tail.device),
+                           b.states[f]), f
+
+
+def _k1_mesh_run(dev, devices, fenced):
+    from node_replication_torch.models import make_hashmap
+
+    K, R = 37, 8
+    fleets = _mesh_fleets(lambda: make_hashmap(K), dev, devices, R,
+                          log_entries=256, gc_slack=32)
+    meshed = fleets[0]
+    rng = np.random.default_rng(11 + fenced)
+    before = FUSED_KERNEL.launches
+    rounds = 0
+    for rnd in range(24):
+        if fenced and rnd == 8:
+            for nr in fleets:
+                nr.fence_replica(5)  # shard 2 of 4: not the combiner's
+        if fenced and rnd == 16:
+            for nr in fleets:
+                nr.clone_replica_from(5, donor=0)
+                nr.unfence_replica(5)
+        n = int(rng.integers(8, 32))
+        ops = [(int(rng.integers(1, 3)), int(rng.integers(-K, 2 * K)),
+                int(rng.integers(1 << 20))) for _ in range(n)]
+        fused_before = meshed.stats()["fused_rounds"]
+        outs = [nr.execute_mut_batch(ops, rid=rnd % 4) for nr in fleets]
+        assert outs[0] == outs[1] == outs[2], rnd
+        if meshed.stats()["fused_rounds"] > fused_before:
+            rounds += 1
+            assert meshed.last_round_tier == "mesh_fused"
+    torch.cuda.synchronize()
+    # one K1 launch per shard for each meshed round, and one for each of
+    # the un-meshed pallas fleet's rounds
+    launched = FUSED_KERNEL.launches - before
+    assert launched == len(devices) * rounds + \
+        fleets[1].stats()["fused_rounds"]
+    assert int(meshed.log.tail) > 256  # the ring wrapped
+    for nr in fleets:
+        nr.sync()
+    _fleets_equal(meshed, fleets[1])
+    _fleets_equal(meshed, fleets[2])
+    return rounds
+
+
+@pytest.mark.parametrize("fenced", [False, True])
+def test_meshed_k1_rounds_equal_unmeshed_and_plain(dev, fenced):
+    """`NodeReplicated(mesh=)` on 4 shards of one card, engine 'pallas':
+    every round one K1 launch per shard, against the un-meshed K1 fleet
+    and the plain chain, fenced (the corpse on shard 2) and across a
+    ring wrap."""
+    assert _k1_mesh_run(dev, [dev] * 4, fenced) >= 20
+
+
+def test_meshed_k5_rounds_equal_unmeshed_and_plain(dev):
+    """The flat vspace on 4 shards of one card: every round 4 K5
+    launches, equal to the un-meshed K5 fleet and the plain chain; a
+    fenced stretch falls back to the chain (K5 has no fenced variant)."""
+    from node_replication_torch.models.vspace import make_vspace
+    from node_replication_torch.ops.vspace import FUSED_KERNEL as K5
+
+    P, S, R = 1024, 8, 8
+    fleets = _mesh_fleets(lambda: make_vspace(P, max_span=S), dev,
+                          [dev] * 4, R, log_entries=256, gc_slack=32)
+    meshed = fleets[0]
+    rng = np.random.default_rng(5)
+    for rnd in range(20):
+        if rnd == 14:
+            for nr in fleets:
+                nr.fence_replica(6)
+        before = K5.launches
+        n = int(rng.integers(8, 32))
+        ops = []
+        for _ in range(n):
+            if rng.random() < 0.7:
+                ops.append((1, int(rng.integers(-P, 2 * P)),
+                            int(rng.integers(1, 1000)),
+                            int(rng.integers(0, S + 2))))
+            else:
+                ops.append((2, int(rng.integers(-P, 2 * P)),
+                            int(rng.integers(0, S + 2))))
+        out_m = meshed.execute_mut_batch(ops, rid=0)
+        torch.cuda.synchronize()
+        assert K5.launches - before == (4 if rnd < 14 else 0), rnd
+        outs = [nr.execute_mut_batch(ops, rid=0) for nr in fleets[1:]]
+        assert out_m == outs[0] == outs[1], rnd
+    assert int(meshed.log.tail) > 256  # the ring wrapped
+    for nr in fleets:
+        nr.sync()
+    _fleets_equal(meshed, fleets[1])
+    _fleets_equal(meshed, fleets[2])
+
+
+def test_kernels_launch_on_the_card_of_their_tensors(dev):
+    """With two cards, a kernel given tensors on `cuda:1` while the
+    current device is `cuda:0` launches on `cuda:1` (each wrapper enters
+    `torch.cuda.device(tensor.device)`), and a mesh with one shard on
+    each card equals the one-card fleet. One card cannot show this."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the launch-device repair "
+                    "shows only across cards")
+    d1 = torch.device("cuda", 1)
+    K, R, W = 29, 70, 64
+    spec = LogSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
+    rng = np.random.default_rng(3)
+    ring_opc = torch.from_numpy(
+        rng.integers(0, 3, 256).astype(np.int32)).to(d1)
+    ring_args = torch.from_numpy(
+        rng.integers(-9, 9, (256, 3)).astype(np.int32)).to(d1)
+    v, p = _planes(rng, K, R, d1)
+    opc, key, val = _window(rng, W, K, d1)
+    args = torch.stack([key, val, torch.zeros_like(key)], 1)
+    t = torch.tensor(200, dtype=torch.int64, device=d1)
+    with torch.cuda.device(0):
+        out_k = hashmap_fused_round(spec, t, W, opc, args, ring_opc,
+                                    ring_args, v, p, K)
+        out_r = hashmap_replay(opc, key, val, v, p, K)
+    torch.cuda.synchronize(d1)
+    for a, b in zip(out_k, hashmap_fused_round_plain(
+            spec, t, W, opc, args, ring_opc, ring_args, v, p, K)):
+        assert a.device == d1 and torch.equal(a, b)
+    for a, b in zip(out_r, hashmap_replay_plain(opc, key, val, v, p, K)):
+        assert torch.equal(a, b)
+    cards = [torch.device("cuda", i % 2) for i in range(4)]
+    assert _k1_mesh_run(torch.device("cuda", 0), cards, True) >= 20
