@@ -17,7 +17,9 @@ CNR and the other models. The replicated hashmap at the flagship width
    (`torch.profiler`) and its ptxas registers and spills;
 3. the fused combiner-round kernel (K1), fenced and unfenced, against
    its plain version over rounds of W = 256 that wrap a 2^16 ring; its
-   device time;
+   device time; then the same at R = 1024 (a mesh shard) and R = 4097
+   (the scalar path of a fleet grown by one) over 4 rounds across the
+   wrap, each with its event, profiler and queued device time;
 4. the lock-step step path: 64 steps of `make_pallas_step` (K2) and of
    `make_step(combined=True)` (PyTorch ops), bit-identical; then what
    sets the K2 step's pace (host enqueue time against device kernel time);
@@ -205,6 +207,10 @@ SEED = 20261016
 R, K = 4096, 10000
 W_STEP = R          # K2's window on the step path: one write per replica
 W_ROUND = 256       # K1's window: one combiner round of 256 ops
+# phase 3's other K1 shapes: a mesh shard's R, and the scalar path of a
+# fleet grown by one; a few rounds each across the ring's wrap
+K1_SHAPES = (1024, 4097)
+K1_SHAPE_ROUNDS = 4
 VS_P, VS_SPAN, VS_R = 1 << 18, 64, 256  # flat vspace, long-log config
 VS_BW = 16          # writes per replica per step: W = 4096 a step
 VS_ROUND = 1024     # ops per NodeReplicated round
@@ -463,11 +469,89 @@ def phase_fused(dev, rng, gen) -> dict:
         f"plain {plain_ms:.2f} ms (fenced {plain_ms_f:.2f}), bound "
         f"{bound_ms:.4f} ms ({n_bytes} bytes)")
     log_device("phase 3: K1", dt)
-    return {"max_abs_err": err, "ms": ms, "ms_fenced": ms_f, **dt,
+    del kern, plain, out_k, out_p
+    shapes = {Rk: _k1_shape_check(dev, Rk) for Rk in K1_SHAPES}
+    return {"max_abs_err": max([err] + [c["max_abs_err"]
+                                        for c in shapes.values()]),
+            "ms": ms, "ms_fenced": ms_f, **dt,
             "plain_ms": plain_ms, "plain_ms_fenced": plain_ms_f,
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
             "rounds": rounds, "tail": tail, "R": R, "K": K, "W": W,
-            "capacity": L}
+            "capacity": L, "shapes": shapes}
+
+
+def _k1_shape_check(dev, Rk: int) -> dict:
+    """K1 against its plain version at R = Rk replicas: K1_SHAPE_ROUNDS
+    rounds of W = 256 from a tail just below 2^16, so that they cross
+    the ring's wrap, unfenced and fenced in turn (fenced lanes at the
+    column tiles' edges); then its event, profiler and queued device
+    time and its bound at W = 256. Its own seeds: later phases' inputs
+    stay as they were."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    kp = -(-K // 8) * 8
+    W = W_ROUND
+    spec = LogSpec(capacity=1 << 16, n_replicas=Rk, arg_width=3)
+    L = spec.capacity
+    rng = np.random.default_rng(SEED + Rk)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + Rk)
+    vals = torch.randint(-(1 << 30), 1 << 30, (kp, Rk), generator=gen,
+                         device=dev, dtype=torch.int32)
+    pres = torch.randint(0, 2, (kp, Rk), generator=gen, device=dev,
+                         dtype=torch.int32)
+    ring = (torch.zeros(L, dtype=torch.int32, device=dev),
+            torch.zeros((L, 3), dtype=torch.int32, device=dev))
+    fen = torch.zeros(Rk, dtype=torch.int32, device=dev)
+    fen[[0, 511, 512, Rk // 2, Rk - 1]] = 1
+    kern = plain = (*ring, vals, pres)
+    tail, err = L - 300, 0
+    for rnd in range(K1_SHAPE_ROUNDS):
+        count = W if rnd == K1_SHAPE_ROUNDS - 1 else \
+            int(rng.integers(W // 2, W + 1))
+        opc = np.zeros(W, np.int32)
+        opc[:count] = rng.choice(np.array([1, 2], np.int32), count)
+        args = np.zeros((W, 3), np.int32)
+        args[:count, 0] = rng.integers(-K, 2 * K, count)
+        args[:count, 1] = rng.integers(1, 1 << 31, count)
+        inputs = (spec, torch.tensor(tail, dtype=torch.int64, device=dev),
+                  count, torch.from_numpy(opc).to(dev),
+                  torch.from_numpy(args).to(dev))
+        f = fen if rnd % 2 else None
+        out_k = hashmap_fused_round(*inputs, *kern, K, f)
+        out_p = hashmap_fused_round_plain(*inputs, *plain, K, f)
+        e = max_abs_err(out_k, out_p)
+        if e:
+            raise AssertionError(
+                f"phase 3: K1 at R={Rk} disagrees with its plain version "
+                f"in round {rnd} (fenced={f is not None}): {e}")
+        err = max(err, e)
+        kern, plain = out_k[:4], out_p[:4]
+        tail += count
+    if tail <= L:
+        raise AssertionError(f"phase 3: K1 at R={Rk} never wrapped")
+    # the last round again, unfenced, on its own inputs
+    inputs = (*inputs, *kern, K, None)
+    ms = cuda_ms(lambda: hashmap_fused_round(*inputs), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*inputs), reps=2)
+    dt = device_time(lambda: hashmap_fused_round(*inputs))
+    q_ms = queued_ms(lambda: hashmap_fused_round(*inputs))
+    n_bytes = k1_round_bytes(Rk, W, L)
+    bound_ms, by = bound(n_bytes, 4 * W * Rk)
+    log(f"phase 3: K1 R={Rk} K={K} W={W} ring={L}: {K1_SHAPE_ROUNDS} rounds "
+        f"across the wrap, fenced and not, bit-identical; kernel {ms:.4f} "
+        f"ms, queued {q_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{bound_ms:.4f} ms ({n_bytes:.0f} bytes)")
+    log_device(f"phase 3: K1 R={Rk}", dt)
+    return {"max_abs_err": err, "ms": ms, "queued_ms": q_ms, **dt,
+            "plain_ms": plain_ms, "bytes": n_bytes, "bound_ms": bound_ms,
+            "bound_by": by, "R": Rk, "W": W}
 
 
 def _step_batches(rng, dev, steps):
@@ -4077,6 +4161,7 @@ def main() -> int:
         **({"served": p["served"]} if "served" in p else {}),
         **({"cnr": p["cnr"]} if "cnr" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
+        **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

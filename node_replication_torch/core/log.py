@@ -286,10 +286,7 @@ def log_catchup_all(spec: LogSpec, d: Dispatch, log: LogState,
         _m_engine_scan.inc()
         return log_exec_all(spec, d, log, states, window, limits,
                             fenced=fenced)
-    take_union = (
-        d.window_canonical if union is None else union
-    ) and d.window_plan is not None
-    if take_union and limits is None and on_trajectory:
+    if takes_union(d, union) and limits is None and on_trajectory:
         return _catchup_union_plan(spec, d, log, states, window,
                                    need_resps, fenced=fenced,
                                    idle_check=idle_check)
@@ -327,53 +324,43 @@ def log_catchup_all(spec: LogSpec, d: Dispatch, log: LogState,
     return log, states, resps
 
 
-def _catchup_union_plan(spec: LogSpec, d: Dispatch, log: LogState,
-                        states: PyTree, window: int,
-                        need_resps: bool = True, fenced=None,
-                        idle_check: bool = True):
-    """Union-window catch-up (the reference's `_catchup_union_plan`;
-    its docstring holds the soundness argument). The plan of the
-    window `[m, end)`, `m` the least unfenced cursor, is computed once
-    from that replica's state and merged into every unfenced replica
-    whose cursor is below `end`."""
-    dev = log.ltails.device
-    if fenced is not None:
-        fenced = torch.as_tensor(fenced, dtype=torch.bool, device=dev)
-    masked_lt = (
-        log.ltails if fenced is None
-        else torch.where(fenced, _i64(_FAR, dev), log.ltails)
-    )
-    if idle_check:
-        lt = log.ltails.cpu().numpy()
-        live = lt if fenced is None else lt[~fenced.cpu().numpy()]
-        idle = bool(
-            live.size
-            and int(live.min()) >= int(log.tail) >= int(live.max())
-        )
-        if idle and fenced is not None:
-            # a freshly fenced laggard may still pin head below the
-            # live min: one device round must run to advance GC
-            idle = int(log.head) >= int(live.min())
-        if idle:
-            _m_idle_skips.inc()
-            R = log.ltails.shape[0]
-            return log, states, torch.zeros((R, window), dtype=torch.int32,
-                                            device=dev)
-    _m_engine_union.inc()
-    m = masked_lt.min()
+def takes_union(d: Dispatch, union: bool | None) -> bool:
+    """Whether `log_catchup_all` takes the union-window tier for this
+    dispatch (given no `limits` and an on-trajectory fleet)."""
+    return bool(d.window_canonical if union is None else union) \
+        and d.window_plan is not None
+
+
+def union_plan(spec: LogSpec, d: Dispatch, log: LogState, states: PyTree,
+               window: int, m, donor):
+    """The union tier's plan: `(end, plan)` of the window `[m, end)`,
+    `end = min(m + window, tail)`, computed once from replica `donor`'s
+    state, whose cursor is `m` (int64 0-d tensors on the log's
+    device)."""
     end = torch.minimum(m + window, log.tail)
     check(lambda: m >= log.head,
           "catch-up window starts at {m}, behind GC head {h}: entries "
           "already overwritten",
           m=m, h=log.head)
+    opcodes, args = gather_window(spec, log.opcodes, log.args, m, end,
+                                  window)
+    donor_state = tree_map(lambda x: x[donor], states)
+    return end, d.window_plan(donor_state, opcodes, args)
+
+
+def union_merge(d: Dispatch, log: LogState, states: PyTree, window: int,
+                m, end, plan, need_resps: bool = True, fenced=None):
+    """The union tier's merge: `plan` (of `[m, end)`) merged into every
+    unfenced replica whose cursor is below `end`; those cursors land at
+    `end`. Returns `(log, states, resps int32[R, window])`, `resps[r,
+    i]` answering position `old_ltails[r] + i`."""
+    dev = log.ltails.device
+    if fenced is not None:
+        fenced = torch.as_tensor(fenced, dtype=torch.bool, device=dev)
+    _m_engine_union.inc()
     check(lambda: log.ltails.max() <= log.tail,
           "replica ltail {lt} ahead of log tail {t}",
           lt=lambda: log.ltails.max(), t=log.tail)
-    opcodes, args = gather_window(spec, log.opcodes, log.args, m, end,
-                                  window)
-    donor = masked_lt.argmin()
-    donor_state = tree_map(lambda x: x[donor], states)
-    plan = d.window_plan(donor_state, opcodes, args)
     merged, presps = d.window_merge(states, plan)
     take = log.ltails < end
     if fenced is not None:
@@ -403,6 +390,45 @@ def _catchup_union_plan(spec: LogSpec, d: Dispatch, log: LogState,
         head=_gc_head(log, new_ltails, fenced),
     )
     return log, states, resps
+
+
+def _catchup_union_plan(spec: LogSpec, d: Dispatch, log: LogState,
+                        states: PyTree, window: int,
+                        need_resps: bool = True, fenced=None,
+                        idle_check: bool = True):
+    """Union-window catch-up (the reference's `_catchup_union_plan`;
+    its docstring holds the soundness argument). The plan of the
+    window `[m, end)`, `m` the least unfenced cursor, is computed once
+    from that replica's state (`union_plan`) and merged into every
+    unfenced replica whose cursor is below `end` (`union_merge`)."""
+    dev = log.ltails.device
+    if fenced is not None:
+        fenced = torch.as_tensor(fenced, dtype=torch.bool, device=dev)
+    masked_lt = (
+        log.ltails if fenced is None
+        else torch.where(fenced, _i64(_FAR, dev), log.ltails)
+    )
+    if idle_check:
+        lt = log.ltails.cpu().numpy()
+        live = lt if fenced is None else lt[~fenced.cpu().numpy()]
+        idle = bool(
+            live.size
+            and int(live.min()) >= int(log.tail) >= int(live.max())
+        )
+        if idle and fenced is not None:
+            # a freshly fenced laggard may still pin head below the
+            # live min: one device round must run to advance GC
+            idle = int(log.head) >= int(live.min())
+        if idle:
+            _m_idle_skips.inc()
+            R = log.ltails.shape[0]
+            return log, states, torch.zeros((R, window), dtype=torch.int32,
+                                            device=dev)
+    m = masked_lt.min()
+    end, plan = union_plan(spec, d, log, states, window, m,
+                           masked_lt.argmin())
+    return union_merge(d, log, states, window, m, end, plan, need_resps,
+                       fenced)
 
 
 def ring_slice(spec: LogSpec, log: LogState, start: int,

@@ -32,6 +32,7 @@ import torch
 
 from node_replication_torch.analysis.locks import make_rlock
 from node_replication_torch.core.log import (
+    _FAR,
     LogSpec,
     WARN_ROUNDS,
     gather_window,
@@ -41,6 +42,9 @@ from node_replication_torch.core.log import (
     log_init,
     log_space,
     ring_slice,
+    takes_union,
+    union_merge,
+    union_plan,
 )
 from node_replication_torch.fault.inject import fault_hook
 from node_replication_torch.obs.metrics import COUNT_BUCKETS, get_registry
@@ -671,10 +675,11 @@ class NodeReplicated(_FusedTier):
             self._shmap_cache[(window, fenced)] = fn
         return fn
 
-    def _mesh_exec(self, fenced, window: int):
+    def _mesh_exec(self, fenced, window: int, ltails: np.ndarray):
         """One replay round over a placed fleet: the shmap exec, or the
         wrapper's own engine exec on each shard (gspmd); the lattice is
-        joined across shards. Returns the global responses."""
+        joined across shards. `ltails` are the round's cursors, read
+        back. Returns the global responses."""
         if self._mesh_tier == "shmap":
             extra = () if fenced is None else (fenced,)
             self._placed, resps = self._shmap_fn(
@@ -685,6 +690,8 @@ class NodeReplicated(_FusedTier):
         )
 
         spec, d = self._shard_spec(), self.dispatch
+        if self.engine == "combined" and takes_union(d, self._union):
+            return self._mesh_union(fenced, window, ltails)
 
         def shard_exec(sh, fen):
             if self.engine == "combined":
@@ -699,6 +706,41 @@ class NodeReplicated(_FusedTier):
 
         self._placed, resps = sharded_exec(self._placed, shard_exec,
                                            fenced)
+        return resps
+
+    def _mesh_union(self, fenced, window: int, ltails: np.ndarray):
+        """The gspmd tier's union round: the un-meshed round's window
+        `[m, end)` with `m` the GLOBAL least live cursor (joined on the
+        host), planned once on the donor's shard and its plan copied to
+        every other shard, each of which merges it into its replicas.
+        A shard's own least cursor would start its window later, and
+        its replicas would end the round further ahead than the
+        reference's."""
+        placed = self._placed
+        masked = ltails if self._fenced is None else np.where(
+            self._fenced, _FAR, ltails)
+        donor = int(np.argmin(masked))
+        s, local = placed.shard_of(donor)
+        src = placed.shards[s]
+        m = torch.tensor(int(masked[donor]), dtype=torch.int64,
+                         device=src.device)
+        end, plan = union_plan(self._shard_spec(), self.dispatch, src.log,
+                               src.states, window, m, local)
+
+        def shard_exec(sh, fen):
+            def to(x):
+                return x.to(sh.device)
+
+            lg, st, r = union_merge(self.dispatch, sh.log, sh.states,
+                                    window, to(m), to(end),
+                                    tree_map(to, plan), fenced=fen)
+            return lg.ltails, st, r
+
+        from node_replication_torch.parallel.collectives import (
+            sharded_exec,
+        )
+
+        self._placed, resps = sharded_exec(placed, shard_exec, fenced)
         return resps
 
     # ------------------------------------------------------------ calls
@@ -1664,7 +1706,7 @@ class NodeReplicated(_FusedTier):
             tail - int(live.min()) if live.size else 1)
         with debug_checks(self.debug):
             if self._placed is not None:
-                resps = self._mesh_exec(f_arr, window)
+                resps = self._mesh_exec(f_arr, window, ltails_before)
             else:
                 self.log, self.states, resps = self._exec_call(f_arr,
                                                                window)

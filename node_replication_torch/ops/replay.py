@@ -6,23 +6,23 @@ out transposed, `[Kp, R]` (keys on rows, replicas on columns, Kp = K
 rounded up to 8), as in the reference: replay touches one key per
 entry but every replica at once.
 
-Two kernels, one CUDA source (`csrc/hashmap_replay.cu`, whose header
-says what bounds them and how they are laid out):
+Two kernels, one CUDA source and one body (`csrc/hashmap_replay.cu`,
+whose header says what bounds them and how they are laid out). A block
+owns a tile of key rows x replica columns of both planes in shared
+memory (`replay_tile()`): it copies the tile in, scans the window once
+and keeps, in window order, the entries whose key lies in its rows,
+replays them against shared memory, writes their response segments and
+copies the tile out. Both are bound by device-memory bytes (the state
+in and out and the responses); one launch a call.
 
 - `hashmap_replay` (replaces `_replay_kernel`, K2): in-order replay of
   a window into every replica's column; used by `make_hashmap_replay`
-  and `make_pallas_step`. A block owns a tile of key rows x replica
-  columns of both planes in shared memory (`replay_tile()`): it copies
-  the tile in, scans the window once and keeps, in window order, the
-  entries whose key lies in its rows, replays them against shared
-  memory, writes their response segments and copies the tile out. It
-  is bound by device-memory bytes (the state in and out and the
-  responses); one launch a call.
+  and `make_pallas_step`.
 - `hashmap_fused_round` (replaces `_fused_hashmap_kernel`, K1): one
-  whole combiner round in one launch — the ring append, the replay,
-  and the fenced-lane restore; used by `FusedHashmapEngine`. It keeps
-  its first body: warps owning key partitions of 32-column groups, one
-  dependent device-memory read-modify-write per owned entry.
+  whole combiner round in one launch — the ring append (done by the
+  first blocks while their tiles land), the replay, and the fenced
+  columns' tiles taken back from the input; used by
+  `FusedHashmapEngine`.
 
 Each wrapper takes its plain PyTorch version (a Python loop over the
 window doing row operations on the planes) for CPU tensors ONLY; for
@@ -55,11 +55,6 @@ from node_replication_torch.ops.ring import (
 )
 from node_replication_torch.utils.device import resolve_device
 
-# K1's key partitions per replica column (see the kernel's header): a
-# multiple of its warps per block. K2 does not use them.
-N_PART = 16
-
-
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
@@ -75,20 +70,14 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nr_hashmap_warps_per_block.argtypes = []
-    lib.nr_hashmap_warps_per_block.restype = i
     lib.nr_hashmap_replay_tile.argtypes = [ctypes.POINTER(i)] * 3
     lib.nr_hashmap_replay_tile.restype = i
     lib.nr_hashmap_replay.argtypes = [
         p, p, p, i, i, i, i, p, p, p, p, p, p]
     lib.nr_hashmap_replay.restype = i
     lib.nr_hashmap_fused_round.argtypes = [
-        p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p,
-        p]
+        p, p, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p, p]
     lib.nr_hashmap_fused_round.restype = i
-    if N_PART % lib.nr_hashmap_warps_per_block():
-        raise RuntimeError("N_PART must be a multiple of the "
-                           "kernel's warps per block")
 
 
 def _library() -> ctypes.CDLL:
@@ -98,7 +87,7 @@ def _library() -> ctypes.CDLL:
 
 
 def replay_tile() -> dict:
-    """K2's tile as built: key rows, replica columns, window entries
+    """The kernels' tile as built: key rows, replica columns, window entries
     scanned a pass, and its dynamic shared memory in bytes."""
     out = [ctypes.c_int() for _ in range(3)]
     smem = _library().nr_hashmap_replay_tile(
@@ -240,7 +229,7 @@ def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = lib.nr_hashmap_fused_round(
             opcodes.data_ptr(), args.data_ptr(), A, W, n_keys, kp, R,
-            N_PART, values.data_ptr(), present.data_ptr(),
+            values.data_ptr(), present.data_ptr(),
             v_out.data_ptr(), p_out.data_ptr(), resps.data_ptr(),
             None if fenced is None else fenced.data_ptr(),
             tail.data_ptr(), int(count), L, ring_opc.data_ptr(),

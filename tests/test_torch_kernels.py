@@ -87,27 +87,54 @@ def test_replay_kernel_equals_plain(dev, R, K, W, window):
         assert torch.equal(a, b)
 
 
+# K1 runs K2's tile body with the ring append and the fenced restore:
+# (R, K, W, ring, first tail, window). R = 34 is the scalar path, and
+# "unaligned" planes are not 16-byte aligned; R = 600 spans two column
+# tiles (fenced lanes at 511 and 512); Kp = 40 is not a multiple of the
+# 16-row tile; K = 1 puts every entry on one row; W = 1, and W = 1920,
+# the largest fused window of a 2048-slot ring (two scan chunks);
+# "negative" keys only; R = 1024, a mesh shard's shape. Each first tail
+# makes the first rounds wrap the ring.
+K1_CASES = {
+    "base": (70, 29, 64, 256, 200, "mixed"),
+    "scalar": (34, 13, 64, 256, 200, "mixed"),
+    "unaligned": (36, 29, 64, 256, 200, "unaligned"),
+    "two_col_tiles": (600, 100, 128, 256, 160, "mixed"),
+    "kp_ragged": (64, 37, 64, 256, 200, "mixed"),
+    "one_key": (70, 1, 64, 256, 200, "mixed"),
+    "w1": (70, 29, 1, 256, 250, "mixed"),
+    "w_max": (70, 1000, 1920, 2048, 1000, "mixed"),
+    "negative": (70, 29, 64, 256, 200, "negative"),
+    "shard": (1024, 1000, 256, 4096, 3900, "mixed"),
+}
+
+
 @pytest.mark.parametrize("fenced", [False, True])
-def test_fused_kernel_equals_plain_across_ring_wrap(dev, fenced):
-    K, R, W = 29, 70, 64
-    spec = LogSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
-    rng = np.random.default_rng(7 + fenced)
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_fused_kernel_equals_plain_across_ring_wrap(dev, case, fenced):
+    R, K, W, L, tail, window = K1_CASES[case]
+    spec = LogSpec(capacity=L, n_replicas=R, arg_width=3, gc_slack=64)
+    rng = np.random.default_rng(7 + fenced + 10 * list(K1_CASES).index(case))
     ring_opc = torch.from_numpy(
-        rng.integers(0, 3, 256).astype(np.int32)).to(dev)
+        rng.integers(0, 3, L).astype(np.int32)).to(dev)
     ring_args = torch.from_numpy(
-        rng.integers(-9, 9, (256, 3)).astype(np.int32)).to(dev)
+        rng.integers(-9, 9, (L, 3)).astype(np.int32)).to(dev)
     v, p = _planes(rng, K, R, dev)
+    if window == "unaligned":
+        v, p = _unaligned(v), _unaligned(p)
     fen = None
     if fenced:
         fen = torch.zeros(R, dtype=torch.int32, device=dev)
-        fen[[0, 31, 32, 69]] = 1
+        fen[[c for c in (0, 31, 32, 511, 512, R - 1) if c < R]] = 1
     kern = (ring_opc, ring_args, v, p)
     plain = (ring_opc, ring_args, v, p)
-    tail = 200  # the first round already wraps the 256-slot ring
+    tail0 = tail
     before = FUSED_KERNEL.launches
     for rnd in range(12):
-        count = int(rng.integers(0, W + 1))
+        count = int(rng.integers(0, W + 1)) if W > 1 else 1
         opc, key, val = _window(rng, W, K, dev)
+        if window == "negative":
+            key = -key.abs() - 1
         opc[count:] = 0
         args = torch.stack([key, val, torch.zeros_like(key)], 1)
         t = torch.tensor(tail, dtype=torch.int64, device=dev)
@@ -121,7 +148,7 @@ def test_fused_kernel_equals_plain_across_ring_wrap(dev, fenced):
         kern, plain = out_k[:4], out_p[:4]
         tail += count
     assert FUSED_KERNEL.launches == before + 12
-    assert tail > 256 + 200
+    assert tail0 < L < tail
 
 
 # ------------------------------------------------- flat vspace (K4, K7a, K5)

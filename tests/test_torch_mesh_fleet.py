@@ -193,6 +193,59 @@ class TestNodeReplicatedMesh:
             assert nr.replicas_equal()
         _three(ref, got, un)
 
+    def test_union_round_plans_from_the_global_least_cursor(self, jmesh):
+        """Shard-distinct live cursors on the gspmd tier: replica 5 is
+        fenced while 40 ops replay, then readmitted without a clone, so
+        its shard's least cursor lies 40 entries behind every other
+        shard's while 80 more are pending (exec_window 32). Each round
+        plans from the global least cursor, as the reference's
+        un-meshed program over sharded arrays does: ltails agree round
+        by round, and so do the delivered responses."""
+        fleets = _trio(_hashmap, jmesh)
+        ref, got, un = fleets
+        assert got._mesh_tier == "gspmd"
+        toks = [nr.register(0) for nr in fleets]
+        for i in range(8):
+            for nr, t in zip(fleets, toks):
+                nr.execute_mut((HM_PUT, i, i, 0), t)
+        for nr in fleets:
+            nr.fence_replica(5)
+        ops = [(HM_PUT, i % 64, i, 0) for i in range(40)]
+        assert len({tuple(nr.execute_mut_batch(ops, rid=0))
+                    for nr in fleets}) == 1
+        for nr in fleets:
+            nr.unfence_replica(5)
+        assert [int(x) for x in got.log.ltails] == [48] * 5 + [8] + [48] * 2
+        # pending entries with no combiner: one exec round at a time
+        N = 80
+        opc = np.full(N, HM_PUT, np.int32)
+        args = np.zeros((N, 3), np.int32)
+        args[:, 0] = np.arange(N) % 64
+        args[:, 1] = 500 + np.arange(N)
+        ref.log = j_log_append(ref.spec, ref.log, jnp.asarray(opc),
+                               jnp.asarray(args), N)
+        for nr in (got, un):
+            nr.log = log_append(nr.spec, nr.log, torch.from_numpy(opc),
+                                torch.from_numpy(args), N)
+        for rnd in range(8):
+            for nr in fleets:
+                nr._exec_round()
+            want = np.asarray(ref.log.ltails)
+            assert np.array_equal(want, got.log.ltails.numpy()), rnd
+            assert np.array_equal(want, un.log.ltails.numpy()), rnd
+        _three(ref, got, un)
+        # and through the combiner, with responses delivered
+        for nr in fleets:
+            nr.fence_replica(5)
+        ops = [(HM_PUT, i % 64, 700 + i, 0) for i in range(40)]
+        for nr in fleets:
+            nr.execute_mut_batch(ops, rid=0)
+            nr.unfence_replica(5)
+        ops = [(HM_PUT, i % 64, 900 + i, 0) for i in range(80)]
+        outs = [nr.execute_mut_batch(ops, rid=1) for nr in fleets]
+        assert outs[0] == outs[1] == outs[2]
+        _three(ref, got, un)
+
     def test_ring_catchup_tier_bit_identical(self, jmesh):
         fleets = _trio(_seqreg, jmesh)
         ref, got, un = fleets
