@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 7 minutes
+    python3 chip_smoke.py            # needs one CUDA card; about 8 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
+    python3 chip_smoke.py --repl-primary DIR  # phase 23's primary (internal)
 
 Four models, end to end, from numpy seeds, then the serving path, then
 CNR and the other models. The replicated hashmap at the flagship width
@@ -178,9 +179,35 @@ for i < N (one shard a card while there are cards, else all on
    256 against the un-meshed fleet and a dict, `replica_device` by mesh
    row.
 
+The replication plane (`repl/`):
+
+23. the replicated flagship, laid out as the reference's replication
+   gate (`bench.py --follower`) on phase 13's fleet: a child
+   (`--repl-primary DIR`) serves it with durable acks and
+   ship-before-ack (`ReplicationShipper.barrier` as the frontend's
+   `ack_barrier`, into a `DirectoryFeed`), runs a `FeedServer` with
+   snapshot serving on 127.0.0.1, snapshots once halfway to the kill
+   and logs every acked op; in this process follower F1 (the same
+   fleet on the card, `engine="pallas"`) applies the shipped WAL, one
+   K1 launch a record, and serves reads at `max_lag_pos` 64 under load;
+   a cold leaf follows over SocketFeed -> RelayNode -> SocketFeed and
+   boots from the child's snapshot; the child is SIGKILLed at a seeded
+   ack count near 2,000, `PromotionManager` (0.5 s heartbeat timeout)
+   detects the silence and promotes F1, a publish of the dead epoch is
+   refused, and the 16 clients run 250 ops each through F1's frontend,
+   one K1 a round. No acked write is lost, F1's WAL equals the child's
+   record for record, F1, the leaf and every read equal a numpy replay
+   of the child's WAL (a read at a record boundary its replica could
+   have held), and K1 launches cover every applied record; then K1's
+   device time per applied record (a follower of the dead feed, after a
+   traced warm-up) and K1 against its plain version at the records'
+   shapes. Prints follower records/s against the primary's, apply lag,
+   read p50/p99 and stale reads, the RTO, acked ops/s after the
+   promotion, the leaf's boot, and the phase's peak memory.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-22) and read just after; a kernel that its path never launched
+17, 19-23) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -1847,6 +1874,12 @@ CRASH_SNAPSHOT_AT = 1500         # the child's acks before its snapshot
 CRASH_DIR = Path(__file__).resolve().parent / ".chip_smoke_crash"
 
 
+def child_cmd(flag: str, directory) -> list[str]:
+    """The command line of this script's child `flag DIR`."""
+    return [sys.executable, str(Path(__file__).resolve()), flag,
+            str(directory)]
+
+
 def serve_clients(fe, n_clients: int, per_client: int, op_of, check,
                   rid_of, retry=None, during=None, on_ack=None) -> dict:
     """Closed-loop client threads, as `bench.py --serve` drives them:
@@ -2122,6 +2155,69 @@ def check_fleet_state(nr, models, label: str) -> None:
         raise AssertionError(f"{label}: state differs from the model")
 
 
+def _acked_ops(directory: Path) -> list[list[tuple]]:
+    """Each client's acked (op, response) pairs, whole lines only."""
+    out = []
+    for c in range(SV_CLIENTS):
+        try:
+            text = (directory / f"c{c}.txt").read_text()
+        except FileNotFoundError:
+            text = ""
+        rows = [ln.split() for ln in text.split("\n")[:-1]]
+        out.append([(tuple(int(x) for x in row[1:-1]), int(row[-1]))
+                    for row in rows if len(row) >= 4])
+    return out
+
+
+def _chained(records, label: str) -> int:
+    """The end of WAL records that chain from position 0; raises at a
+    record applied twice or lost."""
+    pos = 0
+    for rec in records:
+        if rec.pos != pos:
+            raise AssertionError(f"{label}: WAL record at {rec.pos}, "
+                                 f"expected {pos}: applied twice or lost")
+        pos += rec.count
+    return pos
+
+
+def _replay_to(records, upto: int):
+    """Phase 14's host model over WAL records up to position `upto` (a
+    record boundary): per-client models, each client's (op, response)
+    list, and per key the (record end, value after it) history."""
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    per_client = [[] for _ in range(SV_CLIENTS)]
+    history: dict[int, list] = {}
+    pos = 0
+    for rec in records:
+        if pos >= upto:
+            break
+        touched = set()
+        for op in rec.ops():
+            slot = op[1] % K
+            c = slot // SV_SLICE
+            op = (op[0], op[1], op[2]) if op[0] == 1 else op[:2]
+            per_client[c].append((op, models[c].apply(op)))
+            touched.add(slot)
+        pos = rec.pos + rec.count
+        for slot in touched:
+            history.setdefault(slot, []).append(
+                (pos, models[slot // SV_SLICE].vals.get(slot, -1)))
+    if pos != upto:
+        raise AssertionError(f"no WAL record boundary at {upto} "
+                             f"(the WAL reaches {pos})")
+    return models, per_client, history
+
+
+def _value_at(history, slot: int, pos: int) -> int:
+    """The value a GET of `slot` reads at record boundary `pos`."""
+    import bisect
+
+    h = history.get(slot, [])
+    i = bisect.bisect_right([p for p, _ in h], pos) - 1
+    return h[i][1] if i >= 0 else -1
+
+
 def served_round_share(nr, models, rng, count) -> dict:
     """The device's share of a served round: 16 closed-loop clients, 24
     ops each, through a depth-0 frontend under `torch.profiler`; device
@@ -2372,21 +2468,14 @@ def phase_crash_recovery(dev) -> dict:
     CRASH_DIR.mkdir()
     try:
         t0 = time.perf_counter()
-        child = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--crash-child",
-             str(CRASH_DIR)], capture_output=True, text=True, timeout=900)
+        child = subprocess.run(child_cmd("--crash-child", CRASH_DIR),
+                               capture_output=True, text=True, timeout=900)
         child_s = time.perf_counter() - t0
         if child.returncode != -signal.SIGKILL:
             raise AssertionError(
                 f"phase 14: the child exited {child.returncode}, not by "
                 f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-2000:]}")
-        acked = []
-        for c in range(SV_CLIENTS):
-            text = (CRASH_DIR / "acks" / f"c{c}.txt").read_text()
-            # whole lines only: a write the kill tore leaves no newline
-            rows = [ln.split() for ln in text.split("\n")[:-1]]
-            acked.append([(tuple(int(x) for x in row[1:-1]), int(row[-1]))
-                          for row in rows if len(row) >= 4])
+        acked = _acked_ops(CRASH_DIR / "acks")
         n_acked = sum(map(len, acked))
         reset_launch_counts()
         t1 = time.perf_counter()
@@ -2409,17 +2498,9 @@ def phase_crash_recovery(dev) -> dict:
         wal = nr.wal
         if wal.base != 0:
             raise AssertionError(f"phase 14: the WAL starts at {wal.base}")
-        pos, per_client = 0, [[] for _ in range(SV_CLIENTS)]
-        models = [HashmapModel() for _ in range(SV_CLIENTS)]
-        for rec in wal.records(0):
-            if rec.pos != pos:
-                raise AssertionError(f"phase 14: WAL record at {rec.pos}, "
-                                     f"expected {pos}: applied twice or lost")
-            for op in rec.ops():
-                c = (op[1] % K) // SV_SLICE
-                op = (op[0], op[1], op[2]) if op[0] == 1 else op[:2]
-                per_client[c].append((op, models[c].apply(op)))
-            pos += rec.count
+        recs = list(wal.records(0))
+        pos = _chained(recs, "phase 14")
+        models, per_client, _ = _replay_to(recs, pos)
         if pos != rep.tail or int(nr.log.tail) != pos:
             raise AssertionError(f"phase 14: WAL ends at {pos}, the fleet "
                                  f"at {int(nr.log.tail)}")
@@ -3993,11 +4074,587 @@ def phase_mesh_serve(dev, rng, nm) -> dict:
     return out
 
 
+# ------------------------------------------- replication (`repl/`)
+
+REPL_DIR = Path(__file__).resolve().parent / ".chip_smoke_repl"
+REPL_KILL_NEAR = 2000    # the seeded ack count of the SIGKILL: about this
+REPL_MAX_LAG = 64        # the follower's bounded reads: `max_lag_pos`
+REPL_HB_TIMEOUT = 0.5    # the promotion watch's heartbeat timeout, s
+REPL_POST = 250          # ops a client through the promoted follower
+REPL_PROFILED = 64       # records applied under the profiler
+
+
+def repl_counts() -> tuple[int, int]:
+    """(acks at the SIGKILL, acks at the child's snapshot): seeded, the
+    snapshot halfway to the kill."""
+    rng = np.random.default_rng(SEED + 23)
+    kill = int(rng.integers(REPL_KILL_NEAR - 100, REPL_KILL_NEAR + 101))
+    return kill, kill // 2
+
+
+def repl_primary(directory: str) -> int:
+    """`--repl-primary DIR`: the replicated flagship's primary. Serves
+    the phase-13 fleet from `ServeFrontend.from_recovery(DIR/primary,
+    durability="batch")` with ship-before-ack (`ack_barrier =
+    ReplicationShipper.barrier` into `DirectoryFeed(DIR/feed)`), runs a
+    `FeedServer` with snapshot serving on 127.0.0.1 (its port written
+    to DIR/port), snapshots once halfway to the kill, and logs every
+    acked op after its future resolved, until the parent SIGKILLs it."""
+    import threading
+
+    import torch
+
+    from node_replication_torch.durable import save_durable_snapshot
+    from node_replication_torch.durable.wal import durable_publish
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.repl import (
+        DirectoryFeed,
+        FeedServer,
+        ReplicationShipper,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    d = Path(directory)
+    acks = d / "acks"
+    acks.mkdir(parents=True, exist_ok=True)
+    _, snap_at = repl_counts()
+    rng = np.random.default_rng(SEED + 23)
+    ops = [hm_client_ops(rng, c, 4 * SV_PER) for c in range(SV_CLIENTS)]
+    files = [open(acks / f"c{c}.txt", "a") for c in range(SV_CLIENTS)]
+    n_acked = [0]
+    lock = threading.Lock()
+    primary = str(d / "primary")
+    fe = ServeFrontend.from_recovery(
+        primary, make_hashmap(K), _crash_config(ServeConfig),
+        rids=range(SV_RIDS), nr_kwargs=_crash_fleet_kwargs("cuda"))
+    feed = DirectoryFeed(str(d / "feed"), arg_width=3)
+    shipper = ReplicationShipper(fe.nr.wal, feed)
+    fe.ack_barrier = shipper.barrier
+    srv = FeedServer(feed, snapshot_dir=primary, wal=fe.nr.wal)
+    durable_publish(str(d / "port"), str(srv.address[1]).encode(),
+                    fsync=False)
+
+    def on_ack(c, i, op, resp):
+        files[c].write(f"{i} {' '.join(map(str, op))} {resp}\n")
+        files[c].flush()
+        with lock:
+            n_acked[0] += 1
+            snap = n_acked[0] == snap_at
+        if snap:
+            save_durable_snapshot(fe.nr, primary)
+            print(f"snapshot at tail {int(fe.nr.log.tail)}", flush=True)
+
+    r = serve_clients(fe, SV_CLIENTS, 4 * SV_PER, lambda c, i: ops[c][i],
+                      lambda c, i, resp: None, lambda c: c % SV_RIDS,
+                      on_ack=on_ack)
+    srv.close()
+    shipper.stop()
+    fe.close()
+    for f in files:
+        f.close()
+    print(f"the kill never came: {r['completed']} ops acked",
+          file=sys.stderr)
+    return 3
+
+
+def _k1_record_check(dev, counts, mean_record: float) -> dict:
+    """K1 against its plain version at the follower's record shape: R =
+    4096 and the window a record of `n` ops gets (the next power of
+    two), for each record size in `counts`, from a tail a few entries
+    below 2^16 so that the rounds cross the ring's wrap, unfenced and
+    fenced in turn; then its event, profiler and plain time and its
+    bound at the mean record."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    kp = -(-K // 8) * 8
+    spec = LogSpec(capacity=1 << 16, n_replicas=R, arg_width=3)
+    L = spec.capacity
+    rng = np.random.default_rng(SEED + 231)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 231)
+    vals, pres = random_planes(gen, dev, kp)
+    ring = (torch.zeros(L, dtype=torch.int32, device=dev),
+            torch.zeros((L, 3), dtype=torch.int32, device=dev))
+    fen = torch.zeros(R, dtype=torch.int32, device=dev)
+    fen[[0, 63, 64, R // 2, R - 1]] = 1
+    kern = plain = (*ring, vals, pres)
+    tail, err = L - 2 * sum(counts) // 3, 0
+
+    def inputs(n, tail):
+        W = 1 << (n - 1).bit_length()
+        opc = np.zeros(W, np.int32)
+        opc[:n] = rng.choice(np.array([1, 2], np.int32), n)
+        args = np.zeros((W, 3), np.int32)
+        args[:n, 0] = rng.integers(-2 * K, 3 * K, n)
+        args[:n, 1] = rng.integers(1, 1 << 31, n)
+        return (spec, torch.tensor(tail, dtype=torch.int64, device=dev), n,
+                torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev))
+
+    for rnd, n in enumerate(counts):
+        x = inputs(n, tail)
+        f = fen if rnd % 2 else None
+        out_k = hashmap_fused_round(*x, *kern, K, f)
+        out_p = hashmap_fused_round_plain(*x, *plain, K, f)
+        e = max_abs_err(out_k, out_p)
+        if e:
+            raise AssertionError(
+                f"phase 23: K1 at a record of {n} disagrees with its plain "
+                f"version in round {rnd} (fenced={f is not None}): {e}")
+        err = max(err, e)
+        kern, plain = out_k[:4], out_p[:4]
+        tail += n
+    if tail <= L:
+        raise AssertionError("phase 23: the record rounds never wrapped")
+    n = max(1, round(mean_record))
+    x = (*inputs(n, tail), *kern, K, None)
+    ms = cuda_ms(lambda: hashmap_fused_round(*x), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*x), reps=2)
+    dt = device_time(lambda: hashmap_fused_round(*x))
+    bound_ms, by = bound(k1_round_bytes(R, mean_record),
+                         4 * mean_record * R)
+    log(f"phase 23: K1 at the follower's record shape (R={R}, "
+        f"{len(counts)} records of {min(counts)}-{max(counts)} ops across "
+        f"the wrap, fenced and not): bit-identical to its plain version; "
+        f"at {n} ops kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{bound_ms:.4f} ms at the mean record {mean_record:.3f}")
+    log_device("phase 23: K1 at a record", dt)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **dt,
+            "bound_ms": bound_ms, "bound_by": by, "W": n,
+            "records_checked": len(counts)}
+
+
+def phase_repl(dev) -> dict:
+    """Phase 23: the replicated flagship. A `--repl-primary` child serves
+    the phase-13 fleet with ship-before-ack; follower F1 (in this
+    process, the same fleet on the card) applies the shipped WAL, one
+    K1 launch a record, and serves bounded reads under load; a cold
+    leaf follows over SocketFeed -> RelayNode -> SocketFeed, booting
+    from the child's snapshot; the child is SIGKILLed near a seeded ack
+    count, `PromotionManager` detects the silence and promotes F1, which
+    serves 16 clients on. Every check is exact."""
+    import bisect
+    import shutil
+    import signal
+
+    import torch
+
+    from node_replication_torch.durable import WriteAheadLog, list_snapshots
+    from node_replication_torch.models import HM_GET, make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.repl import (
+        DirectoryFeed,
+        EpochFencedError,
+        Follower,
+        PromotionManager,
+        RelayNode,
+        SocketFeed,
+    )
+    from node_replication_torch.serve import ServeConfig, StaleRead
+
+    reg = get_registry()
+    reg.enable()
+    counters = ("nr.exec.engine.pallas_fused", "nr.exec.engine.fused_fallback",
+                "serve.batches", "repl.applied_records",
+                "repl.snapshot.bootstraps")
+    count = lambda: {n: reg.counter(n).value for n in counters}
+    kill_at, snap_at = repl_counts()
+    kw = _crash_fleet_kwargs(dev)
+    shutil.rmtree(REPL_DIR, ignore_errors=True)
+    REPL_DIR.mkdir()
+    primary = REPL_DIR / "primary"
+    feed = DirectoryFeed(str(REPL_DIR / "feed"), arg_width=3)
+    child = relay = leaf = f1 = fp = mgr = None
+    child_log = open(REPL_DIR / "child.log", "w")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    c0 = count()
+    t_phase = time.perf_counter()
+    try:
+        f1 = Follower(make_hashmap(K), feed, str(REPL_DIR / "f1"),
+                      config=_crash_config(ServeConfig), nr_kwargs=kw,
+                      name="f1", rids=range(SV_RIDS))
+        mgr = PromotionManager(feed, [f1],
+                               heartbeat_timeout_s=REPL_HB_TIMEOUT,
+                               check_interval_s=0.03)
+        child = subprocess.Popen(child_cmd("--repl-primary", REPL_DIR),
+                                 stdout=child_log, stderr=subprocess.STDOUT)
+        rrng = np.random.default_rng(SEED + 232)
+        reads, lat, lags, stale = [], [], [], 0
+        samples = []  # (s, feed tail, F1 applied)
+        t_end = time.perf_counter() + 600
+        n_acked, leaf_s, it = 0, None, 0
+        while True:
+            if mgr.report is not None:
+                raise AssertionError("phase 23: F1 was promoted while the "
+                                     "primary was alive")
+            if child.poll() is not None:
+                raise AssertionError(
+                    f"phase 23: the primary exited {child.returncode} "
+                    f"before the kill: "
+                    f"{(REPL_DIR / 'child.log').read_text()[-3000:]}")
+            if time.perf_counter() > t_end or (
+                    leaf is None and n_acked > kill_at + 4000):
+                raise AssertionError(f"phase 23: {n_acked} acks, leaf "
+                                     f"{'not ' * (leaf is None)}built")
+            if f1.error is not None:
+                raise AssertionError(f"phase 23: F1 failed: {f1.error!r}")
+            if it % 8 == 0:
+                n_acked = sum(map(len, _acked_ops(REPL_DIR / "acks")))
+            it += 1
+            if leaf is None and list_snapshots(str(primary)):
+                # the cold leaf: relay on the child's server, leaf on
+                # the relay; its bootstrap fetches the snapshot through
+                # the relay before the kill can cut the stream
+                port = int((REPL_DIR / "port").read_text())
+                t0 = time.perf_counter()
+                relay = RelayNode(SocketFeed("127.0.0.1", port, arg_width=3),
+                                  str(REPL_DIR / "relay"), arg_width=3,
+                                  name="relay")
+                leaf = Follower(make_hashmap(K),
+                                SocketFeed(*relay.address, arg_width=3),
+                                str(REPL_DIR / "leaf"), nr_kwargs=kw,
+                                name="leaf", rids=range(SV_RIDS))
+                leaf_s = time.perf_counter() - t0
+                if leaf.bootstrap_report is None:
+                    raise AssertionError("phase 23: the leaf did not boot "
+                                         "from the snapshot")
+                mgr.start()
+            if leaf is not None and n_acked >= kill_at:
+                os.kill(child.pid, signal.SIGKILL)
+                t_kill = time.perf_counter()
+                break
+            key = int(rrng.integers(0, K))
+            rid = int(rrng.integers(0, SV_RIDS))
+            lo = f1.nr.ltail(rid)
+            t0 = time.perf_counter()
+            try:
+                v, applied, bnd = f1.read_result(
+                    (HM_GET, key), rid=rid, max_lag_pos=REPL_MAX_LAG,
+                    wait_s=0.25)
+            except StaleRead:
+                stale += 1
+                continue
+            lat.append(time.perf_counter() - t0)
+            hi = max(applied, f1.nr.ltail(rid))
+            reads.append((key, v, max(lo, bnd), hi, applied, bnd))
+            tail = feed.tail_pos()
+            ap = f1.applied_pos()
+            lags.append(max(0, tail - ap))
+            samples.append((time.perf_counter() - t_phase, tail, ap))
+        child.wait(timeout=60)
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"phase 23: the child exited "
+                                 f"{child.returncode}, not by SIGKILL")
+        report = mgr.wait(timeout=120)
+        if report is None or not f1.promoted or f1.frontend.read_only:
+            raise AssertionError(f"phase 23: no promotion: {report}, "
+                                 f"{f1.stats()}")
+        rto_wall = time.perf_counter() - t_kill
+        try:
+            feed.publish(report.new_epoch - 1, f1.applied_pos(),
+                         np.zeros(1, np.int32), np.zeros((1, 3), np.int32))
+            raise AssertionError("phase 23: the feed took a publish of the "
+                                 "dead primary's epoch")
+        except EpochFencedError:
+            pass
+        c_pro = count()
+        k1_pre = FUSED_KERNEL.launches
+        applied_recs = c_pro["repl.applied_records"] - \
+            c0["repl.applied_records"]
+        if c_pro["nr.exec.engine.fused_fallback"] \
+                != c0["nr.exec.engine.fused_fallback"]:
+            raise AssertionError("phase 23: a fused round fell back")
+        if not k1_pre >= applied_recs > 0:
+            raise AssertionError(f"phase 23: {applied_recs} records applied "
+                                 f"in {k1_pre} K1 launches")
+
+        # the child's WAL: it chains from 0; F1's WAL holds the same
+        # records, byte for byte, up to the common position, once each
+        cw = WriteAheadLog(str(primary / "wal"), policy="batch",
+                           arg_width=3)
+        crecs = list(cw.records(0))
+        cw.close()
+        pos = _chained(crecs, "phase 23: the child's")
+        if not crecs:
+            raise AssertionError("phase 23: the child's WAL is empty")
+        p1 = report.applied_pos
+        common = min(pos, p1)
+        frecs = [r for r in f1.nr.wal.records(0) if r.pos < common]
+        crecs_c = [r for r in crecs if r.pos < common]
+        if len(frecs) != len(crecs_c) or any(
+                (a.pos, a.count, a.opcodes.tobytes(), a.args.tobytes())
+                != (b.pos, b.count, b.opcodes.tobytes(), b.args.tobytes())
+                for a, b in zip(frecs, crecs_c)):
+            raise AssertionError("phase 23: F1's WAL differs from the "
+                                 "child's below the common position "
+                                 f"{common}: applied twice or lost")
+        if common != p1:
+            raise AssertionError(f"phase 23: F1 applied to {p1}, past the "
+                                 f"child's WAL end {pos}")
+
+        # no acked write lost; F1's state is the numpy replay at p1
+        acked = _acked_ops(REPL_DIR / "acks")
+        n_acked = sum(map(len, acked))
+        models, per_client, history = _replay_to(crecs, p1)
+        for c in range(SV_CLIENTS):
+            n = len(acked[c])
+            if per_client[c][:n] != acked[c] or len(per_client[c]) > n + 1:
+                raise AssertionError(
+                    f"phase 23: client {c}'s {n} acked ops are not the "
+                    f"first {n} of its {len(per_client[c])} in F1's history")
+            amodel = HashmapModel()
+            for op, _ in acked[c]:
+                amodel.apply(op)
+            later = {op[1] % K for op, _ in per_client[c][n:]}
+            for slot in range(c * SV_SLICE, (c + 1) * SV_SLICE):
+                if (amodel.vals.get(slot, -1)
+                        != models[c].vals.get(slot, -1)
+                        and slot not in later):
+                    raise AssertionError(f"phase 23: key {slot}'s acked "
+                                         f"value is not in F1's fleet")
+        check_fleet_state(f1.nr, models, "phase 23 F1 at promotion")
+
+        # every bounded read: applied >= bound, and the value the replay
+        # gives at a record boundary the read's replica could have held
+        ends = sorted({r.pos + r.count for r in crecs} | {0})
+        exact = 0
+        for key, v, lo, hi, applied, bnd in reads:
+            if applied < bnd or hi < bnd:
+                raise AssertionError(f"phase 23: a read applied {applied} "
+                                     f"below its bound {bnd}")
+            cands = [q for q in ends[bisect.bisect_left(ends, lo):
+                                     bisect.bisect_right(ends, hi)]]
+            exact += lo == hi
+            if v not in {_value_at(history, key, q) for q in cands}:
+                raise AssertionError(
+                    f"phase 23: key {key} read {v} at a position in "
+                    f"[{lo}, {hi}], the replay gives "
+                    f"{[_value_at(history, key, q) for q in cands]}")
+
+        # the leaf: stop it where the relay's journal ends; its fleet is
+        # the replay at its applied position, past the snapshot
+        relay.stop()
+        time.sleep(0.2)
+        leaf_end = relay.local.tail_pos()
+        if not leaf.wait_applied(leaf_end, timeout=60):
+            raise AssertionError(f"phase 23: the leaf stopped at "
+                                 f"{leaf.applied_pos()} of {leaf_end}")
+        leaf.stop_apply()
+        pl_ = leaf.applied_pos()
+        snap_pos = leaf.bootstrap_report[0]
+        if not (leaf.recovery_report.snapshot_pos == snap_pos < pl_ <= pos):
+            raise AssertionError(f"phase 23: the leaf booted at "
+                                 f"{leaf.recovery_report.snapshot_pos}, "
+                                 f"snapshot {snap_pos}, applied {pl_}")
+        lmodels, _, _ = _replay_to(crecs, pl_)
+        check_fleet_state(leaf.nr, lmodels, "phase 23 leaf")
+        leaf_recs = sum(1 for r in crecs if snap_pos <= r.pos < pl_)
+        leaf.close()
+        relay.close()
+        del leaf
+        leaf = relay = None
+        torch.cuda.empty_cache()
+
+        # the promoted F1 serves on: durable acks, one K1 a round
+        l0, c1 = FUSED_KERNEL.launches, count()
+        post = [hm_client_ops(rrng, c, REPL_POST) for c in range(SV_CLIENTS)]
+
+        def check(c, i, resp):
+            want = models[c].apply(post[c][i])
+            return (None if resp == want else
+                    f"promoted client {c} op {i} {post[c][i]}: {resp}, "
+                    f"model {want}")
+
+        served = serve_clients(f1.frontend, SV_CLIENTS, REPL_POST,
+                               lambda c, i: post[c][i], check,
+                               lambda c: c % SV_RIDS)
+        if served["errors"] or served["completed"] != served["ops"]:
+            raise AssertionError(f"phase 23 promoted: {served['completed']} "
+                                 f"of {served['ops']} ops; "
+                                 f"{served['errors']}")
+        c2 = count()
+        rounds = c2["serve.batches"] - c1["serve.batches"]
+        k1_post = FUSED_KERNEL.launches - l0
+        fused = (c2["nr.exec.engine.pallas_fused"]
+                 - c1["nr.exec.engine.pallas_fused"])
+        if not (rounds == k1_post == fused > 0):
+            raise AssertionError(f"phase 23 promoted: {rounds} rounds, "
+                                 f"{k1_post} K1 launches, {fused} fused")
+        check_fleet_state(f1.nr, models, "phase 23 F1 after serving")
+        if f1.nr.wal.durable_tail != int(f1.nr.log.tail):
+            raise AssertionError("phase 23: F1's acks outran its fsync")
+        f1.close()
+        f1 = None
+        torch.cuda.empty_cache()
+
+        # K1's device time per applied record: a cold follower of the
+        # dead feed, one record as the tracer's warm-up step, then
+        # REPL_PROFILED records profiled, then the rest as a catch-up
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        pfeed = DirectoryFeed(feed.dir, arg_width=3)
+        fp = Follower(make_hashmap(K), pfeed, str(REPL_DIR / "fp"),
+                      nr_kwargs=kw, name="fp", auto_start=False,
+                      rids=range(SV_RIDS))
+        recs = pfeed.poll(0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fp._apply_record(recs[0])
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.05)  # as phase 16: the active step starts first
+            for rec in recs[1:1 + REPL_PROFILED]:
+                fp._apply_record(rec)
+            torch.cuda.synchronize()
+        prof_k1 = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "hashmap_round" in e.key]
+        prof_n = sum(e.count for e in prof_k1)
+        k1_dev = (sum(e.self_device_time_total for e in prof_k1) / 1e3
+                  / prof_n if prof_n else None)
+        rec_kernels = sorted(
+            ((e.self_device_time_total / 1e3 / REPL_PROFILED,
+              e.count / REPL_PROFILED, e.key[:60])
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith("ProfilerStep")), reverse=True)
+        prof_all = sum(k[0] for k in rec_kernels) * REPL_PROFILED
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_rest = fp._apply_once()
+        torch.cuda.synchronize()
+        catch_s = time.perf_counter() - t0
+        fmodels, _, _ = _replay_to(crecs, fp.applied_pos())
+        check_fleet_state(fp.nr, fmodels, "phase 23 catch-up follower")
+        fp.close()
+        fp = None
+        launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                    "hashmap_fused_round": FUSED_KERNEL.launches}
+        peak = torch.cuda.max_memory_allocated()
+        phase_s = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+
+        sizes = [r.count for r in crecs]
+        mean_record = float(np.mean(sizes))
+        k1 = _k1_record_check(dev, sizes[:8] + [max(sizes)] * 2,
+                              mean_record)
+        k1_bound_ms, k1_by = bound(k1_round_bytes(R, mean_record),
+                                   4 * mean_record * R)
+        t_first = next((s for s, tail, _ in samples if tail > 0), None)
+        window = (t_kill - t_phase - t_first) if t_first is not None else 0
+        f1_recs = sum(1 for r in crecs if r.pos < samples[-1][2]) \
+            if samples else 0
+        lat_ms = np.asarray(lat) * 1e3 if lat else np.zeros(1)
+        lag = np.asarray(lags) if lags else np.zeros(1)
+        out = {
+            "kill_at": kill_at, "snapshot_at": snap_at, "acked": n_acked,
+            "child_wal_records": len(crecs), "child_wal_tail": pos,
+            "mean_record": mean_record,
+            "primary_records_per_s": (
+                sum(1 for r in crecs if r.pos < samples[-1][1]) / window
+                if window > 0 else None),
+            "f1_records_per_s": f1_recs / window if window > 0 else None,
+            "f1_ops_per_s": samples[-1][2] / window if window > 0 else None,
+            "catchup_records": n_rest, "catchup_s": catch_s,
+            "catchup_records_per_s": n_rest / catch_s if catch_s else None,
+            "lag_p50": float(np.percentile(lag, 50)),
+            "lag_p99": float(np.percentile(lag, 99)),
+            "lag_max": int(lag.max()),
+            "reads": len(reads), "exact_reads": exact, "stale_reads": stale,
+            "read_p50_ms": float(np.percentile(lat_ms, 50)),
+            "read_p99_ms": float(np.percentile(lat_ms, 99)),
+            "report": report.as_dict(), "rto_wall_s": rto_wall,
+            "applied_records": applied_recs, "k1_before_promotion": k1_pre,
+            "leaf_boot_s": leaf_s, "leaf_snapshot_pos": snap_pos,
+            "leaf_applied": pl_, "leaf_records": leaf_recs,
+            "promoted": served, "promoted_rounds": rounds,
+            "promoted_k1": k1_post,
+            "k1_profiled_records": REPL_PROFILED,
+            "k1_profiled_launches": prof_n,
+            "k1_device_ms_per_record": k1_dev,
+            "device_ms_per_record": prof_all / REPL_PROFILED,
+            "record_kernels": [{"ms": m, "per_record": c, "name": n}
+                               for m, c, n in rec_kernels[:8]],
+            "k1_bound_ms": k1_bound_ms, "k1_bound_by": k1_by,
+            "k1_check": k1, "launches": launches,
+            "peak_mem_bytes": peak, "seconds": phase_s,
+        }
+        rep = report
+        log(f"phase 23: replicated flagship R={R} K={K}: child SIGKILLed at "
+            f"{n_acked} acks (seeded {kill_at}, snapshot at {snap_at}); "
+            f"its WAL {len(crecs)} records to {pos} (mean record "
+            f"{mean_record:.3f} ops); F1 applied {p1} positions, its WAL "
+            f"equal to the child's, every acked op in it once and in order, "
+            f"state equal to the numpy replay; follower "
+            f"{out['f1_records_per_s'] or 0:.1f} records/s "
+            f"({out['f1_ops_per_s'] or 0:.1f} ops/s) under load against the "
+            f"primary's {out['primary_records_per_s'] or 0:.1f} records/s; "
+            f"catch-up {out['catchup_records_per_s'] or 0:.1f} records/s "
+            f"({n_rest} records); apply lag p50/p99/max "
+            f"{out['lag_p50']:.0f}/{out['lag_p99']:.0f}/{out['lag_max']} "
+            f"positions; {len(reads)} bounded reads (max_lag_pos "
+            f"{REPL_MAX_LAG}, {exact} at an exact position) p50 "
+            f"{out['read_p50_ms']:.3f} ms p99 {out['read_p99_ms']:.3f} ms, "
+            f"{stale} stale; RTO {rep.rto_s:.3f} s (detect "
+            f"{rep.detect_s:.3f} + promote {rep.promote_s:.3f}, "
+            f"{rep.drained_records} drained, epoch {rep.new_epoch}; "
+            f"{rto_wall:.3f} s from the kill), the dead epoch fenced")
+        log(f"phase 23: leaf (SocketFeed -> RelayNode -> SocketFeed) booted "
+            f"from the snapshot at {snap_pos} in {leaf_s:.2f} s, replayed "
+            f"{leaf_recs} records to {pl_}, equal to the numpy replay; "
+            f"promoted F1 served {served['completed']} ops at "
+            f"{served['acked_ops_per_s']:.1f} acked ops/s (p50 "
+            f"{served['p50_ms']:.3f} ms, p99 {served['p99_ms']:.3f} ms), "
+            f"{rounds} rounds, each one K1; K1 per applied record "
+            + (f"{k1_dev:.4f} ms of device ({prof_n} launches profiled, "
+               f"all kernels {out['device_ms_per_record']:.4f} ms a record: "
+               + ", ".join(f"{n[:40]} x{c:.2f} {m:.4f} ms"
+                           for m, c, n in rec_kernels[:5]) + ")"
+               if k1_dev else "not measured")
+            + f" against a {k1_bound_ms:.4f} ms bound; {applied_recs} "
+            f"records applied in {k1_pre} K1 launches before the "
+            f"promotion; launches {launches}; peak device memory {peak} "
+            f"bytes; {phase_s:.1f} s")
+        return out
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        child_log.close()
+        for f in (fp, leaf, f1):
+            if f is not None:
+                f.close()
+        if relay is not None:
+            relay.close()
+        if mgr is not None:
+            mgr.stop()
+        shutil.rmtree(REPL_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["--crash-child"]:
         return crash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--repl-primary"]:
+        return repl_primary(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -4060,6 +4717,8 @@ def main() -> int:
         res["mesh_vspace"] = phase_mesh_vspace(dev, rng)
         res["mesh_serve"] = phase_mesh_serve(dev, rng, mesh_fleet)
         del mesh_fleet
+        torch.cuda.empty_cache()
+        res["repl"] = phase_repl(dev)
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -4080,7 +4739,7 @@ def main() -> int:
         res["mesh_serve"]["launches"]["hashmap_fused_round"]
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
-        "cnr_rounds", "cnr_serve", "mesh_chain")) + (
+        "cnr_rounds", "cnr_serve", "mesh_chain", "repl")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -4131,6 +4790,22 @@ def main() -> int:
         "launches": sum(res[p]["launches"]["hashmap_fused_round"]
                         for p in ("cnr_rounds", "cnr_serve")),
     }
+    # and a fourth: the follower's applied records (phase 23), one
+    # launch a record at the mean record's window, plus the replicated
+    # flagship's boot replays and the promoted follower's served rounds
+    rp = res["repl"]
+    res["fused"]["max_abs_err"] = max(res["fused"]["max_abs_err"],
+                                      rp["k1_check"]["max_abs_err"])
+    res["fused"]["repl"] = {
+        "R": R, "mean_record": rp["mean_record"],
+        "launches": rp["launches"]["hashmap_fused_round"],
+        "records_applied_before_promotion": rp["applied_records"],
+        "device_ms": rp["k1_device_ms_per_record"],
+        "bound_ms": rp["k1_bound_ms"], "bound_by": rp["k1_bound_by"],
+        "max_abs_err": rp["k1_check"]["max_abs_err"],
+        "ms": rp["k1_check"]["ms"], "plain_ms": rp["k1_check"]["plain_ms"],
+        "checked_device_ms": rp["k1_check"]["device_ms"],
+        "W": rp["k1_check"]["W"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -4160,6 +4835,7 @@ def main() -> int:
         **({"device_ms": p["device_ms"]} if "device_ms" in p else {}),
         **({"served": p["served"]} if "served" in p else {}),
         **({"cnr": p["cnr"]} if "cnr" in p else {}),
+        **({"repl": p["repl"]} if "repl" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

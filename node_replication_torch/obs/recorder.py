@@ -22,6 +22,10 @@ Disabled by default: `emit` is one branch, and `span` yields a shared
 no-op singleton without reading the clock. Enable with
 `NR_TPU_TRACE=<path>` (file), `NR_TPU_TRACE=mem` (in-memory; bound it
 with `NR_TPU_TRACE_RING=<n>`), or `get_tracer().enable(...)`.
+
+Per-record sampling: `NR_TPU_TRACE_SAMPLE=1/N` (or `N`) keeps the
+replication plane's per-record hop events only for positions with
+`pos % N == 0` (`pos_sampled`), the same records in every process.
 """
 
 from __future__ import annotations
@@ -139,6 +143,46 @@ if _env:
 
 def get_tracer() -> Tracer:
     return _tracer
+
+
+def _parse_sample(spec: str | None) -> int:
+    """`"1/N"` or `"N"` -> N (keep one record in N); anything
+    unparsable or < 1 means no sampling (keep all)."""
+    if not spec:
+        return 1
+    s = spec.strip()
+    if "/" in s:
+        s = s.split("/", 1)[1]
+    try:
+        n = int(s)
+    except ValueError:
+        return 1
+    return n if n >= 1 else 1
+
+
+_sample_n = _parse_sample(os.environ.get("NR_TPU_TRACE_SAMPLE"))
+
+
+def trace_sample_n() -> int:
+    """The configured per-record sampling modulus N (1 = keep all)."""
+    return _sample_n
+
+
+def set_trace_sample(n: int) -> None:
+    """Override the sampling modulus at runtime (tests, notebooks)."""
+    global _sample_n
+    _sample_n = max(1, int(n))
+
+
+def pos_sampled(pos: int) -> bool:
+    """Should per-record trace events narrate the record at `pos`?
+
+    Deterministic in the position alone (`pos % N == 0`), so every
+    process in a fleet keeps the SAME records and a sampled record's
+    cross-process hop chain (ship, relay, wire, apply: `repl/`) is
+    complete, never partial. Callers still guard on `tracer.enabled`
+    first; this only thins the per-record firehose."""
+    return _sample_n <= 1 or int(pos) % _sample_n == 0
 
 
 @contextlib.contextmanager

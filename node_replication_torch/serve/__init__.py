@@ -26,6 +26,7 @@ from node_replication_torch.serve.errors import (
     CircuitOpen,
     DeadlineExceeded,
     FrontendClosed,
+    NotPrimary,
     Overloaded,
     ReplicaFailed,
     ServeError,
@@ -54,6 +55,7 @@ __all__ = [
     "FrontendClosed",
     "LagSource",
     "NORMAL",
+    "NotPrimary",
     "OverloadConfig",
     "OverloadGovernor",
     "Overloaded",

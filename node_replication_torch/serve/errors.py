@@ -1,8 +1,7 @@
 """Typed serve-layer errors.
 
 The port's copy of `node_replication_tpu/serve/errors.py`, without
-`NotPrimary` and the shard plane's errors (they come with the ports
-of `repl/` and `shard/`).
+the shard plane's errors (they come with the port of `shard/`).
 
 The serving frontend (`serve/frontend.py`) communicates every
 production edge as a TYPED exception so callers can route on it
@@ -31,6 +30,9 @@ flat under `ServeError`:
   the serving replica's applied position still behind the requested
   bound after the allowed wait. The read had no effect; retry later or
   loosen the bound.
+- `NotPrimary` — a write reached a read-only (follower-mode) frontend
+  (`repl/follower.py`); the op was never admitted, so retrying against
+  the primary is always safe.
 - `CircuitOpen` — the CLIENT-side circuit breaker
   (`serve/client.py:CircuitBreaker`) refused the call before it
   reached the frontend: enough consecutive transient failures opened
@@ -149,6 +151,24 @@ class StaleRead(ServeError):
         self.rid = rid
         self.applied_pos = applied_pos
         self.min_pos = min_pos
+
+
+class NotPrimary(ServeError):
+    """A write reached a read-only (follower-mode) frontend.
+
+    Followers serve bounded-staleness reads only; every write belongs
+    on the primary. A promotion (`ServeFrontend.enable_writes`, driven
+    by `repl/promote.py`) flips the frontend into write serving —
+    until then the op was never admitted and retrying AGAINST THE
+    PRIMARY is always safe.
+    """
+
+    def __init__(self, rid: int):
+        super().__init__(
+            f"replica {rid} is serving read-only (follower mode); "
+            f"route writes to the primary or promote this follower"
+        )
+        self.rid = rid
 
 
 class CircuitOpen(ServeError):

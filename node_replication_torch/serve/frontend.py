@@ -5,12 +5,14 @@ behaves as in the reference but what belongs to modules not ported
 yet: `ServeConfig(obs_port=...)` needs `obs/export.py` and
 `ServeConfig(profile_hz=...)` needs `obs/profile.py`, and the frontend
 raises `NotImplementedError` naming the module when either is set
-(there is no `threads()`, the profiler's role map); the replication
-plane's hooks (follower mode with `read_only`/`enable_writes`, the
-`ack_barrier`, `add_backpressure_source`) come with the port of
-`repl/`. Over a meshed fleet `device_of_rid` maps each served replica
-to its shard's device (`replica_device`), and `stats()["mesh"]` counts
-the replicas per device. On a
+(there is no `threads()`, the profiler's role map). The replication
+plane's hooks are here as in the reference: follower mode
+(`read_only=True`, writes raise `NotPrimary` until `enable_writes()`),
+the `ack_barrier` a `repl/shipper.py:ReplicationShipper` installs for
+ship-before-ack, and `add_backpressure_source`. Over a meshed fleet
+`device_of_rid` maps each served replica to its shard's device
+(`replica_device`), and `stats()["mesh"]` counts the replicas per
+device. On a
 hashmap fleet with the fused tier each combiner round is one kernel
 launch (K1, `csrc/hashmap_replay.cu`), issued on the worker thread's
 current CUDA stream; a future resolves only after `finish_mut_batch`
@@ -102,6 +104,7 @@ from node_replication_torch.obs.metrics import COUNT_BUCKETS, get_registry
 from node_replication_torch.serve.errors import (
     DeadlineExceeded,
     FrontendClosed,
+    NotPrimary,
     Overloaded,
     ReplicaFailed,
     StaleRead,
@@ -694,6 +697,7 @@ class ServeFrontend:
         config: ServeConfig | None = None,
         rids: Sequence[int] | None = None,
         auto_start: bool = True,
+        read_only: bool = False,
     ):
         if not hasattr(nr, "execute_mut_batch"):
             raise TypeError(
@@ -792,6 +796,18 @@ class ServeFrontend:
         self.on_replica_failed: Callable[[int, BaseException], None] | None = None
         #: set by `from_recovery` (durable/recovery.py:RecoveryReport)
         self.recovery_report = None
+        # follower mode (`repl/`): writes reject with NotPrimary until
+        # a promotion flips the frontend via enable_writes()
+        self._read_only = bool(read_only)
+        #: replication ack barrier `fn(durable_pos)` — the `repl/`
+        #: shipper installs `shipper.barrier` here so a durable-ack
+        #: batch resolves only after its records are SHIPPED to the
+        #: follower feed as well as fsynced (ship-before-ack: the
+        #: semi-synchronous mode whose acks survive primary loss
+        #: because a promoted follower provably holds them). A tree
+        #: root extends it with downstream receipt:
+        #: `repl/transport.py:make_tree_barrier(shipper, server)`.
+        self.ack_barrier: Callable[[int], None] | None = None
 
         reg = get_registry()
         self._m_submitted = reg.counter("serve.submitted")
@@ -1171,8 +1187,9 @@ class ServeFrontend:
         """Stage one write op on replica `rid`; returns its future.
         Raises `Overloaded` when the admission queue is full at its
         (possibly adaptive) limit, `FrontendClosed` after `close()`,
-        and (failover mode) `ReplicaFailed` while the replica is down —
-        all BEFORE the op can have any effect.
+        (failover mode) `ReplicaFailed` while the replica is down, and
+        (follower mode) `NotPrimary` while writes are disabled — all
+        BEFORE the op can have any effect.
 
         `priority` (`serve.overload.CRITICAL/NORMAL/BULK`) orders
         shedding, strictly: at a full queue a higher-priority arrival
@@ -1181,6 +1198,10 @@ class ServeFrontend:
         itself, so BULK traffic always sheds first. Deadline-expired
         queued requests are swept out at admission time — a corpse
         never costs a live request its slot."""
+        if self._read_only:
+            # follower mode (`repl/`): no write is ever admitted, so a
+            # rejected caller can safely resubmit against the primary
+            raise NotPrimary(rid)
         if priority not in PRIORITIES:
             raise ValueError(
                 f"unknown priority {priority!r} (CRITICAL=0 NORMAL=1 "
@@ -1269,6 +1290,36 @@ class ServeFrontend:
         """Closed-loop convenience: `submit` + `result`."""
         return self.submit(op, rid, deadline_s,
                            priority=priority).result(timeout)
+
+    def add_backpressure_source(self, name: str, fn, low: int,
+                                high: int) -> None:
+        """Attach a downstream lag feed to the admission controller
+        (`serve/overload.py:LagSource` semantics: no influence below
+        `low`, growth pause between, multiplicative decrease at/above
+        `high`). Raises when the overload plane is off — silently
+        ignoring a backpressure wire would let the backlog it guards
+        grow unbounded."""
+        if self.governor is None:
+            raise ValueError(
+                "backpressure needs the overload plane: construct the "
+                "frontend with ServeConfig(overload=OverloadConfig())"
+            )
+        self.governor.add_source(LagSource(name, fn, low, high))
+
+    @property
+    def read_only(self) -> bool:
+        """True while serving in follower mode (writes rejected)."""
+        return self._read_only
+
+    def enable_writes(self) -> None:
+        """Promotion re-home (`repl/promote.py`): flip a read-only
+        (follower-mode) frontend into write serving. The queues and
+        workers were live all along — only admission changes — so the
+        first write after promotion needs no warm-up. Idempotent."""
+        if not self._read_only:
+            return
+        self._read_only = False
+        get_tracer().emit("serve-enable-writes")
 
     def read(self, op: tuple, rid: int = 0,
              min_pos: int | None = None, wait_s: float = 0.0):
@@ -1519,16 +1570,44 @@ class ServeFrontend:
         and the `serve-batch` trace event. Raises `_ReplicaDown` on a
         barrier failure in failover mode, exactly like the execute
         path (post-append: `maybe_executed=True`)."""
-        if self._durable_sync:
+        barrier = self.ack_barrier
+        if self._durable_sync or barrier is not None:
             # durable-ack barrier (`ServeConfig(durability="batch")`):
             # ONE fsync covers the whole batch; futures resolve only
-            # past it, so an acked response is on disk. A failed fsync
-            # is post-append by definition (the ops are in the log and
-            # WILL replay in-process) — reject with maybe_executed
-            # semantics rather than ack a durability promise the disk
-            # refused.
+            # past it, so an acked response is on disk. With a
+            # replication `ack_barrier` installed (`repl/shipper.py`)
+            # the batch additionally waits until the feed holds its
+            # records (ship-before-ack), so an acked response also
+            # survives PRIMARY loss via promotion. A failed fsync or
+            # ship is post-append by definition (the ops are in the
+            # log and WILL replay in-process) — reject with
+            # maybe_executed semantics rather than ack a durability
+            # promise the disk (or the feed) refused.
             try:
-                self._nr.wal_sync()
+                if self._durable_sync:
+                    durable = self._nr.wal_sync()
+                else:
+                    # barrier without batch-fsync (durability="always"
+                    # keeps durable_tail == tail): gate on the journal
+                    # TAIL, which covers this batch's records — gating
+                    # on durable_tail would let a policy="none" WAL
+                    # ack unshipped ops silently; this way the shipper
+                    # (which ships only fsynced records) times the
+                    # barrier out instead, and the misconfiguration
+                    # is loud
+                    wal = getattr(self._nr, "wal", None)
+                    durable = None if wal is None else wal.tail
+                if barrier is not None:
+                    if durable is None:
+                        # an installed barrier with no journal to gate
+                        # on would otherwise be skipped silently — acks
+                        # would claim replication that never happened
+                        raise RuntimeError(
+                            "ack_barrier installed but no WAL is "
+                            "attached; ship-before-ack needs the "
+                            "journal"
+                        )
+                    barrier(durable)
             except Exception as e:
                 q.batch_done(0, missed, taken)
                 logger.exception(

@@ -88,6 +88,31 @@ def test_serving_path_modules_are_scanned_and_stand_alone():
         assert not _imported_roots(path) & FORBIDDEN, rel
 
 
+REPL_PATH = ("repl/__init__.py", "repl/feed.py", "repl/shipper.py",
+             "repl/follower.py", "repl/promote.py", "repl/transport.py",
+             "repl/relay.py", "obs/recorder.py", "utils/trace.py")
+
+
+def test_repl_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(REPL_PATH) <= files
+    for rel in REPL_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def test_follower_without_a_card_raises(monkeypatch, tmp_path):
+    from node_replication_torch.models import make_seqreg
+    from node_replication_torch.repl import DirectoryFeed, Follower
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feed = DirectoryFeed(str(tmp_path / "feed"))
+    with pytest.raises(NoCudaDeviceError):
+        Follower(make_seqreg(4), feed, str(tmp_path / "f"),
+                 auto_start=False)
+
+
 def test_serving_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     from node_replication_torch.durable import recover_fleet
     from node_replication_torch.models import make_seqreg
