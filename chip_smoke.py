@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card; about 8 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
     python3 chip_smoke.py --repl-primary DIR  # phase 23's primary (internal)
+    python3 chip_smoke.py --txn-child DIR     # phase 25's victim (internal)
 
 Four models, end to end, from numpy seeds, then the serving path, then
 CNR and the other models. The replicated hashmap at the flagship width
@@ -205,9 +206,53 @@ The replication plane (`repl/`):
    read p50/p99 and stale reads, the RTO, acked ops/s after the
    promotion, the leaf's boot, and the phase's peak memory.
 
+The shard plane (`shard/`, `durable/txnlog.py`):
+
+24. the sharded flagship, `bench.py --sharded`'s layout (3 shards) in
+   one process: `ShardGroup(3, make_hashmap(10000), durability="batch",
+   batch_max_ops=256, nr_kwargs=phase 13's fleet, rids=range(8),
+   heartbeat_timeout_s=0.5)`, each shard a primary and a follower on
+   the card. (a) 8 cross-shard `router.execute_batch` calls of 256
+   ops, then 16 closed-loop clients of 250 ops over their own 625 keys
+   through `call_with_retry(group.router, ...)`; (b) at a seeded ack
+   count in the middle of that load shard 1's primary is killed, its
+   `PromotionManager` detects the silence and `group.promote(1)`
+   re-homes the slice under a bumped, re-published map; an op in
+   flight at the kill is resolved by a read on the new home; a submit
+   under the old version to shard 0 is fenced; (c) shard 2 behind a
+   `ShardServer` on 127.0.0.1, one client of 250 ops through a second
+   router whose shard-2 backend is a `SocketShardClient`, a misroute
+   answered as a typed `WrongShard` over the wire, a stale HELLO
+   fenced after a map bump; (d) `ReshardPlan(group, donor=0).split()`
+   under 8 per-key writers (0.5 s warm-up, 1.5 s window), class 3 of 6
+   re-homed onto shard 0's promoted follower; (e) 64 cross-shard
+   transactions of 2-3 PUTs through `group.coordinator()`, and one over
+   a held intent that aborts with zero effect; then a profiled segment
+   after a traced warm-up. Every response equals the client models;
+   each shard's fleet holds only its class until the split; the
+   promoted follower's WAL equals the dead primary's and holds every
+   acked op of the slice once; no moved-key write is lost or applied
+   twice; every shard round and applied record is one K1 launch (the
+   wrapper's count, `stats()` and the registry, leg by leg). Prints
+   acked ops/s (beside phase 13's), per-shard rates, the RTO, the
+   survivors' hold, `fence_s`, txns/s, K1 a shard round against its
+   bound, and the phase's peak memory;
+25. `bench.py --txn`'s SIGKILL matrix on phase 13's fleet (2 shards, no
+   followers, rids 0-7; the bench's fleet is R = 1 over 4096 keys): a
+   child (`--txn-child DIR`) per crash window (`txn-prepare`,
+   `txn-commit`, `txn-decide`) drives 24 cross-shard transactions,
+   fsyncing each acked one, and is SIGKILLed at a seeded hit in their
+   middle half; the parent recovers the group in place on the card
+   (`recover=True`, the WAL replayed through K1), bumps the coordinator
+   epoch, re-drives published commits and resolves every in-doubt
+   intent: every acked transaction visible, every in-doubt one all or
+   nothing by its decision, no transactional write in a WAL twice; then
+   non-transactional throughput with and without `with_txn` in
+   alternating slices (the reference's 0.9 printed beside).
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-23) and read just after; a kernel that its path never launched
+17, 19-25) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -4160,7 +4205,9 @@ def repl_primary(directory: str) -> int:
     return 3
 
 
-def _k1_record_check(dev, counts, mean_record: float) -> dict:
+def _k1_record_check(dev, counts, mean_record: float,
+                     label: str = "phase 23",
+                     shape: str = "the follower's record shape") -> dict:
     """K1 against its plain version at the follower's record shape: R =
     4096 and the window a record of `n` ops gets (the next power of
     two), for each record size in `counts`, from a tail a few entries
@@ -4207,13 +4254,13 @@ def _k1_record_check(dev, counts, mean_record: float) -> dict:
         e = max_abs_err(out_k, out_p)
         if e:
             raise AssertionError(
-                f"phase 23: K1 at a record of {n} disagrees with its plain "
+                f"{label}: K1 at a record of {n} disagrees with its plain "
                 f"version in round {rnd} (fenced={f is not None}): {e}")
         err = max(err, e)
         kern, plain = out_k[:4], out_p[:4]
         tail += n
     if tail <= L:
-        raise AssertionError("phase 23: the record rounds never wrapped")
+        raise AssertionError(f"{label}: the record rounds never wrapped")
     n = max(1, round(mean_record))
     x = (*inputs(n, tail), *kern, K, None)
     ms = cuda_ms(lambda: hashmap_fused_round(*x), reps=10, warmup=2)
@@ -4221,12 +4268,12 @@ def _k1_record_check(dev, counts, mean_record: float) -> dict:
     dt = device_time(lambda: hashmap_fused_round(*x))
     bound_ms, by = bound(k1_round_bytes(R, mean_record),
                          4 * mean_record * R)
-    log(f"phase 23: K1 at the follower's record shape (R={R}, "
+    log(f"{label}: K1 at {shape} (R={R}, "
         f"{len(counts)} records of {min(counts)}-{max(counts)} ops across "
         f"the wrap, fenced and not): bit-identical to its plain version; "
         f"at {n} ops kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
         f"{bound_ms:.4f} ms at the mean record {mean_record:.3f}")
-    log_device("phase 23: K1 at a record", dt)
+    log_device(f"{label}: K1 at a record", dt)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **dt,
             "bound_ms": bound_ms, "bound_by": by, "W": n,
             "records_checked": len(counts)}
@@ -4648,6 +4695,979 @@ def phase_repl(dev) -> dict:
         shutil.rmtree(REPL_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------- the shard plane (`shard/`)
+
+SHARD_DIR = Path(__file__).resolve().parent / ".chip_smoke_shard"
+TXN_DIR = Path(__file__).resolve().parent / ".chip_smoke_txn"
+SH_N = 3              # `bench.py --sharded-shards`'s default
+SH_HB_TIMEOUT = 0.5   # `--sharded-heartbeat-timeout`'s default, s
+SH_HOLD_MIN = 0.9     # `--sharded-hold-min`: printed beside, not a gate
+SH_VICTIM = 1         # the shard whose primary is killed
+SH_PER = 250          # ops a client
+SH_BATCHES, SH_BATCH = 8, 256   # cross-shard router batches
+SH_PROFILED = 16      # ops a client in the profiled segment
+SH_FENCE = -7         # a value only the fences' refused writes carry
+RS_KEYS = (0, 3, 6, 9, 1, 2, 4, 5)   # `--reshard-clients` 8 writers
+RS_WARMUP, RS_WINDOW = 0.5, 1.5      # `--reshard-warmup`, `-window`, s
+RS_UNAVAIL_MAX = 5.0  # `--reshard-unavail-max`: printed beside
+TX_COUNT = 64         # phase 24's transactions
+TX_VAL_BASE = 1_000_000   # `bench.py`'s `_TXN_VAL_BASE`
+TX_KEY0 = 1000        # phase 24's transactions write keys from here
+TX_SITES = ("txn-prepare", "txn-commit", "txn-decide")
+TX_CHILD_TXNS = 24    # `--txn-count`'s default
+# fault hook hits per transaction of 2 shards (`bench.py --txn`)
+TX_HITS = {"txn-prepare": 4, "txn-commit": 2, "txn-decide": 1}
+TX_PARITY_S, TX_PARITY_MIN = 1.5, 0.9   # `--txn-parity-seconds`, `-min`
+
+
+def sh_client_ops(rng, c: int, n: int) -> list[tuple]:
+    """Client c's ops over its own 625 keys as `hm_client_ops`, with
+    each key its own slot (`k % K == k`): the shard map routes a key by
+    `k % N`, so two keys of one slot could land on two shards."""
+    slots = c * SV_SLICE + rng.integers(0, SV_SLICE, n)
+    kinds = rng.integers(1, 3, n)
+    vals = rng.integers(1, 1 << 31, n)
+    return [(1, int(k), int(v)) if o == 1 else (2, int(k))
+            for o, k, v in zip(kinds, slots, vals)]
+
+
+def _padded(op) -> tuple:
+    """An op as a WAL record holds it: args zero-padded to width 3."""
+    return tuple(op) + (0,) * (4 - len(op))
+
+
+def check_classes(nr, classes, n: int, models, label: str,
+                  others_absent: bool) -> None:
+    """A shard's fleet: replicas equal, every key of `classes` (mod
+    `n`) equal to the models and, with `others_absent`, every other key
+    absent."""
+    nr.sync()
+    if not nr.replicas_equal():
+        raise AssertionError(f"{label}: replicas differ")
+    values, present = model_planes(models)
+    mine = np.isin(np.arange(K) % n, list(classes))
+    got_v = nr.states["values"][0].cpu().numpy()
+    got_p = nr.states["present"][0].cpu().numpy()
+    if not (np.array_equal(got_p[mine], present[mine]) and np.array_equal(
+            np.where(present, got_v, 0)[mine],
+            np.where(present, values, 0)[mine])):
+        raise AssertionError(f"{label}: its classes differ from the models")
+    if others_absent and got_p[~mine].any():
+        raise AssertionError(f"{label}: holds {int(got_p[~mine].sum())} "
+                             f"keys of other classes")
+
+
+def _match_history(expect, wal_ops, label: str) -> None:
+    """A client's ops on one shard against that shard's WAL ops of the
+    client's keys, in order: every acked op once, an in-doubt op once
+    or never, nothing else (a match over both sequences: an in-doubt
+    op may equal the acked op after it)."""
+    n, m = len(expect), len(wal_ops)
+    want = [_padded(op) for op, _ in expect]
+    # ok[j]: expect[i:] matches wal_ops[j:], row i computed from i + 1
+    ok = [False] * m + [True]
+    for i in range(n - 1, -1, -1):
+        doubt = expect[i][1] == "doubt"
+        ok = [(doubt and ok[j]) or (j < m and want[i] == wal_ops[j]
+                                    and ok[j + 1]) for j in range(m + 1)]
+    if not ok[0]:
+        acked = [op for op, st in expect if st == "acked"]
+        raise AssertionError(f"{label}: its {len(acked)} acked ops (and "
+                             f"{n - len(acked)} in doubt) are not its "
+                             f"{m} WAL ops in order, once each")
+
+
+def phase_shard(dev, rng, serve13) -> dict:
+    """Phase 24: the keyspace-sharded flagship, `bench.py --sharded`'s
+    layout (3 shards) with each shard phase 13's fleet and a follower,
+    in one process on one card: routed closed-loop load with a kill and
+    promotion of shard 1's primary in the middle of it, the socket
+    path, an online split of class 0 under per-key writers, and
+    cross-shard 2PC over the refined map. Every check is exact."""
+    import random
+    import shutil
+    import threading
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from node_replication_torch.fault.health import QUARANTINED
+    from node_replication_torch.models import HM_GET, make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import (
+        RetryPolicy,
+        ServeConfig,
+        ShardUnavailable,
+        TxnAborted,
+        WrongShard,
+        call_with_retry,
+    )
+    from node_replication_torch.shard import (
+        LocalBackend,
+        ReshardPlan,
+        ShardGroup,
+        ShardRouter,
+        ShardServer,
+        SocketShardClient,
+    )
+
+    reg = get_registry()
+    reg.enable()
+    counters = ("nr.exec.engine.pallas_fused", "nr.exec.engine.fused_fallback",
+                "serve.batches", "repl.applied_records",
+                "serve.retry.shard_unavailable", "serve.retry.wrong_shard",
+                "serve.retry.txn_conflict")
+    count = lambda: {n: reg.counter(n).value for n in counters}  # noqa: E731
+    retry = RetryPolicy(max_attempts=4000, base_backoff_s=0.002,
+                        max_backoff_s=0.05)
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    g = server = router2 = None
+    threads: list = []
+    stop = threading.Event()
+    out: dict = {}
+    try:
+        g = ShardGroup(SH_N, make_hashmap(K), str(SHARD_DIR),
+                       config=ServeConfig(durability="batch",
+                                          batch_max_ops=256),
+                       nr_kwargs=_crash_fleet_kwargs(dev),
+                       rids=range(SV_RIDS),
+                       heartbeat_timeout_s=SH_HB_TIMEOUT)
+        out["build_s"] = time.perf_counter() - t_phase
+        fleets = [p.nr for p in g.primaries] + \
+            [p.follower.nr for p in g.primaries]
+
+        def totals():
+            st = [nr.stats() for nr in fleets]
+            return {k: sum(s[k] for s in st)
+                    for k in ("fused_rounds", "exec_rounds")}
+
+        def settle():
+            # every standby holds its primary's journal: the counts
+            # below then cover each shipped record's apply
+            for p in g.primaries:
+                f = p.follower
+                if f is not None and not f.promoted and not p._primary_dead:
+                    if not f.wait_applied(p.wal.tail, timeout=120):
+                        raise AssertionError(
+                            f"phase 24: shard {p.shard}'s follower stopped "
+                            f"at {f.applied_pos()} of {p.wal.tail}: "
+                            f"{f.error!r}")
+
+        def snap():
+            settle()
+            return count(), FUSED_KERNEL.launches, totals()
+
+        def k1_leg(label, s0, refused=0):
+            # `refused`: ops whose round ran on the killed primary but
+            # whose acks its stopped shipper refused (in doubt); such a
+            # round launched K1 and counts in no frontend's batches
+            c0, l0, t0 = s0
+            c1, l1, t1 = snap()
+            d = {n: c1[n] - c0[n] for n in counters}
+            leg = {"k1_launches": l1 - l0,
+                   "fused_rounds": t1["fused_rounds"] - t0["fused_rounds"],
+                   "exec_rounds": t1["exec_rounds"] - t0["exec_rounds"],
+                   "rounds": d["serve.batches"],
+                   "applied_records": d["repl.applied_records"],
+                   "fused": d["nr.exec.engine.pallas_fused"],
+                   "fallback": d["nr.exec.engine.fused_fallback"],
+                   "retries": {n.rsplit(".", 1)[1]: d[n] for n in counters
+                               if n.startswith("serve.retry")}}
+            leg["refused_rounds"] = (leg["k1_launches"] - leg["rounds"]
+                                     - leg["applied_records"])
+            if not (leg["k1_launches"] == leg["fused_rounds"] == leg["fused"]
+                    > 0 and 0 <= leg["refused_rounds"] <= refused
+                    and leg["fallback"] == 0 and leg["exec_rounds"] == 0):
+                raise AssertionError(f"phase 24 {label}: not every shard "
+                                     f"round and applied record was one K1 "
+                                     f"launch: {leg}")
+            return leg
+
+        # (a) routed load: 8 cross-shard batches, then 16 clients
+        s_a = snap()
+        batch_log = []
+        t0 = time.perf_counter()
+        for _ in range(SH_BATCHES):
+            bops = sh_client_ops(rng, 0, SH_BATCH)
+            slots = rng.integers(0, K, SH_BATCH)
+            bops = [(op[0], int(k)) + op[2:] for op, k in zip(bops, slots)]
+            resp = g.router.execute_batch(bops, timeout=300.0)
+            for op, r in zip(bops, resp):
+                want = models[op[1] // SV_SLICE].apply(op)
+                if int(r) != want:
+                    raise AssertionError(f"phase 24: batch op {op} answered "
+                                         f"{r}, model {want}")
+            batch_log.extend(bops)
+        out["batches_s"] = time.perf_counter() - t0
+
+        ops = [sh_client_ops(rng, c, SH_PER) for c in range(SV_CLIENTS)]
+        total = SV_CLIENTS * SH_PER
+        kill_at = int(np.random.default_rng(SEED + 24).integers(
+            total // 2 - 200, total // 2 + 201))
+        lock = threading.Lock()
+        acks, lat, errors, doubts = [], [], [], []
+        hist = [[] for _ in range(SV_CLIENTS)]   # (op, "acked"|"doubt")
+        finished = [None] * SV_CLIENTS
+        killed, promoted = threading.Event(), threading.Event()
+
+        def client(c):
+            crng = random.Random(SEED + 240 + c)
+            rid = c % SV_RIDS
+            for i, op in enumerate(ops[c]):
+                s = op[1] % SH_N
+                t0 = time.perf_counter()
+                try:
+                    resp = call_with_retry(g.router, op, rid=rid,
+                                           policy=retry, rng=crng,
+                                           timeout=300.0, deadline_s=120.0)
+                except Exception as e:  # noqa: BLE001 - classified below
+                    doubt = (s == SH_VICTIM and killed.is_set() and not (
+                        isinstance(e, ShardUnavailable)
+                        and not e.maybe_executed))
+                    if not doubt or not promoted.wait(120):
+                        with lock:
+                            errors.append(f"client {c} op {i} {op}: "
+                                          f"{type(e).__name__}: {e}")
+                        return
+                    # the op's round reached the victim's log or not:
+                    # its new home answers which
+                    got = g.primaries[SH_VICTIM].live_frontend.read(
+                        (HM_GET, op[1]), rid=rid)
+                    before = models[c].vals.get(op[1], -1)
+                    applied = got == (op[2] if op[0] == 1 else -1)
+                    if not (applied or got == before):
+                        with lock:
+                            errors.append(f"client {c} op {i} {op} in "
+                                          f"doubt reads {got}, acked {before}")
+                        return
+                    if applied:
+                        models[c].apply(op)
+                    with lock:
+                        hist[c].append((op, "doubt"))
+                        doubts.append(f"client {c} op {i}: "
+                                      f"{type(e).__name__}")
+                    continue
+                want = models[c].apply(op)
+                now = time.perf_counter()
+                if resp != want:
+                    with lock:
+                        errors.append(f"client {c} op {i} {op}: {resp}, "
+                                      f"model {want}")
+                    return
+                with lock:
+                    acks.append((now, s))
+                    lat.append(now - t0)
+                    hist[c].append((op, "acked"))
+            finished[c] = time.perf_counter()
+
+        p1 = g.primaries[SH_VICTIM]
+        mgr = p1.manager
+        threads = [threading.Thread(target=client, args=(c,),
+                                    name=f"chip-shard-client-{c}")
+                   for c in range(SV_CLIENTS)]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        t_kill = t_prom = detect_s = report = None
+        t_end = t_load + 600
+        while True:
+            state = mgr.check()
+            now = time.perf_counter()
+            with lock:
+                n_acked = len(acks)
+            if t_kill is None and n_acked >= kill_at:
+                killed.set()
+                g.kill_primary(SH_VICTIM)
+                t_kill = time.perf_counter()
+            elif t_kill is not None and state == QUARANTINED:
+                detect_s = now - t_kill
+                report = g.promote(SH_VICTIM, detect_s=detect_s)
+                t_prom = time.perf_counter()
+                promoted.set()
+                break
+            if now > t_end or (t_kill is None and not any(
+                    t.is_alive() for t in threads)):
+                raise AssertionError(f"phase 24: {n_acked} acks, kill at "
+                                     f"{kill_at}, killed {t_kill is not None}"
+                                     f", state {state}; {errors[:3]}")
+            time.sleep(0.03)
+        # a survivor fences a submit under the old map version
+        old = g.map.version - 1
+        try:
+            g.router.backend(0).submit_batch([(1, 0, SH_FENCE)], old)
+            raise AssertionError("phase 24: shard 0 took a submit under the "
+                                 "old map version")
+        except WrongShard as e:
+            if e.peer_version != old or e.map_version != g.map.version:
+                raise AssertionError(f"phase 24: the stale submit's fence "
+                                     f"says {e}")
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("phase 24: a client thread hung")
+        threads = []
+        t_done = time.perf_counter()
+        if errors:
+            raise AssertionError(f"phase 24: {errors[:5]}")
+        if len(acks) + len(doubts) != total:
+            raise AssertionError(f"phase 24: {len(acks)} acks and "
+                                 f"{len(doubts)} in doubt of {total}")
+        leg_ab = k1_leg("routed load and failover", s_a, len(doubts))
+
+        # the victim's history: the promoted follower's WAL equals the
+        # dead primary's below the promotion point, and holds every
+        # acked op of the slice once, in each client's order
+        fol = p1.follower
+        frecs = list(fol.nr.wal.records(0))
+        pos = _chained(frecs, "phase 24: the promoted follower's")
+        drecs = [r for r in p1.wal.records(0) if r.pos < report.applied_pos]
+        if [(r.pos, r.count, r.opcodes.tobytes(), r.args.tobytes())
+                for r in drecs] != [
+                (r.pos, r.count, r.opcodes.tobytes(), r.args.tobytes())
+                for r in frecs if r.pos < report.applied_pos]:
+            raise AssertionError("phase 24: the promoted follower's WAL "
+                                 "differs from the dead primary's below "
+                                 f"{report.applied_pos}")
+        wal_ops = [[] for _ in range(SV_CLIENTS)]
+        for rec in frecs:
+            for op in rec.ops():
+                if op[1] % SH_N != SH_VICTIM:
+                    raise AssertionError(f"phase 24: shard {SH_VICTIM}'s WAL "
+                                         f"holds {op}, of another class")
+                wal_ops[op[1] // SV_SLICE].append(tuple(op))
+        for c in range(SV_CLIENTS):
+            expect = [(op, "acked") for op in batch_log
+                      if op[1] // SV_SLICE == c and op[1] % SH_N == SH_VICTIM]
+            expect += [h for h in hist[c] if h[0][1] % SH_N == SH_VICTIM]
+            _match_history(expect, wal_ops[c], f"phase 24 client {c}")
+        for s, p in enumerate(g.primaries):
+            check_classes(p.live_frontend.nr, (s,), SH_N, models,
+                          f"phase 24 shard {s}", others_absent=True)
+            if not p.follower.promoted:
+                check_classes(p.follower.nr, (s,), SH_N, models,
+                              f"phase 24 shard {s}'s follower",
+                              others_absent=True)
+
+        def rate(t0, t1, shards):
+            n = sum(1 for t, s in acks if t0 <= t < t1 and s in shards)
+            return n / (t1 - t0) if t1 > t0 else None
+
+        t_first = min(t for t, _ in acks)
+        t_post = min(finished)
+        surv = tuple(s for s in range(SH_N) if s != SH_VICTIM)
+        pre = rate(t_first, t_kill, surv)
+        post = rate(t_kill, t_post, surv)
+        lat_ms = np.asarray(lat) * 1e3
+        load = {
+            "ops": total, "acked": len(acks), "in_doubt": len(doubts),
+            "doubts": doubts[:8], "kill_at": kill_at,
+            "wall_s": t_done - t_load,
+            "acked_ops_per_s": len(acks) / (t_done - t_load),
+            "pre_kill_ops_per_s": rate(t_first, t_kill, range(SH_N)),
+            "per_shard_pre_kill": [rate(t_first, t_kill, (s,))
+                                   for s in range(SH_N)],
+            "survivors_pre_ops_per_s": pre, "survivors_post_ops_per_s": post,
+            "survivor_hold": post / pre if pre and post else None,
+            "post_window_s": t_post - t_kill,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "rto_s": report.rto_s, "detect_s": detect_s,
+            "promote_s": report.promote_s,
+            "kill_to_serving_s": t_prom - t_kill,
+            "drained_records": report.drained_records,
+            "promoted_at": report.applied_pos, "victim_wal_end": pos,
+            "k1": leg_ab}
+        out["load"] = load
+        log(f"phase 24: sharded flagship, {SH_N} shards x (R={R} K={K} "
+            f"ring 2^16 primary + follower, rids {SV_RIDS}): {SH_BATCHES} "
+            f"cross-shard batches of {SH_BATCH} in {out['batches_s']:.2f} s, "
+            f"then {SV_CLIENTS} clients x {SH_PER} ops: {len(acks)} acked, "
+            f"{len(doubts)} in doubt at the kill (resolved by a read on the "
+            f"new home), every response equal to the client models; "
+            f"{load['acked_ops_per_s']:.1f} acked ops/s over the run "
+            f"({load['pre_kill_ops_per_s']:.1f} before the kill: per shard "
+            + ", ".join(f"{x:.1f}" for x in load["per_shard_pre_kill"])
+            + f"; phase 13 depth 0 {serve13['depth0']['acked_ops_per_s']:.1f}"
+            f" in this run), p50 {load['p50_ms']:.3f} ms, p99 "
+            f"{load['p99_ms']:.3f} ms; {leg_ab['rounds']} shard rounds and "
+            f"{leg_ab['applied_records']} applied records, "
+            f"{leg_ab['k1_launches']} K1 launches (wrapper count = stats() "
+            f"fused rounds = registry), 0 chain rounds")
+        log(f"phase 24: shard {SH_VICTIM}'s primary killed at {kill_at} acks;"
+            f" RTO {report.rto_s:.3f} s (detect {detect_s:.3f} + promote "
+            f"{report.promote_s:.3f}, {report.drained_records} drained; "
+            f"{load['kill_to_serving_s']:.3f} s from the kill); shards "
+            f"{surv} {pre:.1f} acked ops/s before the kill, "
+            f"{post:.1f} from the kill through the post window "
+            f"({load['post_window_s']:.2f} s): hold "
+            f"{load['survivor_hold']:.3f} (the reference's --sharded-hold-min"
+            f" {SH_HOLD_MIN}, not a gate here: one process and one stream for "
+            f"all shards); retries {leg_ab['retries']}; the promoted WAL "
+            f"equals the dead primary's below {report.applied_pos} and holds "
+            f"every acked op once; each shard's fleet holds only its class; "
+            f"a stale-version submit to shard 0 was fenced")
+
+        # (c) the socket path: shard 2 behind a ShardServer
+        s_c = snap()
+        p2 = g.primaries[2]
+        server = ShardServer(2, p2.live_frontend, g.map, host="127.0.0.1",
+                             port=0, name="chip")
+        backends = {s: LocalBackend(s, g.primaries[s].live_frontend, g.map)
+                    for s in range(SH_N) if s != 2}
+        backends[2] = SocketShardClient(2, (server.host, server.port),
+                                        g.map.version)
+        router2 = ShardRouter(g.map, backends, map_path=str(SHARD_DIR))
+        cops = sh_client_ops(rng, 0, SH_PER)
+        t0 = time.perf_counter()
+        for i, op in enumerate(cops):
+            resp = call_with_retry(router2, op, rid=0, policy=retry,
+                                   timeout=300.0)
+            want = models[0].apply(op)
+            if resp != want:
+                raise AssertionError(f"phase 24 socket: op {i} {op}: {resp}, "
+                                     f"model {want}")
+        sock_s = time.perf_counter() - t0
+        n_wire = sum(1 for op in cops if op[1] % SH_N == 2)
+        try:
+            backends[2].submit_batch([(1, 1, SH_FENCE)], g.map.version)
+            raise AssertionError("phase 24: shard 2's server took key 1")
+        except WrongShard as e:
+            if (e.key, e.shard, e.expected_shard) != (1, 2, 1):
+                raise AssertionError(f"phase 24: the misroute says {e}")
+        server.set_map(g.map.with_address(2, (server.host, server.port)))
+        stale = SocketShardClient(2, (server.host, server.port),
+                                  g.map.version)
+        try:
+            stale.submit_batch([(1, 2, SH_FENCE)], g.map.version)
+            raise AssertionError("phase 24: a stale HELLO was not fenced")
+        except WrongShard as e:
+            if e.peer_version != g.map.version:
+                raise AssertionError(f"phase 24: the stale HELLO says {e}")
+        finally:
+            stale.close()
+        router2.close()
+        server.close()
+        router2 = server = None
+        leg_c = k1_leg("socket path", s_c)
+        out["socket"] = {"ops": SH_PER, "over_the_wire": n_wire,
+                         "seconds": sock_s, "ops_per_s": SH_PER / sock_s,
+                         "k1": leg_c}
+        log(f"phase 24: socket path: {SH_PER} ops of one client through a "
+            f"second router ({n_wire} to shard 2 over ShardServer on "
+            f"127.0.0.1) in {sock_s:.2f} s ({SH_PER / sock_s:.1f} ops/s), "
+            f"every response equal to the model; a misrouted op came back "
+            f"as a typed WrongShard, and a HELLO under the stale version was "
+            f"fenced after the server's map bump")
+
+        # (d) online split of class 0 under 8 per-key writers
+        s_d = snap()
+        p0 = g.primaries[0]
+        recipient = p0.follower
+        f_recip0 = recipient.nr.stats()["fused_rounds"]
+        tail0 = p0.wal.tail
+        wacked = {k: 0 for k in RS_KEYS}
+        wt = {k: [] for k in RS_KEYS}
+        werrs = []
+
+        def writer(k):
+            v = 0
+            while not stop.is_set():
+                v += 1
+                try:
+                    call_with_retry(g.router, (1, k, v), rid=k % SV_RIDS,
+                                    policy=retry, deadline_s=30.0,
+                                    timeout=60.0)
+                except Exception as e:  # noqa: BLE001 - reported
+                    werrs.append(f"key {k} value {v}: "
+                                 f"{type(e).__name__}: {e}")
+                    return
+                wacked[k] = v
+                wt[k].append(time.perf_counter())
+                time.sleep(0.001)
+
+        threads = [threading.Thread(target=writer, args=(k,),
+                                    name=f"chip-reshard-w{k}")
+                   for k in RS_KEYS]
+        for t in threads:
+            t.start()
+        time.sleep(RS_WARMUP)
+        plan = ReshardPlan(g, donor=0)
+        t_split = time.perf_counter()
+        rep = plan.split(catchup_timeout_s=60.0, drain_timeout_s=60.0)
+        time.sleep(RS_WINDOW)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("phase 24: a split writer hung")
+        threads = []
+        t_end_d = time.perf_counter()
+        if werrs:
+            raise AssertionError(f"phase 24 split: {werrs[:3]}")
+        if not (g.map.n_shards == 2 * SH_N and rep.moved == SH_N
+                and rep.new_version == rep.old_version + 1):
+            raise AssertionError(f"phase 24: the split gave {rep}, map "
+                                 f"{g.map}")
+        moved = [k for k in RS_KEYS if k % (2 * SH_N) == SH_N]
+        for k in RS_KEYS:
+            models[k // SV_SLICE].vals[k] = wacked[k]
+
+        def home(k):
+            s = g.map.shard_of(k)
+            return (recipient.frontend if s == rep.moved
+                    else g.primaries[s % SH_N].live_frontend)
+
+        for k in RS_KEYS:
+            got = home(k).read((HM_GET, k))
+            if got != wacked[k]:
+                raise AssertionError(f"phase 24 split: key {k} reads {got}, "
+                                     f"last acked {wacked[k]}")
+
+        def seq(wal, keys):
+            out_ = {}
+            for rec in wal.records(wal.base):
+                if rec.pos < tail0:
+                    continue
+                for op in rec.ops():
+                    if op[0] == 1 and op[1] in keys:
+                        out_.setdefault(op[1], []).append(op[2])
+            return out_
+
+        dseq, rseq = seq(p0.wal, moved), seq(recipient.nr.wal, moved)
+        for k in moved:
+            rs = rseq.get(k, [])
+            if any(b <= a for a, b in zip(rs, rs[1:])):
+                raise AssertionError(f"phase 24 split: moved key {k} applied "
+                                     f"out of order or twice: {rs[:20]}")
+            if set(dseq.get(k, [])) - set(rs):
+                raise AssertionError(f"phase 24 split: moved key {k}'s donor "
+                                     f"writes never reached the recipient")
+        unavail = 0.0
+        for k in moved:
+            prev = [t for t in wt[k] if t <= t_split]
+            post_t = [t for t in wt[k] if t > t_split]
+            anchor = prev[-1] if prev else t_split
+            gaps = ([post_t[0] - anchor]
+                    + [b - a for a, b in zip(post_t, post_t[1:])]
+                    if post_t else [t_end_d - anchor])
+            unavail = max(unavail, max(gaps))
+        recip_rounds = recipient.nr.stats()["fused_rounds"] - f_recip0
+        if recip_rounds <= 0:
+            raise AssertionError("phase 24: the recipient served no K1 round")
+        leg_d = k1_leg("split", s_d)
+        out["split"] = {"report": rep.as_dict(), "moved_keys": moved,
+                        "writes": sum(map(len, wt.values())),
+                        "moved_writes": sum(len(v) for v in rseq.values()),
+                        "moved_unavail_s": unavail,
+                        "recipient_k1_rounds": recip_rounds, "k1": leg_d}
+        log(f"phase 24: online split of class 0 under {len(RS_KEYS)} per-key "
+            f"writers ({RS_WARMUP} s warm-up, {RS_WINDOW} s window): map "
+            f"{SH_N} -> {g.map.n_shards} classes (v{rep.old_version} -> "
+            f"v{rep.new_version}), class {rep.moved} re-homed onto shard 0's "
+            f"promoted follower ({recip_rounds} K1 rounds there); catch-up "
+            f"{rep.catchup_s:.3f} s, fence {rep.fence_s:.3f} s (the "
+            f"reference's --reshard-unavail-max {RS_UNAVAIL_MAX} s, not a "
+            f"gate), {rep.drained_records} drained, worst moved-key gap "
+            f"{unavail:.3f} s; {out['split']['writes']} acked writes, none "
+            f"lost, moved keys {moved} applied once each and in order")
+
+        # (e) presumed-abort 2PC over the refined map
+        s_e = snap()
+        coord = g.coordinator()
+        k = TX_KEY0
+        t0 = time.perf_counter()
+        for i in range(TX_COUNT):
+            tops = [(1, k, TX_VAL_BASE + k), (1, k + 1, TX_VAL_BASE + k + 1)]
+            if i % 3 == 0:
+                tops.append((1, k + 2, TX_VAL_BASE + k + 2))
+            k += len(tops)
+            got = coord.execute_txn(tops, timeout=300.0)
+            if got != [0] * len(tops):
+                raise AssertionError(f"phase 24 txn {i}: {got}")
+            for op in tops:
+                models[op[1] // SV_SLICE].apply(op)
+        tx_s = time.perf_counter() - t0
+        decided = [d for d in g.decisions.decisions()
+                   if d["outcome"] == "commit"]
+        if len(decided) != TX_COUNT:
+            raise AssertionError(f"phase 24: {len(decided)} commit decisions "
+                                 f"for {TX_COUNT} transactions")
+        for key in range(TX_KEY0, k):
+            got = home(key).read((HM_GET, key))
+            if got != TX_VAL_BASE + key:
+                raise AssertionError(f"phase 24: committed key {key} reads "
+                                     f"{got}")
+        x, y = k, k + 1
+        sx = g.map.shard_of(x)
+        before = [home(x).read((HM_GET, x)), home(y).read((HM_GET, y))]
+        foreign = f"foreign.g{coord.gen}.1"
+        g.router.txn_call(sx, "prepare", foreign, coord.gen,
+                          ops=[(1, x, SH_FENCE)])
+        try:
+            coord.execute_txn([(1, x, TX_VAL_BASE), (1, y, TX_VAL_BASE)],
+                              timeout=300.0)
+            raise AssertionError("phase 24: a txn over a held intent "
+                                 "committed")
+        except TxnAborted as e:
+            aborted = e.txn
+        g.router.txn_call(sx, "abort", foreign, coord.gen)
+        after = [home(x).read((HM_GET, x)), home(y).read((HM_GET, y))]
+        if after != before or g.decisions.outcome(aborted) != "abort":
+            raise AssertionError(f"phase 24: the aborted txn left {before} -> "
+                                 f"{after}, decision "
+                                 f"{g.decisions.outcome(aborted)}")
+        leg_e = k1_leg("2PC", s_e)
+        out["txn"] = {"txns": TX_COUNT, "seconds": tx_s,
+                      "txns_per_s": TX_COUNT / tx_s, "keys": k - TX_KEY0,
+                      "aborted": aborted, "k1": leg_e}
+        log(f"phase 24: 2PC over the {g.map.n_shards}-class map: {TX_COUNT} "
+            f"cross-shard transactions of 2-3 PUTs ({k - TX_KEY0} keys), "
+            f"each visible on read-back, {TX_COUNT / tx_s:.1f} txns/s; a "
+            f"transaction over a held intent aborted ({aborted}) with zero "
+            f"effect")
+
+        # a profiled segment of shard rounds after a traced warm-up
+        s_p = snap()
+        pops = [sh_client_ops(rng, c, 2 * SH_PROFILED)
+                for c in range(SV_CLIENTS)]
+
+        def run_segment(lo, hi):
+            def one(c):
+                for op in pops[c][lo:hi]:
+                    resp = call_with_retry(g.router, op, rid=c % SV_RIDS,
+                                           policy=retry, timeout=300.0)
+                    if resp != models[c].apply(op):
+                        errors.append(f"profiled client {c} {op}: {resp}")
+                        return
+            ts = [threading.Thread(target=one, args=(c,),
+                                   name=f"chip-shard-prof-{c}")
+                  for c in range(SV_CLIENTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=300)
+            if errors or any(t.is_alive() for t in ts):
+                raise AssertionError(f"phase 24 profiled: {errors[:3]}")
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            run_segment(0, SH_PROFILED)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.05)
+            c0 = count()
+            l0 = FUSED_KERNEL.launches
+            t0 = time.perf_counter()
+            run_segment(SH_PROFILED, 2 * SH_PROFILED)
+            torch.cuda.synchronize()
+            seg_s = time.perf_counter() - t0
+            c1 = count()
+            l1 = FUSED_KERNEL.launches
+        leg_p = k1_leg("profiled segment", s_p)
+        rounds = c1["serve.batches"] - c0["serve.batches"]
+        seg_k1 = l1 - l0
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        k1_ev = [e for e in ev if "hashmap_round" in e.key]
+        k1_n = sum(e.count for e in k1_ev)
+        k1_ms = (sum(e.self_device_time_total for e in k1_ev) / 1e3 / k1_n
+                 if k1_n else None)
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        mean_batch = SV_CLIENTS * SH_PROFILED / max(1, rounds)
+        k1_bound_ms, k1_by = bound(k1_round_bytes(R, mean_batch),
+                                   4 * mean_batch * R)
+        out["profiled"] = {
+            "ops": SV_CLIENTS * SH_PROFILED, "rounds": rounds,
+            "k1_launches": seg_k1, "k1_profiled": k1_n,
+            "mean_batch": mean_batch, "k1_device_ms": k1_ms,
+            "device_ms_per_k1": dev_ms / seg_k1 if seg_k1 and dev_ms
+            else None,
+            "wall_ms_per_round": seg_s * 1e3 / max(1, rounds),
+            "k1_bound_ms": k1_bound_ms, "k1_bound_by": k1_by,
+            "kernels": [{"name": e.key[:60], "count": e.count,
+                         "ms": e.self_device_time_total / 1e3}
+                        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]],
+            "k1": leg_p}
+        log(f"phase 24: profiled segment ({SV_CLIENTS} clients x "
+            f"{SH_PROFILED} ops after a traced warm-up): {rounds} shard rounds "
+            f"(mean batch {mean_batch:.2f}), {seg_k1} K1 launches with the "
+            f"standby's applies, {k1_n} seen by the profiler; K1 "
+            + (f"{k1_ms:.4f} ms of device a launch" if k1_ms
+               else "not measured")
+            + f" against a {k1_bound_ms:.4f} ms bound at the mean batch; "
+            f"{out['profiled']['wall_ms_per_round']:.3f} ms of host wall a "
+            f"round")
+
+        # the fleets after every leg: each live fleet's classes equal the
+        # models; no refused write reached any journal
+        n2 = g.map.n_shards
+        check_classes(recipient.nr, (rep.moved,), n2, models,
+                      "phase 24 recipient", others_absent=False)
+        for s, p in enumerate(g.primaries):
+            classes = (s,) if s == 0 else (s, s + SH_N)
+            check_classes(p.live_frontend.nr, classes, n2, models,
+                          f"phase 24 shard {s} after the split",
+                          others_absent=False)
+        wals = [p.wal for p in g.primaries] + [
+            p.follower.nr.wal for p in g.primaries if p.follower is not None]
+        wals += [recipient.nr.wal]
+        for wal in wals:
+            for rec in wal.records(wal.base):
+                if (rec.args[:, 1] == SH_FENCE).any():
+                    raise AssertionError("phase 24: a fenced write reached "
+                                         "a journal")
+        # the profiled segment's rounds, as shard 2's last records
+        sizes = [r.count for r in list(g.primaries[2].wal.records(
+            g.primaries[2].wal.base))[-8:]]
+        launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                    "hashmap_fused_round": FUSED_KERNEL.launches}
+        k1chk = _k1_record_check(dev, sizes + [max(sizes)] * 2, mean_batch,
+                                 label="phase 24",
+                                 shape="the sharded rounds' batches")
+        out.update(launches=launches, k1_check=k1chk,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   seconds=time.perf_counter() - t_phase)
+        log(f"phase 24: K1 bit-identical to its plain version at the sharded "
+            f"rounds' batches; launches {launches}; peak device memory "
+            f"{out['peak_mem_bytes']} bytes; {out['seconds']:.1f} s")
+        return out
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        for x in (router2, server):
+            if x is not None:
+                x.close()
+        if g is not None:
+            g.close()
+        torch.cuda.empty_cache()
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+
+
+def _txn_group(base: str, dev, recover: bool = False,
+               with_txn: bool = True):
+    """`bench.py --txn`'s `_txn_group` (2 shards, no followers, a
+    sequential router) with phase 13's fleet a shard."""
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.shard import ShardGroup
+
+    return ShardGroup(2, make_hashmap(K), base,
+                      nr_kwargs=_crash_fleet_kwargs(dev),
+                      with_followers=False, with_txn=with_txn,
+                      recover=recover, concurrent_router=False,
+                      rids=range(SV_RIDS))
+
+
+def txn_child(directory: str) -> int:
+    """`--txn-child DIR`: one kill round's victim. Builds `_txn_group`
+    in DIR, arms a SIGKILL at the fault site and hit that DIR/kill.json
+    names, and drives cross-shard transactions, fsyncing each acked one
+    to DIR/acked.jsonl, until the kill."""
+    import torch
+
+    from node_replication_torch.fault import FaultPlan, FaultSpec
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    d = Path(directory)
+    kill = json.loads((d / "kill.json").read_text())
+    g = _txn_group(str(d), "cuda")
+    coord = g.coordinator(name="bench")
+    FaultPlan([FaultSpec(site=kill["site"], action="kill", rid=-1,
+                         after=kill["after"])], seed=SEED).arm()
+    with open(d / "acked.jsonl", "a") as acked:
+        k = 0
+        for i in range(TX_CHILD_TXNS):
+            # k and k+1 differ mod 2, so every txn spans both shards;
+            # keys only grow, so an aborted txn's keys read absent
+            ops = [(1, k, TX_VAL_BASE + k), (1, k + 1, TX_VAL_BASE + k + 1)]
+            if i % 3 == 0:
+                ops.append((1, k + 2, TX_VAL_BASE + k + 2))
+            k += len(ops)
+            coord.execute_txn(ops)
+            acked.write(json.dumps({"ops": [list(o) for o in ops]}) + "\n")
+            acked.flush()
+            os.fsync(acked.fileno())
+    g.close()
+    print(f"the kill at {kill} never came", file=sys.stderr)
+    return 3
+
+
+def phase_txn(dev) -> dict:
+    """Phase 25: `bench.py --txn`'s SIGKILL matrix at the flagship widths.
+    One `--txn-child` round per crash window (prepare, commit, decide),
+    each SIGKILLed at a seeded hit in the middle half of its 24
+    transactions; the parent recovers the group in place on the card
+    (the WAL replayed through K1), bumps the coordinator epoch, re-drives
+    published commits and resolves every in-doubt intent, then holds
+    the result to the acks, the decisions and the WAL. Then the parity
+    leg: non-transactional throughput with and without `with_txn`."""
+    import random
+    import shutil
+    import signal
+
+    import torch
+
+    from node_replication_torch.models import HM_GET
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+
+    rng = random.Random(SEED + 25)
+    shutil.rmtree(TXN_DIR, ignore_errors=True)
+    TXN_DIR.mkdir()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    rounds = []
+    try:
+        for r, site in enumerate(TX_SITES):
+            rdir = TXN_DIR / f"round{r}"
+            rdir.mkdir()
+            T, hits = TX_CHILD_TXNS, TX_HITS[site]
+            after = rng.randrange(hits * (T // 4), hits * (3 * T // 4))
+            (rdir / "kill.json").write_text(json.dumps(
+                {"site": site, "after": after}))
+            t0 = time.perf_counter()
+            child = subprocess.run(child_cmd("--txn-child", rdir),
+                                   capture_output=True, text=True,
+                                   timeout=600)
+            child_s = time.perf_counter() - t0
+            if child.returncode != -signal.SIGKILL:
+                raise AssertionError(
+                    f"phase 25 round {r}: the child exited "
+                    f"{child.returncode}, not by SIGKILL at {site} hit "
+                    f"{after}: {child.stdout[-2000:]} {child.stderr[-2000:]}")
+            l0 = FUSED_KERNEL.launches
+            t1 = time.perf_counter()
+            g = _txn_group(str(rdir), dev, recover=True)
+            try:
+                recover_s = time.perf_counter() - t1
+                replayed = sum(p.recovery.wal_records for p in g.primaries)
+                k1 = FUSED_KERNEL.launches - l0
+                if k1 < replayed:
+                    raise AssertionError(f"phase 25 round {r}: {replayed} WAL "
+                                         f"records replayed in {k1} K1 "
+                                         f"launches")
+                pre: dict = {}
+                for p in g.primaries:
+                    for txn, info in p.txn.log.unresolved().items():
+                        pre.setdefault(txn, {})[p.txn.shard] = [
+                            tuple(op) for op in info["ops"]]
+                coord = g.coordinator(name="recover")
+                redrive = coord.recover()
+                g.resolve_in_doubt()
+                for p in g.primaries:
+                    if p.txn.log.unresolved() or p.txn.has_locks():
+                        raise AssertionError(
+                            f"phase 25 round {r}: shard {p.txn.shard} still "
+                            f"in doubt: {sorted(p.txn.log.unresolved())}")
+
+                def read(k):
+                    s = g.map.shard_of(k)
+                    return g.primaries[s].live_frontend.read((HM_GET, k))
+
+                acked = [json.loads(ln)["ops"] for ln in
+                         (rdir / "acked.jsonl").read_text().splitlines()
+                         if ln.strip()]
+                half = 0
+                for ops in acked:
+                    half += any(read(k) != v for _c, k, v in ops)
+                if not acked:
+                    raise AssertionError(f"phase 25 round {r}: no txn acked "
+                                         f"before the kill at {site}")
+                outcomes = {}
+                for txn, per_shard in sorted(pre.items()):
+                    outcome = g.decisions.outcome(txn) or "abort"
+                    outcomes[txn] = outcome
+                    flat = [op for s in sorted(per_shard)
+                            for op in per_shard[s]]
+                    vis = sum(1 for _c, k, v in flat if read(k) == v)
+                    half += (vis != len(flat)) if outcome == "commit" \
+                        else vis > 0
+                dup = 0
+                for p in g.primaries:
+                    seen = set()
+                    for rec in p.wal.records(p.wal.base):
+                        for op in rec.ops():
+                            if op[0] != 1 or op[2] < TX_VAL_BASE:
+                                continue
+                            dup += (op[1], op[2]) in seen
+                            seen.add((op[1], op[2]))
+                if half or dup:
+                    raise AssertionError(f"phase 25 round {r} ({site}): "
+                                         f"{half} half-committed, {dup} "
+                                         f"applied twice")
+                rounds.append({
+                    "site": site, "after": after, "child_s": child_s,
+                    "acked": len(acked), "in_doubt": len(pre),
+                    "outcomes": outcomes, "redriven": redrive["redriven"],
+                    "recover_s": recover_s, "wal_records": replayed,
+                    "k1_launches": k1, "half_committed": half,
+                    "duplicated": dup})
+            finally:
+                g.close()
+            log(f"phase 25 round {r}: child SIGKILLed at {site} hit {after} "
+                f"after {len(acked)} acked txns ({child_s:.1f} s); recovered "
+                f"in place on the card in {recover_s:.2f} s ({replayed} WAL "
+                f"records, {k1} K1 launches), {len(pre)} in-doubt intents "
+                f"resolved {sorted(set(outcomes.values()))}, "
+                f"{redrive['redriven']} commits re-driven; every acked txn "
+                f"visible, 0 half-committed, 0 applied twice")
+        # parity: non-txn single-shard writes, with and without 2PC
+        groups = {}
+        done = {True: 0, False: 0}
+        try:
+            for cfg in (True, False):
+                groups[cfg] = _txn_group(str(TXN_DIR / f"parity-{int(cfg)}"),
+                                         dev, with_txn=cfg)
+            for _ in range(3):
+                for cfg in (True, False):
+                    n, end = done[cfg], time.perf_counter() + TX_PARITY_S / 6
+                    while time.perf_counter() < end:
+                        # even keys: one shard, never the txn path
+                        groups[cfg].router.call((1, (n % 64) * 2, n))
+                        n += 1
+                    done[cfg] = n
+        finally:
+            for grp in groups.values():
+                grp.close()
+        parity = done[True] / done[False]
+        launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                    "hashmap_fused_round": FUSED_KERNEL.launches}
+        out = {"rounds": rounds, "parity": parity,
+               "parity_ops": {"with_txn": done[True],
+                              "without": done[False]},
+               "half_committed": 0, "duplicated": 0, "launches": launches,
+               "seconds": time.perf_counter() - t_phase}
+        log(f"phase 25: {len(rounds)} SIGKILL rounds (prepare, commit, "
+            f"decide), {sum(x['acked'] for x in rounds)} acked txns intact, "
+            f"{sum(x['in_doubt'] for x in rounds)} in-doubt intents "
+            f"resolved, 0 half-committed, 0 applied twice; parity "
+            f"{parity:.3f} ({done[True]} non-txn ops with with_txn, "
+            f"{done[False]} without; the reference's --txn-parity-min "
+            f"{TX_PARITY_MIN}, not a gate); launches {launches}; "
+            f"{out['seconds']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(TXN_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4655,6 +5675,8 @@ def main() -> int:
         return crash_child(sys.argv[2])
     if sys.argv[1:2] == ["--repl-primary"]:
         return repl_primary(sys.argv[2])
+    if sys.argv[1:2] == ["--txn-child"]:
+        return txn_child(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -4719,6 +5741,10 @@ def main() -> int:
         del mesh_fleet
         torch.cuda.empty_cache()
         res["repl"] = phase_repl(dev)
+        torch.cuda.empty_cache()
+        res["shard"] = phase_shard(dev, rng, res["hashmap_serve"])
+        res["txn"] = phase_txn(dev)
+        torch.cuda.empty_cache()
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -4739,7 +5765,8 @@ def main() -> int:
         res["mesh_serve"]["launches"]["hashmap_fused_round"]
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
-        "cnr_rounds", "cnr_serve", "mesh_chain", "repl")) + (
+        "cnr_rounds", "cnr_serve", "mesh_chain", "repl", "shard",
+        "txn")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -4806,6 +5833,24 @@ def main() -> int:
         "ms": rp["k1_check"]["ms"], "plain_ms": rp["k1_check"]["plain_ms"],
         "checked_device_ms": rp["k1_check"]["device_ms"],
         "W": rp["k1_check"]["W"]}
+    # and a fifth: the sharded flagship's rounds (phase 24: every shard
+    # round, applied record, promoted and re-homed round) at the
+    # profiled segment's mean batch, plus phase 25's recovery replays
+    # and parity rounds
+    sh, tx = res["shard"], res["txn"]
+    res["fused"]["max_abs_err"] = max(res["fused"]["max_abs_err"],
+                                      sh["k1_check"]["max_abs_err"])
+    pf = sh["profiled"]
+    res["fused"]["sharded"] = {
+        "R": R, "shards": SH_N, "mean_batch": pf["mean_batch"],
+        "launches": sh["launches"]["hashmap_fused_round"],
+        "txn_launches": tx["launches"]["hashmap_fused_round"],
+        "device_ms": pf["k1_device_ms"], "bound_ms": pf["k1_bound_ms"],
+        "bound_by": pf["k1_bound_by"], "profiled_launches": pf["k1_profiled"],
+        "max_abs_err": sh["k1_check"]["max_abs_err"],
+        "ms": sh["k1_check"]["ms"], "plain_ms": sh["k1_check"]["plain_ms"],
+        "checked_device_ms": sh["k1_check"]["device_ms"],
+        "W": sh["k1_check"]["W"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -4836,6 +5881,7 @@ def main() -> int:
         **({"served": p["served"]} if "served" in p else {}),
         **({"cnr": p["cnr"]} if "cnr" in p else {}),
         **({"repl": p["repl"]} if "repl" in p else {}),
+        **({"sharded": p["sharded"]} if "sharded" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

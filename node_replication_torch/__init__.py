@@ -16,10 +16,13 @@ reference, the log, the lock-step step, `NodeReplicated` (with
 `grow_fleet`, the WAL and snapshots), CNR (`core/multilog.py`,
 `MultiLogReplicated`, the partitioned models), every replay and
 fused-round kernel, the serving path: `serve/` (`ServeFrontend`),
-`fault/` (injection, health, repair) and `durable/` (WAL, recovery),
-and mesh placement: `parallel/` (`NodeReplicated(mesh=...)`,
+`fault/` (injection, health, repair) and `durable/` (WAL, recovery,
+the 2PC journals), mesh placement: `parallel/` (`NodeReplicated(mesh=...)`,
 `MultiLogReplicated(mesh=...)`, the shmap, gspmd, mesh-fused and ring
-tiers).
+tiers), the replication plane: `repl/` (WAL shipping, followers,
+promotion, the TCP transport and relays), and the shard plane: `shard/`
+(`ShardGroup`, one primary stack per `key % N` class; `ShardRouter`
+over local and socket backends; presumed-abort 2PC; online splits).
 """
 
 from node_replication_torch.core.cnr import MultiLogReplicated

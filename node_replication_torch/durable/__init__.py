@@ -1,7 +1,7 @@
 """durable/: write-ahead persistence + crash-consistent recovery.
 
-The port of `node_replication_tpu/durable/`, without `txnlog.py` (the
-two-phase-commit journals arrive with the port of `shard/`).
+The port of `node_replication_tpu/durable/`, with `txnlog.py` (the
+two-phase-commit journals of `shard/txn.py`).
 
 The durability plane: the repo's recovery property — any
 replica is the deterministic fold of the log — made to survive the
@@ -34,6 +34,11 @@ from node_replication_torch.durable.recovery import (
     save_durable_snapshot,
     snapshot_path,
 )
+from node_replication_torch.durable.txnlog import (
+    DecisionLog,
+    TxnIntentLog,
+    TxnLogCorruptError,
+)
 from node_replication_torch.durable.wal import (
     FSYNC_POLICIES,
     WalCorruptError,
@@ -43,8 +48,11 @@ from node_replication_torch.durable.wal import (
 )
 
 __all__ = [
+    "DecisionLog",
     "FSYNC_POLICIES",
     "RecoveryReport",
+    "TxnIntentLog",
+    "TxnLogCorruptError",
     "WAL_SUBDIR",
     "WalCorruptError",
     "WalError",

@@ -30,7 +30,12 @@ from node_replication_torch.serve.errors import (
     Overloaded,
     ReplicaFailed,
     ServeError,
+    ShardUnavailable,
     StaleRead,
+    TxnAborted,
+    TxnConflict,
+    TxnInDoubt,
+    WrongShard,
 )
 from node_replication_torch.serve.frontend import (
     ServeConfig,
@@ -65,6 +70,11 @@ __all__ = [
     "ServeError",
     "ServeFrontend",
     "ServeFuture",
+    "ShardUnavailable",
     "StaleRead",
+    "TxnAborted",
+    "TxnConflict",
+    "TxnInDoubt",
+    "WrongShard",
     "call_with_retry",
 ]

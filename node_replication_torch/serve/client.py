@@ -1,8 +1,8 @@
 """Client-side retry-with-backoff + circuit breaking over the serve
 frontend.
 
-The port's copy of `node_replication_tpu/serve/client.py`, without
-the shard plane's retry causes (they come with the port of `shard/`).
+The port's copy of `node_replication_tpu/serve/client.py`, the shard
+plane's retry causes and its map refresh included.
 
 `Overloaded` is the frontend's TRANSIENT backpressure signal: the op
 was shed at admission (or evicted from the queue by a higher-priority
@@ -36,10 +36,19 @@ log and resubmitting could duplicate it.
 deadline'd work is stale by definition and a closed frontend is
 permanent; both propagate to the caller.
 
+The shard plane (`shard/router.py`) rides the same loop when the
+"frontend" is a `ShardRouter`: `ShardUnavailable` with
+`maybe_executed=False` retries with backoff (the sub-batch provably
+never reached the shard's log), `maybe_executed=True` propagates
+(same exactly-once reasoning as `ReplicaFailed`), and `WrongShard`
+triggers the router's `refresh_map()` before the retry so a
+promotion's re-published map re-homes the resubmission mid-loop.
+
 Every retry is observable by CAUSE: the
-`serve.retry.{overloaded,replica_failed,circuit_open}` counters and
-the `serve-retry` trace event (cause + attempt + delay) keep overload
-retries distinguishable from failover retries in `obs/report`.
+`serve.retry.{overloaded,replica_failed,circuit_open,
+shard_unavailable,wrong_shard}` counters and the `serve-retry` trace
+event (cause + attempt + delay) keep overload retries
+distinguishable from failover retries in `obs/report`.
 
 Two budgets bound a call, both enforced here:
 
@@ -68,6 +77,9 @@ from node_replication_torch.serve.errors import (
     CircuitOpen,
     Overloaded,
     ReplicaFailed,
+    ShardUnavailable,
+    TxnConflict,
+    WrongShard,
 )
 from node_replication_torch.utils.clock import get_clock
 from node_replication_torch.utils.trace import get_tracer
@@ -237,6 +249,18 @@ _RETRY_CAUSES = {
     Overloaded: "overloaded",
     ReplicaFailed: "replica_failed",
     CircuitOpen: "circuit_open",
+    # the shard plane (`shard/router.py`): both are rejections with
+    # zero log effect (WrongShard by construction; ShardUnavailable
+    # when maybe_executed=False), so the retry is exactly-once safe
+    ShardUnavailable: "shard_unavailable",
+    WrongShard: "wrong_shard",
+    # the txn plane (`shard/txn.py`): a key locked by a prepared-but-
+    # undecided transaction; zero log effect, and the lock clears the
+    # moment the decision arrives — Overloaded-shaped backoff applies.
+    # TxnAborted/TxnInDoubt are deliberately ABSENT: they are whole-
+    # transaction outcomes the coordinator's caller routes on, never
+    # per-op transients.
+    TxnConflict: "txn_conflict",
 }
 
 
@@ -315,8 +339,10 @@ def call_with_retry(
             if breaker is not None:
                 breaker.record_success()
             return resp
-        except (Overloaded, ReplicaFailed, CircuitOpen) as e:
-            if isinstance(e, ReplicaFailed) and e.maybe_executed:
+        except (Overloaded, ReplicaFailed, CircuitOpen,
+                ShardUnavailable, WrongShard, TxnConflict) as e:
+            if isinstance(e, (ReplicaFailed, ShardUnavailable)) \
+                    and e.maybe_executed:
                 # the op may already be in the log (it WILL replay;
                 # only its response was lost) — resubmitting could
                 # duplicate it, so exactly-once forbids auto-retry
@@ -357,6 +383,15 @@ def call_with_retry(
                     alt = [r for r in healthy() if r != e.rid]
                     if alt:
                         rid = alt[attempt % len(alt)]
+            if isinstance(e, (WrongShard, ShardUnavailable)):
+                # shard-plane re-route: a promotion re-published the
+                # ShardMap with a bumped version; adopting it re-homes
+                # the resubmission (keys are PINNED to shards by the
+                # congruence map, so re-routing means a new map, never
+                # a different shard)
+                refresh = getattr(frontend, "refresh_map", None)
+                if refresh is not None:
+                    refresh()
             if delay > 0:
                 clock.sleep(delay)
     raise AssertionError("unreachable")  # pragma: no cover

@@ -1,7 +1,7 @@
 """Typed serve-layer errors.
 
-The port's copy of `node_replication_tpu/serve/errors.py`, without
-the shard plane's errors (they come with the port of `shard/`).
+The port's copy of `node_replication_tpu/serve/errors.py`, the shard
+plane's five errors included.
 
 The serving frontend (`serve/frontend.py`) communicates every
 production edge as a TYPED exception so callers can route on it
@@ -33,6 +33,33 @@ flat under `ServeError`:
 - `NotPrimary` — a write reached a read-only (follower-mode) frontend
   (`repl/follower.py`); the op was never admitted, so retrying against
   the primary is always safe.
+- `WrongShard` — the fleet-sharding plane (`shard/`): an op whose key
+  routes to a different shard under the current `ShardMap`, or a
+  submit carrying a stale map version. The op was rejected before any
+  log effect; refresh the map and re-route
+  (`serve/client.py:call_with_retry` does so when the frontend
+  exposes `refresh_map()`).
+- `ShardUnavailable` — the op's shard cannot serve right now (its
+  primary died, its backend connection dropped, or its promotion is
+  in flight). Transient by design when `maybe_executed=False`;
+  `call_with_retry` backs off and retries, and the router re-routes
+  once the shard's `PromotionManager` re-homes it.
+- `TxnConflict` — an op touched a key locked by a prepared-but-
+  undecided cross-shard transaction (`shard/txn.py`). Zero log
+  effect; retryable by design (`call_with_retry` backs off — the
+  lock clears as soon as the transaction resolves).
+- `TxnAborted` — a cross-shard transaction aborted during prepare.
+  Presumed-abort 2PC guarantees ZERO log effect on every
+  participant, so retrying the WHOLE transaction is exactly-once
+  safe (the coordinator's caller decides; per-op retry machinery
+  never sees this).
+- `TxnInDoubt` — the coordinator lost a participant AFTER the
+  durable decision was published (or could not finish phase 2). The
+  transaction's outcome is decided and will be enforced by
+  recovery — but this caller cannot prove it applied yet. Never
+  auto-retried; resolve by decision lookup
+  (`TxnCoordinator.recover` / participant `resolve_in_doubt`) or a
+  read.
 - `CircuitOpen` — the CLIENT-side circuit breaker
   (`serve/client.py:CircuitBreaker`) refused the call before it
   reached the frontend: enough consecutive transient failures opened
@@ -191,3 +218,148 @@ class CircuitOpen(ServeError):
         )
         self.retry_after_s = retry_after_s
         self.failures = failures
+
+
+class WrongShard(ServeError):
+    """The op's key does not belong to the shard it reached — or the
+    caller's `ShardMap` version disagrees with the shard's.
+
+    The fleet-level congruence contract (`shard/ring.py:ShardMap`,
+    lifted from `models/partitioned.py`): shard `s` of `N` owns every
+    key `k` with `k % N == s`, and routers and shards must agree on
+    the SAME map version before any ack. A key mismatch means a
+    caller bypassed the router; a version mismatch means a stale map
+    on one side (a re-published map after a promotion the other side
+    has not loaded yet). Either way the op was rejected BEFORE any
+    log effect — refresh the map (`durable_publish`'d, so a reload
+    always observes a complete file) and re-route; `call_with_retry`
+    does both when the frontend exposes `refresh_map()`.
+    """
+
+    def __init__(self, key: int, shard: int, expected_shard: int,
+                 map_version: int, peer_version: int | None = None):
+        if peer_version is not None and peer_version != map_version:
+            why = (f"map version {peer_version} does not match the "
+                   f"shard's version {map_version}")
+        else:
+            why = (f"key {key} routes to shard {expected_shard} "
+                   f"under map v{map_version}")
+        super().__init__(
+            f"shard {shard}: {why}; op rejected before any log effect"
+        )
+        self.key = key
+        self.shard = shard
+        self.expected_shard = expected_shard
+        self.map_version = map_version
+        self.peer_version = peer_version
+
+
+class ShardUnavailable(ServeError):
+    """The op's shard cannot serve it right now (`shard/router.py`).
+
+    Raised when a shard's backend is down — its primary process died,
+    the connection dropped mid-exchange, or a promotion is re-homing
+    its writes. `maybe_executed` has `ReplicaFailed` semantics: False
+    means the sub-batch provably never reached the shard's log, so a
+    resubmit is exactly-once safe (`call_with_retry` retries it with
+    backoff, re-routed once the router repoints the shard); True means
+    the connection died AFTER the ops were sent — they may commit and
+    replay, so only the caller can decide (a read disambiguates).
+
+    Cross-shard batches are NOT atomic (the CNR contract): when a
+    multi-shard batch raises this, sub-batches on OTHER shards may
+    have committed and acked independently.
+    """
+
+    def __init__(self, shard: int, cause: BaseException | None = None,
+                 maybe_executed: bool = False):
+        detail = f" ({type(cause).__name__}: {cause})" if cause else ""
+        effect = (
+            "sub-batch may have reached the shard's log; response lost"
+            if maybe_executed
+            else "sub-batch never reached the shard's log"
+        )
+        super().__init__(f"shard {shard} unavailable{detail}; {effect}")
+        self.shard = shard
+        self.cause = cause
+        self.maybe_executed = maybe_executed
+
+    @property
+    def retryable(self) -> bool:
+        return not self.maybe_executed
+
+
+class TxnConflict(ServeError):
+    """The op's key is locked by a prepared-but-undecided cross-shard
+    transaction (`shard/txn.py:TxnParticipant`).
+
+    A prepared intent blocks CONFLICTING KEYS, not the shard: every
+    other key serves normally, and this op was rejected before any
+    log effect. Retrying with backoff is always safe — the lock
+    clears the moment the transaction's decision arrives (or, for a
+    dead coordinator generation, when presumed abort releases it);
+    `call_with_retry` classifies this exactly like `Overloaded`.
+    """
+
+    def __init__(self, key: int, txn: str):
+        super().__init__(
+            f"key {key} is locked by prepared transaction {txn}; "
+            f"op rejected before any log effect"
+        )
+        self.key = key
+        self.txn = txn
+        self.maybe_executed = False  # rejected at the door, always
+
+    @property
+    def retryable(self) -> bool:
+        return True
+
+
+class TxnAborted(ServeError):
+    """The cross-shard transaction aborted during prepare
+    (`shard/txn.py:TxnCoordinator`).
+
+    Presumed-abort 2PC's clean failure: some participant voted no
+    (conflict, wrong shard, unavailable) before any decision was
+    published, every prepared intent was (or will be, by presumed
+    abort) dropped, and NO participant applied anything — the whole
+    transaction had zero log effect, so resubmitting the whole
+    transaction is exactly-once safe. The caller retries; the per-op
+    retry machinery never sees this error.
+    """
+
+    def __init__(self, txn: str, cause: BaseException | None = None):
+        detail = f" ({type(cause).__name__}: {cause})" if cause else ""
+        super().__init__(
+            f"transaction {txn} aborted during prepare{detail}; "
+            f"zero log effect on every participant"
+        )
+        self.txn = txn
+        self.cause = cause
+
+
+class TxnInDoubt(ServeError):
+    """The transaction's durable decision exists but this caller
+    could not confirm phase 2 completed on every participant.
+
+    The `maybe_executed=True` of the transaction layer: the decision
+    record (`durable/txnlog.py:DecisionLog`) is the truth and
+    recovery WILL enforce it — participants re-resolve by decision
+    lookup, the restarted coordinator re-drives commits — but right
+    now some sub-batch may or may not have applied. Never
+    auto-retried (a blind resubmit could double-apply); the caller
+    resolves via `TxnCoordinator.recover()`, participant
+    `resolve_in_doubt()`, or a read of the affected keys.
+    """
+
+    def __init__(self, txn: str, decision: str | None = None,
+                 cause: BaseException | None = None):
+        detail = f" ({type(cause).__name__}: {cause})" if cause else ""
+        dec = f"decision={decision!r}" if decision else "undecided"
+        super().__init__(
+            f"transaction {txn} in doubt ({dec}){detail}; recovery "
+            f"will enforce the durable decision — do not blindly retry"
+        )
+        self.txn = txn
+        self.decision = decision
+        self.cause = cause

@@ -2,7 +2,7 @@
 
 - No module of `node_replication_torch/`, and not `chip_smoke.py`,
   imports `jax` or `node_replication_tpu` (an AST scan of every import
-  statement).
+  statement); `shard.__all__` is the reference's, read from its source.
 - The entry points treat `device=None` as the card and raise without
   one, instead of running on the CPU.
 - The kernel wrappers take their plain version only for CPU tensors:
@@ -100,6 +100,52 @@ def test_repl_modules_are_scanned_and_stand_alone():
     for rel in REPL_PATH:
         path = ROOT / "node_replication_torch" / rel
         assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+SHARD_PATH = ("shard/__init__.py", "shard/ring.py", "shard/router.py",
+              "shard/txn.py", "shard/primary.py", "shard/reshard.py",
+              "durable/txnlog.py")
+
+
+def test_shard_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(SHARD_PATH) <= files
+    for rel in SHARD_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def _module_all(path: Path) -> list:
+    """A module's `__all__`, read from its source (importing the
+    reference's package would import jax)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and [t.id for t in node.targets] == ["__all__"]):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_shard_exports_the_reference_names():
+    import node_replication_torch.shard as shard
+
+    ref = _module_all(ROOT / "node_replication_tpu" / "shard" / "__init__.py")
+    assert len(ref) == 14
+    assert shard.__all__ == ref
+    assert all(hasattr(shard, n) for n in ref)
+
+
+def test_shard_group_without_a_card_raises(monkeypatch, tmp_path):
+    from node_replication_torch.shard import ShardGroup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaDeviceError):
+        ShardGroup(2, make_hashmap(8), str(tmp_path / "g"))
+    with pytest.raises(NoCudaDeviceError):
+        ShardGroup(2, make_hashmap(8), str(tmp_path / "h"),
+                   nr_kwargs=dict(n_replicas=1, log_entries=256,
+                                  gc_slack=32))
 
 
 def test_follower_without_a_card_raises(monkeypatch, tmp_path):
