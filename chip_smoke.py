@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 8 minutes
+    python3 chip_smoke.py            # needs one CUDA card; about 10 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
     python3 chip_smoke.py --repl-primary DIR  # phase 23's primary (internal)
     python3 chip_smoke.py --txn-child DIR     # phase 25's victim (internal)
+    python3 chip_smoke.py --obs-primary DIR   # phase 26's primary (internal)
+    python3 chip_smoke.py --obs-leaf DIR      # phase 26's leaf (internal)
 
 Four models, end to end, from numpy seeds, then the serving path, then
 CNR and the other models. The replicated hashmap at the flagship width
@@ -248,18 +250,42 @@ The shard plane (`shard/`, `durable/txnlog.py`):
    intent: every acked transaction visible, every in-doubt one all or
    nothing by its decision, no transactional write in a WAL twice; then
    non-transactional throughput with and without `with_txn` in
-   alternating slices (the reference's 0.9 printed beside).
+   alternating slices (the reference's 0.9 printed beside);
+26. the observed flagship (`obs/`). Leg A, on phase 13's fleet here:
+   up to 3 pairs of 16 clients x 250 ops (phase 13's 1000, cut for
+   time), `ServeConfig(profile_hz=None)` then `97`, every response
+   against the client models, the best on/off ratio kept
+   (`bench.py --serve --profile`): prints the overhead ratio beside the
+   reference's 0.95, the attributed share beside its 0.9, the duty
+   cycle and each stage's share of the host budget (the shares must sum
+   to 1); then `obs_port=0` with the profiler: a `device-trace` of 1 s
+   over the socket while the clients drive (backend `cuda`; a second
+   request answers "capture in progress"), its chrome trace holding K1
+   kernels (their count beside the window's `kernel-launch` events and
+   their mean device time beside the served bound), a socket scrape
+   whose serve stats equal `stats()` and whose `pallas_fused` rise
+   equals K1's launches, parsing Prometheus text, and `threads()` by
+   role. Leg B, `bench.py --tree --tree-obs`: an `--obs-primary DIR`
+   child (ship-before-ack, ring tracer, sampling 1 record in 4,
+   `obs_port=0`), a `RelayNode` here over `SocketFeed` and an
+   `--obs-leaf DIR` child on it (rids 0-7, one K1 launch a record),
+   each with its exporter, scraped by a `FleetCollector` into
+   fleet.jsonl while 8 clients x 250 ops drive the primary: the
+   report's Fleet section holds all three nodes, a complete record
+   across 3 processes and a `submit->ack` edge, and prints each hop
+   edge's p50/p95; the leaf holds every acked write.
 
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-25) and read just after; a kernel that its path never launched
+17, 19-26) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 "device": ...}`; any failure exits non-zero before them. Without a
 CUDA device, or without the package beside this script, it exits
 non-zero at once. Details of the run go to
-`chiprun_out/chip_smoke.json`.
+`chiprun_out/chip_smoke.json`, phase 26's profiles to
+`chiprun_out/phase26_*.folded` (flamegraph.pl / speedscope input).
 """
 
 from __future__ import annotations
@@ -269,6 +295,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -1979,7 +2006,7 @@ def serve_clients(fe, n_clients: int, per_client: int, op_of, check,
                 on_ack(c, i, op, resp)
 
     threads = [threading.Thread(target=client, args=(c,),
-                                name=f"chip-client-{c}")
+                                name=f"serve-client-{c}")
                for c in range(n_clients)]
     t0 = time.perf_counter()
     for t in threads:
@@ -5668,6 +5695,589 @@ def phase_txn(dev) -> dict:
         shutil.rmtree(TXN_DIR, ignore_errors=True)
 
 
+OBS_DIR = Path(__file__).resolve().parent / ".chip_smoke_obs"
+OBS_PAIRS = 3         # `bench.py --serve --profile`: up to 3 off/on pairs
+OBS_PER = 250         # ops a client (phase 13's 1000, cut for time)
+OBS_HZ = 97.0         # `--profile-hz`'s default
+OBS_RATIO_MIN = 0.95  # the reference's overhead gate: printed beside
+OBS_ATTR_MIN = 0.9    # the reference's attributed-share floor: printed
+OBS_TRACE_S = 1.0     # the exporter's device capture, s
+OBS_TREE_CLIENTS = 8  # leg B's closed-loop clients
+OBS_SAMPLE = 4        # leg B's per-record trace sampling, every process
+OBS_RING = 1 << 16    # each process's ring tracer, events
+OBS_HOPS = ("submit", "append", "wal-sync", "ship", "wire", "relay-forward",
+            "apply")
+K1_KERNEL = "hashmap_round_kernel"
+
+
+def _wait_file(path: Path, what: str, timeout: float = 300.0,
+               procs=()) -> str:
+    """`path`'s text once it exists; raises when a child in `procs` died
+    first or `timeout` ran out."""
+    t_end = time.monotonic() + timeout
+    while not path.exists():
+        for p in procs:
+            if p.poll() is not None:
+                raise AssertionError(f"phase 26: {what}: a child exited "
+                                     f"{p.returncode} first")
+        if time.monotonic() > t_end:
+            raise AssertionError(f"phase 26: {what}: no {path.name} after "
+                                 f"{timeout:.0f} s")
+        # an Event wait: a Python-level wait the sampler reads as one
+        threading.Event().wait(0.02)
+    return path.read_text()
+
+
+def _obs_tracer():
+    """This process's tracer in ring mode with leg B's sampling."""
+    from node_replication_torch.obs.recorder import get_tracer, set_trace_sample
+
+    t = get_tracer()
+    t.enable(None, ring=OBS_RING)
+    set_trace_sample(OBS_SAMPLE)
+    return t
+
+
+def obs_primary(directory: str) -> int:
+    """`--obs-primary DIR`: phase 26's primary. Serves phase 13's fleet
+    from `ServeFrontend.from_recovery(DIR/primary, durability="batch")`
+    with ship-before-ack into `DirectoryFeed(DIR/feed)`, a `FeedServer`
+    (port to DIR/port), a ring tracer sampling 1 record in OBS_SAMPLE and
+    its exporter (`obs_port=0`, port to DIR/obs_port). On DIR/go, 8
+    closed-loop clients of OBS_PER ops each, every ack logged; then the
+    feed tail and K1 launches to DIR/done; exits at DIR/stop."""
+    import torch
+
+    from node_replication_torch.durable.wal import durable_publish
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import FUSED_KERNEL
+    from node_replication_torch.repl import (
+        DirectoryFeed,
+        FeedServer,
+        ReplicationShipper,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    d = Path(directory)
+    get_registry().enable()
+    _obs_tracer()
+    acks = d / "acks"
+    acks.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 26)
+    ops = [hm_client_ops(rng, c, OBS_PER) for c in range(OBS_TREE_CLIENTS)]
+    files = [open(acks / f"c{c}.txt", "a") for c in range(OBS_TREE_CLIENTS)]
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
+                      durability="batch", obs_port=0, obs_node_id="primary")
+    fe = ServeFrontend.from_recovery(
+        str(d / "primary"), make_hashmap(K), cfg, rids=range(SV_RIDS),
+        nr_kwargs=_crash_fleet_kwargs("cuda"))
+    feed = DirectoryFeed(str(d / "feed"), arg_width=3)
+    shipper = ReplicationShipper(fe.nr.wal, feed)
+    fe.ack_barrier = shipper.barrier
+    srv = FeedServer(feed, wal=fe.nr.wal)
+    durable_publish(str(d / "port"), str(srv.address[1]).encode(),
+                    fsync=False)
+    durable_publish(str(d / "obs_port"),
+                    str(fe.exporter.address[1]).encode(), fsync=False)
+    _wait_file(d / "go", "the primary's go")
+
+    def on_ack(c, i, op, resp):
+        files[c].write(f"{i} {' '.join(map(str, op))} {resp}\n")
+        files[c].flush()
+
+    r = serve_clients(fe, OBS_TREE_CLIENTS, OBS_PER, lambda c, i: ops[c][i],
+                      lambda c, i, resp: None, lambda c: c % SV_RIDS,
+                      on_ack=on_ack)
+    for f in files:
+        f.close()
+    durable_publish(str(d / "done"), json.dumps({
+        "tail": feed.tail_pos(), "k1_launches": FUSED_KERNEL.launches,
+        "serve": r}).encode(), fsync=False)
+    _wait_file(d / "stop", "the primary's stop", timeout=600)
+    srv.close()
+    shipper.stop()
+    fe.close()
+    return 0 if not r["errors"] and r["completed"] == r["ops"] else 1
+
+
+def obs_leaf(directory: str) -> int:
+    """`--obs-leaf DIR`: phase 26's leaf. A `Follower` of phase 13's
+    fleet (rids 0-7) over `SocketFeed` to the relay (port from
+    DIR/relay_port), with its exporter (port to DIR/leaf_obs_port) and
+    a ring tracer sampling as the primary does; applies each record with
+    one K1 launch. Once the primary's DIR/done names the feed tail, it
+    waits to apply it and checks its fleet against every acked op
+    (DIR/leaf_check); exits at DIR/stop."""
+    import torch
+
+    from node_replication_torch.durable.wal import durable_publish
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import FUSED_KERNEL
+    from node_replication_torch.repl import Follower, SocketFeed
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    d = Path(directory)
+    get_registry().enable()
+    _obs_tracer()
+    port = int(_wait_file(d / "relay_port", "the relay's port"))
+    leaf = Follower(make_hashmap(K), SocketFeed("127.0.0.1", port,
+                                                arg_width=3),
+                    str(d / "leaf"), nr_kwargs=_crash_fleet_kwargs("cuda"),
+                    name="leaf", rids=range(SV_RIDS), obs_port=0)
+    durable_publish(str(d / "leaf_obs_port"),
+                    str(leaf.frontend.exporter.address[1]).encode(),
+                    fsync=False)
+    done = json.loads(_wait_file(d / "done", "the primary's done",
+                                 timeout=600))
+    check = {"applied_to": done["tail"]}
+    try:
+        if not leaf.wait_applied(done["tail"], timeout=300.0):
+            raise AssertionError(f"the leaf applied {leaf.applied_pos()} "
+                                 f"of {done['tail']}: {leaf.error!r}")
+        models = [HashmapModel() for _ in range(SV_CLIENTS)]
+        acked = _acked_ops(d / "acks")
+        for c in range(OBS_TREE_CLIENTS):
+            for op, resp in acked[c]:
+                if models[c].apply(op) != resp:
+                    raise AssertionError(f"client {c}'s acked {op} -> "
+                                         f"{resp} disagrees with its model")
+        check["acked"] = sum(map(len, acked))
+        check_fleet_state(leaf.nr, models, "phase 26 leaf")
+        check["ok"] = True
+    except AssertionError as e:
+        check["ok"], check["error"] = False, str(e)
+    check["k1_launches"] = FUSED_KERNEL.launches
+    check["records"] = get_registry().counter("repl.applied_records").value
+    durable_publish(str(d / "leaf_check"), json.dumps(check).encode(),
+                    fsync=False)
+    _wait_file(d / "stop", "the leaf's stop", timeout=600)
+    leaf.close()
+    return 0 if check["ok"] else 1
+
+
+def _trace_kernels(path: Path, name: str) -> list[float]:
+    """Durations (ms) of the chrome trace's kernel events named `name`."""
+    doc = json.loads(path.read_text())
+    return [float(e.get("dur", 0.0)) / 1e3 for e in doc["traceEvents"]
+            if e.get("cat") == "kernel" and name in str(e.get("name", ""))]
+
+
+def _prometheus_parses(text: str) -> int:
+    """Series lines of a Prometheus text exposition; raises at a line
+    that is neither a comment nor `name{labels} value`."""
+    import re
+
+    series = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*\{([a-z_]+="[^"]*",?)+\} '
+                        r'(\S+)$')
+    n = 0
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        m = series.match(ln)
+        if m is None:
+            raise AssertionError(f"phase 26: Prometheus line {ln!r}")
+        float(m.group(2))
+        n += 1
+    return n
+
+
+def _hot_stacks(snap: dict, n: int = 5) -> list[str]:
+    """The `n` hottest busy (not waiting) stacks of a profile snapshot:
+    count, stage, role and the four leafmost frames."""
+    busy = [s for s in snap["stacks"] if not s["wait"]]
+    busy.sort(key=lambda s: -s["count"])
+    return [f"{s['count']} {s['stage']} {s['role']}: "
+            + ";".join(s["frames"][-4:]) for s in busy[:n]]
+
+
+def _obs_profiled_pairs(nr, models, rng) -> dict:
+    """Leg A.1: up to OBS_PAIRS pairs of closed-loop runs, profiler off
+    then on (`bench.py --serve --profile`), each side measured anew, the
+    best ratio kept; every acked response against the client models."""
+    from node_replication_torch.obs.profile import (
+        STAGES,
+        folded_from_snapshot,
+        host_budget,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    best = None
+    for pair in range(OBS_PAIRS):
+        runs = {}
+        for side, hz in (("off", None), ("on", OBS_HZ)):
+            ops = [hm_client_ops(rng, c, OBS_PER) for c in range(SV_CLIENTS)]
+
+            def check(c, i, resp, ops=ops):
+                want = models[c].apply(ops[c][i])
+                return (None if resp == want else
+                        f"client {c} op {i} {ops[c][i]}: {resp}, model "
+                        f"{want}")
+
+            cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
+                              profile_hz=hz)
+            with ServeFrontend(nr, cfg, rids=range(SV_RIDS)) as fe:
+                r = serve_clients(fe, SV_CLIENTS, OBS_PER,
+                                  lambda c, i: ops[c][i], check,
+                                  lambda c: c % SV_RIDS)
+                if fe.profiler is not None:
+                    fe.profiler.stop()
+                    r["snapshot"] = fe.profiler.snapshot()
+            if r["errors"] or r["completed"] != r["ops"]:
+                raise AssertionError(f"phase 26 pair {pair} {side}: "
+                                     f"{r['completed']} of {r['ops']}; "
+                                     f"{r['errors']}")
+            runs[side] = r
+        ratio = runs["on"]["acked_ops_per_s"] / runs["off"]["acked_ops_per_s"]
+        log(f"phase 26: pair {pair}: profiler off "
+            f"{runs['off']['acked_ops_per_s']:.1f}, on "
+            f"{runs['on']['acked_ops_per_s']:.1f} acked ops/s: ratio "
+            f"{ratio:.4f}")
+        if best is None or ratio > best["overhead_ratio"]:
+            best = {"overhead_ratio": ratio, "pair": pair,
+                    "off": runs["off"], "on": runs["on"]}
+        if ratio >= OBS_RATIO_MIN:
+            break
+    snap = best["on"].pop("snapshot")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase26_served.folded").write_text(folded_from_snapshot(snap))
+    budget = host_budget(snap)
+    fracs = sum(s["frac"] for s in budget["stages"].values())
+    if abs(fracs - 1.0) > 1e-9:
+        raise AssertionError(f"phase 26: stage shares sum to {fracs}")
+    best.update(pairs=pair + 1, hz=OBS_HZ,
+                thread_samples=budget["thread_samples"],
+                duty_cycle=budget["duty_cycle"],
+                busy_frac=budget["busy_frac"],
+                attributed_frac=budget["attributed_frac"],
+                stages={k: v["frac"] for k, v in budget["stages"].items()},
+                roles={k: v["samples"] for k, v in snap["roles"].items()},
+                hot=_hot_stacks(snap))
+    log(f"phase 26: profiler at {OBS_HZ:g} Hz: overhead_ratio "
+        f"{best['overhead_ratio']:.4f} (the reference's gate "
+        f"{OBS_RATIO_MIN}; pair {best['pair']} of {best['pairs']}), "
+        f"attributed_frac {best['attributed_frac']:.4f} (its floor "
+        f"{OBS_ATTR_MIN}), duty cycle {best['duty_cycle']:.6f}, busy "
+        f"{best['busy_frac']:.4f}, {best['thread_samples']} thread samples; "
+        "host budget: " + ", ".join(
+            f"{s} {100 * best['stages'][s]:.1f}%"
+            for s in STAGES if s in best["stages"])
+        + f"; samples by role {best['roles']}; hottest busy stacks: "
+        + " | ".join(best["hot"]))
+    return best
+
+
+def _obs_scrape_and_trace(nr, models, rng, c0: dict) -> dict:
+    """Leg A.2: the frontend with `obs_port=0` and the profiler, 16
+    clients; `device-trace` over the socket while they drive, a second
+    request during the capture; then a socket scrape held against
+    `stats()`, the registry and K1's launch count."""
+    from node_replication_torch.obs import export
+    from node_replication_torch.obs.profile import KNOWN_ROLES
+    from node_replication_torch.ops.replay import FUSED_KERNEL
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    tracer = _obs_tracer()
+    trace_dir = OBS_DIR / "device_trace"
+    ops = [hm_client_ops(rng, c, OBS_PER) for c in range(SV_CLIENTS)]
+    answers = {}
+
+    def check(c, i, resp):
+        want = models[c].apply(ops[c][i])
+        return (None if resp == want else
+                f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+    def during(c, i):
+        if c == 0 and i == OBS_PER // 4:
+            answers["first"] = export.device_trace(
+                host, port, str(trace_dir), duration_s=OBS_TRACE_S)
+            answers["second"] = export.device_trace(
+                host, port, str(trace_dir), duration_s=OBS_TRACE_S)
+
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001, obs_port=0,
+                      obs_node_id="flagship", profile_hz=OBS_HZ)
+    with ServeFrontend(nr, cfg, rids=range(SV_RIDS)) as fe:
+        host, port = fe.exporter.address
+        threads = fe.threads()
+        r = serve_clients(fe, SV_CLIENTS, OBS_PER, lambda c, i: ops[c][i],
+                          check, lambda c: c % SV_RIDS, during=during)
+        if r["errors"] or r["completed"] != r["ops"]:
+            raise AssertionError(f"phase 26 scrape run: {r['completed']} of "
+                                 f"{r['ops']}; {r['errors']}")
+        first = answers["first"]
+        if not (first.get("ok") and first.get("backend") == "cuda"):
+            raise AssertionError(f"phase 26: device-trace answered {first}")
+        if answers["second"].get("skipped") != "capture in progress":
+            raise AssertionError(f"phase 26: a second device-trace during "
+                                 f"the capture answered {answers['second']}")
+        path = Path(first["path"])
+        t_end = time.monotonic() + 120
+        while not path.exists():
+            failed = [e for e in tracer.events()
+                      if e["event"] == "obs-device-trace" and not e["ok"]]
+            if failed or time.monotonic() > t_end:
+                raise AssertionError(f"phase 26: no device trace: {failed}")
+            time.sleep(0.05)
+        doc = export.scrape(host, port)
+        stats = json.loads(json.dumps(fe.stats()))
+        k1 = FUSED_KERNEL.launches
+    tracer.disable()
+    if doc["stats"]["serve"] != stats:
+        raise AssertionError("phase 26: the scrape's serve stats differ from "
+                             "frontend.stats()")
+    fused = doc["metrics"]["nr.exec.engine.pallas_fused"]
+    n_series = _prometheus_parses(export.to_prometheus(doc))
+    # the capture's window, from its `obs-device-trace` event
+    done = [e for e in doc["events"] if e["event"] == "obs-device-trace"]
+    if not (done and done[-1]["ok"]):
+        raise AssertionError(f"phase 26: the capture ended with {done}")
+    launch_events = sum(
+        1 for e in doc["events"] if e["event"] == "kernel-launch"
+        and done[-1]["mono_start"] <= e["mono"] <= done[-1]["mono_stop"])
+    lock_wait = doc["metrics"].get("nr.lock.wait_s", {})
+    durs = _trace_kernels(path, K1_KERNEL)
+    if not durs:
+        raise AssertionError(f"phase 26: no {K1_KERNEL} in the device trace")
+    if set(threads) - KNOWN_ROLES or "other" in threads or not (
+            len(threads.get("serve-worker", ())) == SV_RIDS
+            and len(threads.get("obs-export", ())) == 1
+            and threads.get("obs-profiler") == ["obs-profiler"]):
+        raise AssertionError(f"phase 26: threads() {threads}")
+    rounds = doc["metrics"]["serve.batches"] - c0["serve.batches"]
+    if fused - c0["fused"] != k1 - c0["k1"]:
+        raise AssertionError(f"phase 26: the scrape's pallas_fused rose by "
+                             f"{fused - c0['fused']}, K1 launched "
+                             f"{k1 - c0['k1']} times")
+    mean_batch = r["completed"] / max(1, rounds)
+    k1_bound_ms, k1_bound_by = bound(k1_round_bytes(R, mean_batch),
+                                     4 * mean_batch * R)
+    out = {"serve": r, "rounds": rounds, "mean_batch": mean_batch,
+           "k1_launches": k1 - c0["k1"], "series": n_series,
+           "lock_wait_s": lock_wait,
+           "threads": threads, "trace_k1": len(durs),
+           "trace_k1_mean_ms": statistics.mean(durs),
+           "kernel_launch_events": launch_events,
+           "k1_bound_ms": k1_bound_ms, "k1_bound_by": k1_bound_by,
+           "trace": str(path.relative_to(OBS_DIR.parent))}
+    log(f"phase 26: exporter scrape over the socket: serve stats equal to "
+        f"stats(), pallas_fused +{fused - c0['fused']} = K1 launches, "
+        f"{n_series} Prometheus series parse; threads() "
+        + ", ".join(f"{k} x{len(v)}" for k, v in sorted(threads.items()))
+        + f"; device-trace {OBS_TRACE_S:g} s (backend cuda, a second "
+        f"request: capture in progress): {len(durs)} {K1_KERNEL} in the "
+        f"trace beside {launch_events} kernel-launch events in its window; "
+        f"K1 mean {out['trace_k1_mean_ms']:.4f} ms of device time at mean "
+        f"batch {mean_batch:.2f} (bound {k1_bound_ms:.4f} ms, "
+        f"{k1_bound_by}); {r['acked_ops_per_s']:.1f} acked ops/s with the "
+        f"exporter, profiler and tracer on; the combiner lock's contended "
+        f"waits (nr.lock.wait_s, process-wide): {lock_wait}")
+    return out
+
+
+def _obs_tree() -> dict:
+    """Leg B, `bench.py --tree --tree-obs`: an `--obs-primary` child, a
+    `RelayNode` here over `SocketFeed`, an `--obs-leaf` child on the
+    relay, each with its exporter and a ring tracer sampling 1 record in
+    OBS_SAMPLE; a `FleetCollector` scrapes all three into fleet.jsonl
+    while 8 clients drive the primary. The report's Fleet section must
+    hold every node, a complete record across 3 processes and a
+    submit->ack edge; the leaf must hold every acked write."""
+    import shutil
+
+    from node_replication_torch.durable.wal import durable_publish
+    from node_replication_torch.obs import report
+    from node_replication_torch.obs.collect import FleetCollector
+    from node_replication_torch.obs.recorder import set_trace_sample
+    from node_replication_torch.repl import RelayNode, SocketFeed
+
+    want = {"primary": "primary", "relay": "relay", "leaf": "follower"}
+    tree = OBS_DIR / "tree"
+    shutil.rmtree(tree, ignore_errors=True)
+    tree.mkdir(parents=True)
+    logs = {n: open(tree / f"{n}.log", "w") for n in ("primary", "leaf")}
+    procs, relay, coll = {}, None, None
+    tracer = _obs_tracer()
+    t0 = time.perf_counter()
+    try:
+        procs["primary"] = subprocess.Popen(
+            child_cmd("--obs-primary", tree), stdout=logs["primary"],
+            stderr=subprocess.STDOUT)
+        port = int(_wait_file(tree / "port", "the primary's feed port",
+                              procs=procs.values()))
+        relay = RelayNode(SocketFeed("127.0.0.1", port, arg_width=3),
+                          str(tree / "relay"), arg_width=3, name="relay",
+                          obs_port=0)
+        durable_publish(str(tree / "relay_port"),
+                        str(relay.address[1]).encode(), fsync=False)
+        procs["leaf"] = subprocess.Popen(
+            child_cmd("--obs-leaf", tree), stdout=logs["leaf"],
+            stderr=subprocess.STDOUT)
+        targets = [
+            "127.0.0.1:" + _wait_file(tree / "obs_port", "the primary's "
+                                      "exporter", procs=procs.values()),
+            relay.exporter,
+            "127.0.0.1:" + _wait_file(tree / "leaf_obs_port", "the leaf's "
+                                      "exporter", procs=procs.values())]
+        coll = FleetCollector(targets, interval_s=0.2,
+                              out_path=str(tree / "fleet.jsonl"))
+        coll.start()
+        # every node's sampling profiler, started over the exporters
+        started = coll.start_profiles(hz=OBS_HZ)
+        if sorted(started) != sorted(want) or not all(
+                d.get("ok") for d in started.values()):
+            raise AssertionError(f"phase 26: profile-start {started}")
+        boot_s = time.perf_counter() - t0
+        (tree / "go").write_text("")
+        done = json.loads(_wait_file(tree / "done", "the primary's run",
+                                     timeout=600, procs=procs.values()))
+        check = json.loads(_wait_file(tree / "leaf_check", "the leaf's "
+                                      "check", timeout=600,
+                                      procs=procs.values()))
+        profiles = coll.fetch_profiles(stop=True)
+        coll.stop()
+        (tree / "stop").write_text("")
+        for n, p in procs.items():
+            if p.wait(timeout=120) != 0:
+                raise AssertionError(
+                    f"phase 26: the {n} exited {p.returncode}: "
+                    f"{(tree / f'{n}.log').read_text()[-3000:]}")
+        cstats = coll.stats()
+    finally:
+        if coll is not None:
+            coll.close()
+        if relay is not None:
+            relay.close()
+        (tree / "stop").write_text("")
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+        tracer.disable()
+        set_trace_sample(1)
+    srv = done["serve"]
+    if srv["errors"] or srv["completed"] != srv["ops"]:
+        raise AssertionError(f"phase 26: the primary acked "
+                             f"{srv['completed']} of {srv['ops']}: "
+                             f"{srv['errors']}")
+    if not check["ok"]:
+        raise AssertionError(f"phase 26 leaf: {check['error']}")
+    fleet = report.analyze(report.load_events(
+        str(tree / "fleet.jsonl")))["fleet"] or {}
+    nodes = {n["node_id"]: n["role"] for n in fleet.get("nodes", ())}
+    if any(nodes.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"phase 26: the fleet section's nodes {nodes}")
+    edges = fleet.get("edges") or {}
+    if fleet.get("complete_multiprocess_records", 0) < 1 \
+            or "submit->ack" not in edges:
+        raise AssertionError(
+            f"phase 26: {fleet.get('complete_multiprocess_records')} "
+            f"complete records across 3 processes, edges {sorted(edges)}")
+    budgets = {}
+    for node in want:
+        doc = profiles.get(node, {})
+        b = doc.get("budget")
+        if not (b and b["thread_samples"] > 0 and abs(sum(
+                v["frac"] for v in b["stages"].values()) - 1.0) < 1e-9):
+            raise AssertionError(f"phase 26: {node}'s profile {doc}")
+        budgets[node] = {"stages": {k: v["frac"]
+                                    for k, v in b["stages"].items()},
+                         "busy_frac": b["busy_frac"],
+                         "duty_cycle": b["duty_cycle"],
+                         "thread_samples": b["thread_samples"],
+                         "hot": _hot_stacks(doc["profile"])}
+        (OUT_DIR / f"phase26_{node}.folded").write_text(doc["folded"])
+    chain = [f"{a}->{b}" for a, b in zip(OBS_HOPS, OBS_HOPS[1:])] + \
+        ["submit->ack"]
+    out = {"boot_s": boot_s, "serve": srv, "leaf": check,
+           "collector": cstats, "nodes": nodes,
+           "records": fleet["records"],
+           "complete_records": fleet["complete_records"],
+           "complete_multiprocess_records":
+               fleet["complete_multiprocess_records"],
+           "edges": edges, "budgets": budgets, "child_k1_launches": {
+               "primary": done["k1_launches"],
+               "leaf": check["k1_launches"]}}
+    log(f"phase 26: observed tree (primary child, relay here, leaf child; "
+        f"sampling 1/{OBS_SAMPLE}): {srv['completed']} ops acked by "
+        f"{OBS_TREE_CLIENTS} clients at {srv['acked_ops_per_s']:.1f} "
+        f"acked ops/s (p50 {srv['p50_ms']:.3f} ms, p99 {srv['p99_ms']:.3f} "
+        f"ms); the leaf applied {check['records']} records to "
+        f"{check['applied_to']} in {check['k1_launches']} K1 launches and "
+        f"holds all {check['acked']} acked writes; the collector merged "
+        f"{cstats['merged_events']} events in {cstats['cycles']} cycles; "
+        f"fleet: nodes {nodes}, {fleet['records']} records, "
+        f"{fleet['complete_records']} complete, "
+        f"{fleet['complete_multiprocess_records']} across 3 processes")
+    for node, b in budgets.items():
+        log(f"phase 26: {node}'s host budget at {OBS_HZ:g} Hz "
+            f"({b['thread_samples']} thread samples, busy "
+            f"{b['busy_frac']:.4f}, duty {b['duty_cycle']:.6f}): "
+            + ", ".join(f"{k} {100 * v:.1f}%" for k, v in b["stages"].items())
+            + "; hottest busy stacks: " + " | ".join(b["hot"]))
+    log("phase 26: edge p50/p95 ms: " + "; ".join(
+        f"{e} {1e3 * edges[e]['p50_s']:.3f}/{1e3 * edges[e]['p95_s']:.3f} "
+        f"(n={edges[e]['count']})" if e in edges else f"{e} none"
+        for e in chain))
+    return out
+
+
+def phase_obs(dev, rng) -> dict:
+    """Phase 26: the observed flagship. Leg A on phase 13's fleet in
+    this process: the sampling profiler off and on in pairs, then the
+    exporter's socket scrape and `device-trace` capture of K1. Leg B:
+    the observed tree across three processes."""
+    import shutil
+
+    import torch
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    reg = get_registry()
+    reg.enable()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir()
+    nr = NodeReplicated(make_hashmap(K), n_replicas=R, log_entries=1 << 16,
+                        engine="pallas", device=dev)
+    models = [HashmapModel() for _ in range(SV_CLIENTS)]
+    reset_launch_counts()
+    out = {"profiler": _obs_profiled_pairs(nr, models, rng)}
+    c0 = {"serve.batches": reg.counter("serve.batches").value,
+          "fused": reg.counter("nr.exec.engine.pallas_fused").value,
+          "k1": FUSED_KERNEL.launches}
+    out["scrape"] = _obs_scrape_and_trace(nr, models, rng, c0)
+    check_fleet_state(nr, models, "phase 26")
+    del nr
+    torch.cuda.empty_cache()
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    out["tree"] = _obs_tree()
+    out["launches"]["hashmap_fused_round"] += sum(
+        out["tree"]["child_k1_launches"].values())
+    if out["launches"]["hashmap_fused_round"] == 0:
+        raise AssertionError("phase 26 never launched K1")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 26: launches {out['launches']} (the children's "
+        f"{out['tree']['child_k1_launches']} included) in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5677,6 +6287,10 @@ def main() -> int:
         return repl_primary(sys.argv[2])
     if sys.argv[1:2] == ["--txn-child"]:
         return txn_child(sys.argv[2])
+    if sys.argv[1:2] == ["--obs-primary"]:
+        return obs_primary(sys.argv[2])
+    if sys.argv[1:2] == ["--obs-leaf"]:
+        return obs_leaf(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -5745,6 +6359,8 @@ def main() -> int:
         res["shard"] = phase_shard(dev, rng, res["hashmap_serve"])
         res["txn"] = phase_txn(dev)
         torch.cuda.empty_cache()
+        res["obs"] = phase_obs(dev, rng)
+        torch.cuda.empty_cache()
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -5766,7 +6382,7 @@ def main() -> int:
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
         "cnr_rounds", "cnr_serve", "mesh_chain", "repl", "shard",
-        "txn")) + (
+        "txn", "obs")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -5851,6 +6467,16 @@ def main() -> int:
         "ms": sh["k1_check"]["ms"], "plain_ms": sh["k1_check"]["plain_ms"],
         "checked_device_ms": sh["k1_check"]["device_ms"],
         "W": sh["k1_check"]["W"]}
+    # and phase 26's observed flagship: the exporter's device trace of
+    # K1 (its kernel count and mean device time) beside the tracer's
+    # kernel-launch events of the capture's window and the served bound
+    ob = res["obs"]["scrape"]
+    res["fused"]["obs"] = {
+        "R": R, "mean_batch": ob["mean_batch"],
+        "launches": res["obs"]["launches"]["hashmap_fused_round"],
+        "trace_k1": ob["trace_k1"], "trace_k1_mean_ms": ob["trace_k1_mean_ms"],
+        "kernel_launch_events": ob["kernel_launch_events"],
+        "bound_ms": ob["k1_bound_ms"], "bound_by": ob["k1_bound_by"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -5882,6 +6508,7 @@ def main() -> int:
         **({"cnr": p["cnr"]} if "cnr" in p else {}),
         **({"repl": p["repl"]} if "repl" in p else {}),
         **({"sharded": p["sharded"]} if "sharded" in p else {}),
+        **({"obs": p["obs"]} if "obs" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

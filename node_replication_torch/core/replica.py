@@ -84,6 +84,13 @@ FUSED_CAL_SAMPLES = 2
 BATCH_TID = -1
 
 
+def _readback(t: torch.Tensor) -> np.ndarray:
+    """A round's device-to-host read: waits for the card. `.cpu()` is a
+    C call with no Python frame, so this frame is what the sampling
+    profiler (`obs/profile.py`) attributes to the `readback` stage."""
+    return t.cpu().numpy()
+
+
 class _BatchSink:
     """Response sink for caller-assembled batches (`execute_mut_batch`):
     the response half of `Context` without the 32-slot pending ring."""
@@ -779,7 +786,7 @@ class NodeReplicated(_FusedTier):
         return self.spec.n_replicas
 
     def _ltails_host(self) -> np.ndarray:
-        return self.log.ltails.cpu().numpy()
+        return _readback(self.log.ltails)
 
     @_locked
     def ltail(self, rid: int) -> int:
@@ -1231,8 +1238,8 @@ class NodeReplicated(_FusedTier):
         if any(self._inflight):
             self._m_fused_fallback.inc()
             return False
-        cur = torch.cat([self.log.ltails,
-                         self.log.tail.reshape(1)]).cpu().numpy()
+        cur = _readback(torch.cat([self.log.ltails,
+                                   self.log.tail.reshape(1)]))
         lts, tail = cur[:-1], int(cur[-1])
         live = lts if self._fenced is None else lts[~self._fenced]
         if not (live.size
@@ -1258,7 +1265,7 @@ class NodeReplicated(_FusedTier):
             if pending is None:
                 # the response readback is also the round's host
                 # fence; only replica `rid`'s row is delivered
-                resps_np = resps[rid, :n].cpu().numpy()
+                resps_np = _readback(resps[rid, :n])
                 sp.fence(*self._fleet_trees())
         if timing:
             self._note_fused_sample(
@@ -1360,7 +1367,7 @@ class NodeReplicated(_FusedTier):
         if self._is_fenced(rid):
             raise ReplicaFencedError(rid)
         if pending.fused_resps is not None:
-            resps_np = pending.fused_resps[rid, :pending.n].cpu().numpy()
+            resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
             for j, tid in enumerate(pending.tids):
                 self._contexts[(rid, tid)].enqueue_resps(
@@ -1528,7 +1535,7 @@ class NodeReplicated(_FusedTier):
         if self._fenced is not None or any(self._inflight):
             return False
         log = self.log
-        cur = torch.cat([log.ltails, log.tail.reshape(1)]).cpu().numpy()
+        cur = _readback(torch.cat([log.ltails, log.tail.reshape(1)]))
         lts, tail = cur[:-1], int(cur[-1])
         lt = int(lts.min())
         if int(lts.max()) != lt:
@@ -1674,8 +1681,8 @@ class NodeReplicated(_FusedTier):
         already at the tail. Returns True if any replica progressed."""
         fault_hook("replay", -1, self)
         fenced = self._fenced
-        cur = torch.cat([self.log.ltails,
-                         self.log.tail.reshape(1)]).cpu().numpy()
+        cur = _readback(torch.cat([self.log.ltails,
+                                   self.log.tail.reshape(1)]))
         ltails_before, tail = cur[:-1], int(cur[-1])
         live = (
             ltails_before if fenced is None
@@ -1716,7 +1723,7 @@ class NodeReplicated(_FusedTier):
             # GC/head coupling (`durable/wal.py`): min(ltails) is the
             # head this round just computed (<= head under fencing)
             self._wal.maybe_reclaim(int(ltails_after.min()))
-        resps_np = resps.cpu().numpy()
+        resps_np = _readback(resps)
         for r in range(self.n_replicas):
             q = self._inflight[r]
             while q and q[0][0] < int(ltails_after[r]):

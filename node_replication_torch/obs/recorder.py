@@ -78,6 +78,10 @@ class Tracer:
         self._lock = make_lock("Tracer._lock")
         self._fh = None
         self._buffer: "collections.deque[dict] | list[dict] | None" = None
+        #: total events ever emitted to the current sink: with
+        #: `len(buffer)` it locates the ring's window in the global
+        #: event sequence (`events_since`, the exporter's cursor)
+        self._emitted = 0
         self.enabled = False
         self.fence_spans = (
             os.environ.get("NR_TPU_TRACE_FENCE", "") == "1"
@@ -90,6 +94,7 @@ class Tracer:
         with self._lock:
             if self._fh:
                 self._fh.close()
+            self._emitted = 0
             if path:
                 self._fh = open(path, "a", buffering=1)
                 self._buffer = None
@@ -122,13 +127,38 @@ class Tracer:
         with self._lock:
             if self._fh is not None:
                 self._fh.write(json.dumps(rec) + "\n")
+                self._emitted += 1
             elif self._buffer is not None:
                 self._buffer.append(rec)
+                self._emitted += 1
+
+    @property
+    def buffered(self) -> bool:
+        """True in memory/ring mode, the modes `events()`/
+        `events_since()` (and so exporter scrapes) serve from. A
+        file-mode tracer exports nothing: the file is the export."""
+        with self._lock:
+            return self._buffer is not None
 
     def events(self) -> list[dict]:
         """Buffered events (memory/ring mode only), oldest first."""
         with self._lock:
             return list(self._buffer or [])
+
+    def events_since(self, seq: int) -> tuple[int, list[dict]]:
+        """Incremental read of the memory/ring buffer: the events after
+        cursor `seq` (0 for "from the start"; a previous call's
+        returned cursor otherwise). Returns `(new_cursor, events)`.
+        Events the ring evicted before they were read are gone
+        (flight-recorder semantics). File-mode tracers return
+        `(cursor, [])`: the file is the export."""
+        with self._lock:
+            buf = list(self._buffer or [])
+            total = self._emitted
+        missed = total - int(seq)
+        if missed <= 0:
+            return total, []
+        return total, buf[max(0, len(buf) - missed):]
 
 
 _tracer = Tracer()

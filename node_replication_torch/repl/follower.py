@@ -11,8 +11,8 @@ thread's current CUDA stream. No response is read back, so the applied
 cursor advances once K1 is queued; a read (`execute` on the reading
 thread) is ordered after it because both threads issue on the device's
 default stream, and its host read-back waits for the kernel. `obs_port`
-needs `obs/export.py`, which this package does not have yet, and
-raises `NotImplementedError`. One knob is the port's own: `rids=`
+rides the frontend's exporter knob, labeled with the follower's name.
+One knob is the port's own: `rids=`
 names the replicas the read-only frontend serves (None, the default,
 serves every replica, as the reference does). The frontend starts one
 worker thread per served replica, and a fleet of 4096 replicas would
@@ -64,6 +64,7 @@ the acked history ends.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 from typing import Sequence
@@ -110,11 +111,6 @@ class Follower:
         obs_node_id: str | None = None,
         rids: Sequence[int] | None = None,
     ):
-        if obs_port is not None:
-            raise NotImplementedError(
-                "Follower(obs_port=...) needs obs/export.py, which this "
-                "package does not have yet"
-            )
         self.name = name
         self._feed = feed
         self._poll_s = float(poll_s)
@@ -161,8 +157,16 @@ class Follower:
         # promoted follower serves the same ack contract the primary
         # did without rebuilding anything
         cfg = config or ServeConfig(durability="batch")
+        if obs_port is not None:
+            # fleet observability (`obs/export.py`): the follower's
+            # scrape endpoint rides the frontend's exporter knob (one
+            # exporter per node), labeled with the follower's name
+            cfg = dataclasses.replace(cfg, obs_port=obs_port,
+                                      obs_node_id=obs_node_id or name)
         self.frontend = ServeFrontend(self.nr, cfg, rids=rids,
                                       read_only=True)
+        if self.frontend.exporter is not None:
+            self.frontend.exporter.add_stats("follower", self.stats)
 
         reg = get_registry()
         self._m_records = reg.counter("repl.applied_records")

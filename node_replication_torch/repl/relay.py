@@ -1,9 +1,8 @@
 """Relay: a feed-of-feeds fan-out node for cross-host follower trees.
 
 The port's copy of `node_replication_tpu/repl/relay.py`. It runs on the
-host alone (no fleet, no kernel). `obs_port` needs `obs/export.py`,
-which this package does not have yet, and raises
-`NotImplementedError`.
+host alone (no fleet, no kernel). `obs_port` starts the relay's own
+`obs/export.py:MetricsExporter` (role `relay`).
 
 A `RelayNode` is the interior node of a replication tree (1 primary →
 R relays → N followers): it consumes ONE upstream record stream
@@ -103,11 +102,6 @@ class RelayNode:
         obs_port: int | None = None,
         obs_node_id: str | None = None,
     ):
-        if obs_port is not None:
-            raise NotImplementedError(
-                "RelayNode(obs_port=...) needs obs/export.py, which this "
-                "package does not have yet"
-            )
         self.name = name
         self.upstream = upstream
         self._poll_s = float(poll_s)
@@ -148,6 +142,20 @@ class RelayNode:
             auto_start=auto_start,
             name=f"{name}-server",
         )
+        #: fleet observability side port (`obs/export.py`): the
+        #: relay's scrape endpoint, serving the process registry plus
+        #: this relay's stats under its own node identity (several
+        #: relays in one process each get their own endpoint). None
+        #: (default) starts nothing — zero added work anywhere.
+        self.exporter = None
+        if obs_port is not None:
+            from node_replication_torch.obs.export import MetricsExporter
+
+            self.exporter = MetricsExporter(
+                node_id=obs_node_id or name, role="relay",
+                port=obs_port,
+            )
+            self.exporter.add_stats("relay", self.stats)
         self._thread = threading.Thread(
             target=self._pump_loop, name=f"repl-relay-{name}",
             daemon=True,
@@ -180,6 +188,8 @@ class RelayNode:
     def close(self) -> None:
         self.stop()
         self.server.close()
+        if self.exporter is not None:
+            self.exporter.close()
         close = getattr(self.upstream, "close", None)
         if close is not None:
             close()

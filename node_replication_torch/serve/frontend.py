@@ -1,12 +1,12 @@
 """Concurrent batching frontend over a replicated-log wrapper.
 
-The port of `node_replication_tpu/serve/frontend.py`. Everything
-behaves as in the reference but what belongs to modules not ported
-yet: `ServeConfig(obs_port=...)` needs `obs/export.py` and
-`ServeConfig(profile_hz=...)` needs `obs/profile.py`, and the frontend
-raises `NotImplementedError` naming the module when either is set
-(there is no `threads()`, the profiler's role map). The replication
-plane's hooks are here as in the reference: follower mode
+The port of `node_replication_tpu/serve/frontend.py`; everything
+behaves as in the reference. `ServeConfig(obs_port=...)` builds the
+node's `obs/export.py:MetricsExporter` (role `follower` when read-only,
+`primary` otherwise) and `ServeConfig(profile_hz=...)` a started
+`obs/profile.py:SamplingProfiler`; `threads()` maps the live threads to
+the profiler's roles. The replication plane's hooks are here as in the
+reference: follower mode
 (`read_only=True`, writes raise `NotPrimary` until `enable_writes()`),
 the `ack_barrier` a `repl/shipper.py:ReplicationShipper` installs for
 ship-before-ack, and `add_backpressure_source`. Over a meshed fleet
@@ -706,13 +706,6 @@ class ServeFrontend:
             )
         self._nr = nr
         self.cfg = config or ServeConfig()
-        for knob, module in (("obs_port", "obs/export.py"),
-                             ("profile_hz", "obs/profile.py")):
-            if getattr(self.cfg, knob) is not None:
-                raise NotImplementedError(
-                    f"ServeConfig.{knob} needs {module}, which this "
-                    f"package does not have yet"
-                )
         if self.cfg.pipeline_depth > 0 and not hasattr(
                 nr, "begin_mut_batch"):
             raise TypeError(
@@ -840,6 +833,34 @@ class ServeFrontend:
                 self._store_replica(rid, self._new_replica(rid))
                 self._record_device(rid)
 
+        #: fleet observability side port (`ServeConfig.obs_port`,
+        #: `obs/export.py`): the node's scrape endpoint, labeled by
+        #: role — a read-only (follower-mode) frontend announces
+        #: itself as such so the fleet dashboard draws the tree right
+        self.exporter = None
+        if self.cfg.obs_port is not None:
+            from node_replication_torch.obs.export import MetricsExporter
+
+            self.exporter = MetricsExporter(
+                node_id=self.cfg.obs_node_id,
+                role="follower" if self._read_only else "primary",
+                port=self.cfg.obs_port,
+            )
+            self.exporter.add_stats("serve", self.stats)
+        #: host sampling profiler (`ServeConfig.profile_hz`,
+        #: `obs/profile.py`): same existence discipline as the
+        #: exporter — None by default, so profiling costs nothing
+        #: unless a rate was asked for
+        self.profiler = None
+        if self.cfg.profile_hz is not None:
+            from node_replication_torch.obs.profile import SamplingProfiler
+
+            self.profiler = SamplingProfiler(hz=self.cfg.profile_hz)
+            self.profiler.start()
+            if self.exporter is not None:
+                # remote capture serves the frontend's profiler; its
+                # lifecycle stays here (exporter.close won't stop it)
+                self.exporter.attach_profiler(self.profiler)
         if auto_start:
             self.start()
 
@@ -960,6 +981,35 @@ class ServeFrontend:
     def rids(self) -> list[int]:
         with self._lock:  # grow() can resize the dict mid-iteration
             return sorted(self._queues)
+
+    def threads(self) -> dict[str, list[str]]:
+        """Live worker threads by profiler role (`obs.profile.role_of`):
+        the frontend's own workers/completers plus the exporter's
+        accept thread and the profiler's sampler when those exist.
+        Names are unique (each embeds its rid or node id), so the dict
+        is loss-free."""
+        from node_replication_torch.obs.profile import role_of
+
+        with self._lock:
+            live = [
+                t for t in (list(self._workers.values())
+                            + list(self._completers.values()))
+                if t.is_alive()
+            ]
+        for extra in (
+            self.exporter.accept_thread
+            if self.exporter is not None else None,
+            self.profiler.thread
+            if self.profiler is not None else None,
+        ):
+            if extra is not None and extra.is_alive():
+                live.append(extra)
+        out: dict[str, list[str]] = {}
+        for t in live:
+            out.setdefault(role_of(t.name), []).append(t.name)
+        for names in out.values():
+            names.sort()
+        return out
 
     def grow(self, k: int = 1) -> list[int]:
         """Add `k` replicas to the live fleet (`grow_fleet`) and start
@@ -1171,6 +1221,10 @@ class ServeFrontend:
         reg = get_registry()
         for rid, _ in queues:
             reg.remove(f"serve.queue_depth.r{rid}", gauges.get(rid))
+        if self.profiler is not None:
+            self.profiler.stop()
+        if self.exporter is not None:
+            self.exporter.close()
         get_tracer().emit("serve-close", drained=drain)
 
     def __enter__(self) -> "ServeFrontend":

@@ -2,7 +2,8 @@
 
 - No module of `node_replication_torch/`, and not `chip_smoke.py`,
   imports `jax` or `node_replication_tpu` (an AST scan of every import
-  statement); `shard.__all__` is the reference's, read from its source.
+  statement); `shard.__all__` and `obs.__all__` are the reference's,
+  read from its source.
 - The entry points treat `device=None` as the card and raise without
   one, instead of running on the CPU.
 - The kernel wrappers take their plain version only for CPU tensors:
@@ -134,6 +135,29 @@ def test_shard_exports_the_reference_names():
     assert len(ref) == 14
     assert shard.__all__ == ref
     assert all(hasattr(shard, n) for n in ref)
+
+
+OBS_PATH = ("obs/__init__.py", "obs/metrics.py", "obs/recorder.py",
+            "obs/profile.py", "obs/export.py", "obs/collect.py",
+            "obs/report.py", "obs/top.py")
+
+
+def test_obs_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(OBS_PATH) <= files
+    for rel in OBS_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def test_obs_exports_the_reference_names():
+    import node_replication_torch.obs as obs
+
+    ref = _module_all(ROOT / "node_replication_tpu" / "obs" / "__init__.py")
+    assert len(ref) == 13
+    assert obs.__all__ == ref
+    assert all(hasattr(obs, n) for n in ref)
 
 
 def test_shard_group_without_a_card_raises(monkeypatch, tmp_path):

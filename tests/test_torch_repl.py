@@ -687,16 +687,33 @@ def test_high_lag_clamps_admission():
 
 
 def test_obs_port_knobs_raise(tmp_path):
-    # the scrape endpoint needs obs/export.py, not ported yet: asking
-    # for it fails loudly instead of starting nothing
+    # each obs_port knob builds its node's exporter (the follower's on
+    # its read-only frontend, the relay's its own) under the node's
+    # name and role; close() stops it
+    from node_replication_torch.obs.export import ExportError, scrape
     from node_replication_torch.repl import RelayNode
 
     feed = DirectoryFeed(str(tmp_path / "feed"))
-    with pytest.raises(NotImplementedError, match="obs/export.py"):
-        Follower(DISPATCH, feed, str(tmp_path / "f"), nr_kwargs=NR_KW,
-                 obs_port=0)
-    with pytest.raises(NotImplementedError, match="obs/export.py"):
-        RelayNode(feed, str(tmp_path / "relay"), obs_port=0)
+    f = Follower(DISPATCH, feed, str(tmp_path / "f"), nr_kwargs=NR_KW,
+                 obs_port=0, name="f9")
+    relay = RelayNode(feed, str(tmp_path / "relay"), obs_port=0,
+                      name="r9", obs_node_id="relay-node")
+    try:
+        exp = f.frontend.exporter
+        assert (exp.node_id, exp.role) == ("f9", "follower")
+        doc = scrape(*exp.address, timeout_s=2.0)
+        assert {"serve", "follower"} <= set(doc["stats"])
+        assert (relay.exporter.node_id, relay.exporter.role) == (
+            "relay-node", "relay")
+        doc = scrape(*relay.exporter.address, timeout_s=2.0)
+        assert doc["stats"]["relay"]["cursor"] == 0
+    finally:
+        f.close()
+        relay.close()
+    for e in (exp, relay.exporter):
+        assert not e.accept_thread.is_alive()
+        with pytest.raises(ExportError):
+            scrape(*e.address, timeout_s=0.5)
 
 
 def test_follower_rids_bound_its_frontend(tmp_path):

@@ -356,8 +356,24 @@ class TestConfigValidation:
         (dict(profile_hz=10.0), "obs/profile.py"),
     ])
     def test_unported_obs_options_raise(self, kw, module):
-        with pytest.raises(NotImplementedError, match=module):
-            ServeFrontend(small_nr(), ServeConfig(**kw), auto_start=False)
+        # each obs knob builds its module's object (the exporter as
+        # the primary under the configured node id, a running
+        # profiler), and close() stops it
+        fe = ServeFrontend(small_nr(), ServeConfig(obs_node_id="n7", **kw),
+                           auto_start=False)
+        built = fe.exporter if module == "obs/export.py" else fe.profiler
+        other = fe.profiler if module == "obs/export.py" else fe.exporter
+        assert other is None
+        assert type(built).__module__ == \
+            "node_replication_torch." + module[:-3].replace("/", ".")
+        if fe.exporter is not None:
+            assert (built.node_id, built.role) == ("n7", "primary")
+            assert built.accept_thread.is_alive()
+        else:
+            assert built.running
+        fe.close()
+        assert not (built.accept_thread.is_alive()
+                    if fe.exporter is not None else built.running)
 
     def test_durability_needs_a_wal(self):
         with pytest.raises(ValueError, match="WAL"):
