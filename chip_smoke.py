@@ -13,7 +13,8 @@ CNR and the other models. The replicated hashmap at the flagship width
 (R = 4096 replicas, K = 10000 keys):
 
 1. build every CUDA source under `node_replication_torch/csrc/` (one
-   nvcc per source, all at once);
+   nvcc per source, all at once) and, beside them, the native engine
+   (`node_replication_torch/native/nr_native.cpp`, g++);
 2. the replay kernel (K2) against its plain PyTorch version, W = 4096,
    then on windows with inert opcodes (0, 7), keys in [-3K, 3K) and half
    of the entries on 8 hot keys, over the flagship planes and over
@@ -275,9 +276,28 @@ The shard plane (`shard/`, `durable/txnlog.py`):
    across 3 processes and a `submit->ack` edge, and prints each hop
    edge's p50/p95; the leaf holds every acked write.
 
+The harness (`harness/`, `native/`), `bench.py`'s default config
+(R = 4096, K = 10000, uniform keys, 50/50):
+
+27. a `ScaleBenchBuilder` sweep of nr, partitioned and concurrent at 1
+   write + 1 read a replica (0.5 s each; CSVs in `chiprun_out/phase27/`),
+   then the nr runner's state after a step against the concurrent
+   fold's and a numpy map's; `measure_kernel(10000, 4096, 256)`: every
+   tier bit-identical to the scan chain, one K1 launch a `pallas_fused`
+   round and two programs a chain round, the fenced p50/p95 beside K1's
+   bound, and `torch.profiler` over a short `pallas_fused` call (one
+   `hashmap_round_kernel` a launch); then on 4 shards of the card,
+   `mesh_fused` (K1 once a shard: 4 a round) and `shmap` (2 verify
+   rounds), and
+   `measure_mesh` at 1 and 4 shards, bit-identical; `measure_serve`
+   over phase 13's fleet (8 closed-loop clients x 250 ops on rids 0-7,
+   every response against the client models, one K1 a round); and
+   `measure_native`, the C++ engine that phase 1 built with g++ (2
+   replicas x 2 threads, 0.5 s).
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-26) and read just after; a kernel that its path never launched
+17, 19-27) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -285,11 +305,13 @@ two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 CUDA device, or without the package beside this script, it exits
 non-zero at once. Details of the run go to
 `chiprun_out/chip_smoke.json`, phase 26's profiles to
-`chiprun_out/phase26_*.folded` (flamegraph.pl / speedscope input).
+`chiprun_out/phase26_*.folded` (flamegraph.pl / speedscope input),
+phase 27's CSVs to `chiprun_out/phase27/`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -396,18 +418,37 @@ def random_planes(gen, dev, kp: int):
 
 
 def phase_build() -> dict:
+    from node_replication_torch import native
     from node_replication_torch.ops import kernel_lib
 
+    # the native engine (phase 27) builds with g++ beside the nvcc jobs
+    native_build: dict = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native.build(force=True)
+        except Exception as e:  # re-raised below, after nvcc finished
+            native_build["error"] = e
+        native_build["s"] = time.perf_counter() - t
+
+    g = threading.Thread(target=build_native, name="native-build")
     t0 = time.perf_counter()
+    g.start()
     kernel_lib.build_all(force=True)
     secs = time.perf_counter() - t0
+    g.join()
+    if "error" in native_build:
+        raise native_build["error"]
     names = [p.name for p in kernel_lib.sources()]
-    log(f"phase 1: built {', '.join(names)} in {secs:.2f} s")
+    log(f"phase 1: built {', '.join(names)} in {secs:.2f} s; the native "
+        f"engine (g++) in {native_build['s']:.2f} s")
     for name in names:
         for line in kernel_lib.BUILD_LOG[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    return {"build_s": secs, "ptxas": dict(kernel_lib.BUILD_LOG)}
+    return {"build_s": secs, "native_build_s": native_build["s"],
+            "ptxas": dict(kernel_lib.BUILD_LOG)}
 
 
 def ptxas_report(build_log: str, kernel: str) -> list[str]:
@@ -6278,6 +6319,258 @@ def phase_obs(dev, rng) -> dict:
     return out
 
 
+# ------------------------------------------------ the harness (phase 27)
+
+# the sweep's window a system, s (cut from 1 s: the concurrent fold's
+# warm-up and first chunk, 11 steps of 4096 serial ops, set its length)
+HN_SWEEP_S = 0.5
+HN_CHECK_STEPS = 1      # steps of the nr-vs-concurrent state check
+HN_MESH_VERIFY = 2      # the mesh tiers' verify rounds (shmap ~0.8 s each)
+HN_KERNEL_S = 0.5       # measure_kernel's timed rounds a tier, s
+HN_MESH_S = 0.25        # measure_mesh's window a point, s
+HN_CLIENTS, HN_PER = 8, 250   # measure_serve's closed-loop clients
+HN_NATIVE_S = 0.5       # measure_native's window, s
+HN_DIR = OUT_DIR / "phase27"  # the harness's CSVs
+
+
+def _np_fold(gen, steps: int):
+    """A numpy replay of the writes of `steps` steps of a `[S, R, B]`
+    stream in log order (replica-major): `(values, present)`."""
+    values, present = np.zeros(K, np.int32), np.zeros(K, bool)
+    for s in range(steps):
+        for o, a in zip(gen[0][s].reshape(-1), gen[1][s].reshape(-1, 3)):
+            k = int(a[0]) % K
+            if o in (1, 2):  # PUT sets the key, REMOVE clears it
+                values[k], present[k] = (a[1], True) if o == 1 else (0, False)
+    return values, present
+
+
+def phase_harness(dev, rng) -> dict:
+    """Phase 27: the port's harness on the card at the flagship width
+    (`bench.py`'s default config: R = 4096, K = 10000, uniform keys,
+    50/50): a `ScaleBenchBuilder` sweep of nr, partitioned and
+    concurrent; `measure_kernel` at W = 256 on one device (K1 a
+    `pallas_fused` round, under `torch.profiler` once) and on 4 shards
+    (`mesh_fused`, K1 a shard); `measure_mesh` at 1 and 4 shards;
+    `measure_serve` on phase 13's served fleet; `measure_native`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.harness import (
+        ConcurrentDsRunner,
+        NativeRunner,
+        ReplicatedRunner,
+        ScaleBenchBuilder,
+        WorkloadSpec,
+        generate_batches,
+    )
+    from node_replication_torch.harness import mkbench as mk
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.native import MODEL_HASHMAP
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    t_phase = time.perf_counter()
+    HN_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    hm = lambda: make_hashmap(K)  # noqa: E731
+    wl = WorkloadSpec(keyspace=K, write_ratio=50, seed=SEED)
+    reset_launch_counts()
+
+    # 1. the sweep, then NR's final state against the concurrent fold's
+    t0 = time.perf_counter()
+    sweep = (ScaleBenchBuilder(hm, "flagship", wl, device=dev)
+             .replicas([R]).batches([2])
+             .systems(["nr", "partitioned", "concurrent"])
+             .duration(HN_SWEEP_S).out_dir(str(HN_DIR)).run())
+    out["sweep"] = {r.name: {"client_mops": r.client_mops,
+                             "replay_mops": r.mops,
+                             "duration_s": r.duration_s,
+                             "per_second": r.per_second} for r in sweep}
+    out["sweep_s"] = time.perf_counter() - t0
+    gen = generate_batches(wl, HN_CHECK_STEPS, R, 1, 1)
+    nr = ReplicatedRunner(hm(), R, 1, 1, device=dev)
+    cc = ConcurrentDsRunner(hm(), R, 1, 1, device=dev)
+    for r in (nr, cc):
+        r.prepare(*gen)
+        for s in range(HN_CHECK_STEPS):
+            r.run_step(s)
+        r.block()
+    a, b = nr.state_dump(0), cc.state_dump()
+    values, present = _np_fold(gen, HN_CHECK_STEPS)
+    if not (nr.replicas_equal()
+            and np.array_equal(a["values"], b["values"])
+            and np.array_equal(a["present"], b["present"])
+            and np.array_equal(b["values"], values)
+            and np.array_equal(b["present"], present)):
+        raise AssertionError("phase 27: the nr runner's state differs from "
+                             "the concurrent fold's or the numpy map's")
+    del nr, cc
+    torch.cuda.empty_cache()
+    log("phase 27: sweep R={} K={} 1w+1r: ".format(R, K) + ", ".join(
+        f"{n} {v['client_mops']:.4f} Mops client ({v['replay_mops']:.2f} "
+        f"replayed)" for n, v in out["sweep"].items())
+        + f" in {out['sweep_s']:.1f} s; nr after {HN_CHECK_STEPS} step(s) "
+        f"equal to the concurrent fold and a numpy map, replicas equal")
+
+    # 2. measure_kernel on one device: K1 once a pallas_fused round
+    bound_ms = k1_round_bytes(R, W_ROUND) / HBM_BYTES_PER_S * 1e3
+    pts = mk.measure_kernel(K, R, W_ROUND, duration_s=HN_KERNEL_S,
+                            device=dev)
+    want = {"pallas_fused": 1, "combined": 2, "scan": 2}
+    got = {p.tier: p.launches_per_round for p in pts}
+    if (got != want or not all(p.bit_identical for p in pts)
+            or any(p.interpret for p in pts)):
+        raise AssertionError(f"phase 27: measure_kernel {pts}")
+    mk.append_kernel_csv(str(HN_DIR), mk.kernel_rows("flagship", pts))
+    # the profiler over a short pallas_fused call: verify, warm-up and
+    # three timed rounds, each a hashmap_round_kernel (the scan chain
+    # it is held against runs first and warms the tracer up)
+    l0 = FUSED_KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        short = mk.measure_kernel(K, R, W_ROUND, duration_s=0.0,
+                                  tiers=("pallas_fused",), verify_rounds=2,
+                                  device=dev)
+        torch.cuda.synchronize()
+    launched = FUSED_KERNEL.launches - l0
+    k1_ev = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and "hashmap_round" in e.key]
+    k1_seen = sum(e.count for e in k1_ev)
+    if not (short[0].bit_identical and short[0].rounds <= k1_seen
+            <= launched):
+        raise AssertionError(f"phase 27: the profiler saw {k1_seen} K1 "
+                             f"kernels for {launched} launches "
+                             f"({short[0].rounds} timed rounds)")
+    k1_ms = (sum(e.self_device_time_total for e in k1_ev) / 1e3 / k1_seen)
+    out["kernel"] = {"points": [dataclasses.asdict(p) for p in pts],
+                     "bound_ms": bound_ms, "profiled_launches": launched,
+                     "profiled_k1": k1_seen, "k1_device_ms": k1_ms}
+    fused = next(p for p in pts if p.tier == "pallas_fused")
+    log(f"phase 27: measure_kernel R={R} K={K} W={W_ROUND}: " + ", ".join(
+        f"{p.tier} p50 {p.p50_ms:.4f} ms p95 {p.p95_ms:.4f} ms "
+        f"({p.rounds} rounds, {p.launches_per_round} launches a round)"
+        for p in pts) + f"; all bit-identical to the scan chain; a "
+        f"fenced pallas_fused round's p50 {fused.p50_ms:.4f} ms beside "
+        f"K1's bound {bound_ms:.4f} ms; the profiler saw {k1_seen} "
+        f"hashmap_round_kernel for {launched} launches, {k1_ms:.4f} ms "
+        f"of device time each")
+
+    # 3. four shards on this card: mesh_fused (K1 a shard) and shmap,
+    # then the mesh curve at 1 and 4 shards
+    shards = mesh_devices(MESH_SHARDS)
+    mpts = mk.measure_kernel(K, R, W_ROUND, duration_s=HN_KERNEL_S,
+                             verify_rounds=HN_MESH_VERIFY, devices=shards)
+    got = {p.tier: p.launches_per_round for p in mpts}
+    if (got != {"mesh_fused": MESH_SHARDS, "shmap": 2}
+            or not all(p.bit_identical for p in mpts)):
+        raise AssertionError(f"phase 27: mesh measure_kernel {mpts}")
+    mk.append_kernel_csv(str(HN_DIR), mk.kernel_rows("flagship", mpts))
+    curve = mk.measure_mesh(hm, [1, shards], R, keyspace=K,
+                            duration_s=HN_MESH_S, repeats=1, device=dev)
+    if not all(p.bit_identical for p in curve):
+        raise AssertionError("phase 27: a mesh point differs from the "
+                             "1-device fleet")
+    mk.append_mesh_csv(str(HN_DIR), mk.mesh_rows("flagship", curve, 2, K,
+                                                 R)
+                       + mk.mesh_tier_rows("flagship", W_ROUND, mpts))
+    out["mesh_kernel"] = [dataclasses.asdict(p) for p in mpts]
+    out["mesh_curve"] = [{"devices": p.devices, "mops": p.result.mops,
+                          "bit_identical": p.bit_identical} for p in curve]
+    log(f"phase 27: {MESH_SHARDS} shards on {sorted(set(map(str, shards)))}"
+        ": " + ", ".join(f"{p.tier} p50 {p.p50_ms:.4f} ms p95 "
+                         f"{p.p95_ms:.4f} ms ({p.launches_per_round} "
+                         f"launches a round)" for p in mpts)
+        + "; measure_mesh " + ", ".join(
+            f"{p.devices} device(s) {p.result.mops:.2f} Mdisp/s"
+            for p in curve) + ", every point bit-identical")
+
+    # 4. measure_serve on phase 13's served fleet
+    reg = get_registry()
+    reg.enable()
+    counters = ("serve.batches", "nr.exec.engine.pallas_fused",
+                "nr.exec.engine.fused_fallback")
+    fleet = NodeReplicated(make_hashmap(K), n_replicas=R,
+                           log_entries=1 << 16, engine="pallas", device=dev)
+    models = [HashmapModel() for _ in range(HN_CLIENTS)]
+    ops = [hm_client_ops(rng, c, HN_PER) for c in range(HN_CLIENTS)]
+
+    def check(c, i, resp):
+        want = models[c].apply(ops[c][i])
+        return (None if resp == want else
+                f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+    c0 = {n: reg.counter(n).value for n in counters}
+    k0 = FUSED_KERNEL.launches
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001)
+    with ServeFrontend(fleet, cfg, rids=range(SV_RIDS)) as fe:
+        sres = mk.measure_serve(fe, lambda c, i: ops[c][i],
+                                HN_CLIENTS * HN_PER, HN_CLIENTS,
+                                rid_of=lambda c: c % SV_RIDS, check=check,
+                                name="flagship")
+    d = {n: reg.counter(n).value - c0[n] for n in counters}
+    k1 = FUSED_KERNEL.launches - k0
+    if (sres.errors or sres.transport_errors
+            or sres.completed != HN_CLIENTS * HN_PER
+            or not d["serve.batches"] == d["nr.exec.engine.pallas_fused"]
+            == k1 > 0 or d["nr.exec.engine.fused_fallback"]):
+        raise AssertionError(f"phase 27: measure_serve {sres.completed} "
+                             f"acked, errors {sres.errors[:3]} "
+                             f"{sres.transport_errors[:3]}, rounds {d}, "
+                             f"K1 launches {k1}")
+    check_fleet_state(fleet, models, "phase 27 serve")
+    del fleet
+    torch.cuda.empty_cache()
+    mk.append_serve_csv(str(HN_DIR), mk.serve_rows("flagship", sres))
+    out["serve"] = {"acked_ops_per_s": sres.throughput,
+                    "p50_ms": sres.percentile_ms(50),
+                    "p99_ms": sres.percentile_ms(99),
+                    "rounds": d["serve.batches"], "k1_launches": k1}
+    log(f"phase 27: measure_serve {HN_CLIENTS} clients x {HN_PER} ops on "
+        f"rids 0-{SV_RIDS - 1}: {sres.completed} acked, every response "
+        f"equal to the client models; {sres.throughput:.1f} acked ops/s, "
+        f"p50 {sres.percentile_ms(50):.3f} ms, p99 "
+        f"{sres.percentile_ms(99):.3f} ms; {k1} K1 launches for "
+        f"{d['serve.batches']} rounds; the fleet equal to the models")
+
+    # 5. the native C++ engine (built in phase 1 with this host's g++)
+    nat = NativeRunner(MODEL_HASHMAP, K, n_replicas=2,
+                       threads_per_replica=2, write_pct=50, keyspace=K)
+    try:
+        nres = mk.measure_native(nat, duration_s=HN_NATIVE_S)
+        if not (nres.total_client_ops > 0 and nat.replicas_equal()
+                and int(nat.last_per_sec.sum()) == nres.total_client_ops):
+            raise AssertionError(f"phase 27: native {nres}")
+        mk._append_csv(str(HN_DIR / mk.SCALEOUT_CSV), mk._CSV_FIELDS,
+                       mk.native_rows(nat, nres, "flagship", 32,
+                                      wr_eff=50))
+    finally:
+        nat.close()
+    out["native"] = {"client_mops": nres.client_mops,
+                     "threads": int(nat.last_per_sec.shape[0])}
+    log(f"phase 27: measure_native 2 replicas x 2 threads, "
+        f"{HN_NATIVE_S} s: {nres.client_mops:.3f} Mops, replicas equal")
+
+    out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
+                       "hashmap_fused_round": FUSED_KERNEL.launches}
+    if out["launches"]["hashmap_fused_round"] == 0:
+        raise AssertionError("phase 27 never launched K1")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 27: launches {out['launches']} in {out['seconds']:.1f} s; "
+        f"CSVs in {HN_DIR}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6361,6 +6654,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["obs"] = phase_obs(dev, rng)
         torch.cuda.empty_cache()
+        res["harness"] = phase_harness(dev, rng)
+        torch.cuda.empty_cache()
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -6382,7 +6677,7 @@ def main() -> int:
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
         "cnr_rounds", "cnr_serve", "mesh_chain", "repl", "shard",
-        "txn", "obs")) + (
+        "txn", "obs", "harness")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -6477,6 +6772,25 @@ def main() -> int:
         "trace_k1": ob["trace_k1"], "trace_k1_mean_ms": ob["trace_k1_mean_ms"],
         "kernel_launch_events": ob["kernel_launch_events"],
         "bound_ms": ob["k1_bound_ms"], "bound_by": ob["k1_bound_by"]}
+    # and phase 27's harness: measure_kernel's pallas_fused rounds (one
+    # launch each, W = 256) and mesh_fused rounds (one a shard), the
+    # sweep's and the served rounds, with the profiled device time
+    hn = res["harness"]
+    pk = {p["tier"]: p for p in hn["kernel"]["points"]
+          + hn["mesh_kernel"]}
+    res["fused"]["harness"] = {
+        "R": R, "W": W_ROUND, "launches":
+            hn["launches"]["hashmap_fused_round"],
+        "launches_per_round": {t: pk[t]["launches_per_round"]
+                               for t in ("pallas_fused", "mesh_fused")},
+        "p50_ms": {t: pk[t]["p50_ms"] for t in ("pallas_fused",
+                                                 "mesh_fused")},
+        "p95_ms": {t: pk[t]["p95_ms"] for t in ("pallas_fused",
+                                                 "mesh_fused")},
+        "device_ms": hn["kernel"]["k1_device_ms"],
+        "profiled_k1": hn["kernel"]["profiled_k1"],
+        "bound_ms": hn["kernel"]["bound_ms"], "bound_by": "bytes",
+        "served_launches": hn["serve"]["k1_launches"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -6509,6 +6823,7 @@ def main() -> int:
         **({"repl": p["repl"]} if "repl" in p else {}),
         **({"sharded": p["sharded"]} if "sharded" in p else {}),
         **({"obs": p["obs"]} if "obs" in p else {}),
+        **({"harness": p["harness"]} if "harness" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

@@ -1,0 +1,1892 @@
+"""ScaleBench harness: sweeps, measurement, CSV output.
+
+The port of `node_replication_tpu/harness/mkbench.py`, the mkbench
+equivalent (`benches/mkbench.rs`), with the reference's CSV file names,
+columns and column order:
+
+- `ScaleBenchBuilder` — cross-product sweeps of (replica count ×
+  log strategy × batch size), mirroring `ScaleBenchBuilder::configure`'s
+  (ReplicaStrategy × LogStrategy × ThreadMapping × #threads × batch)
+  matrix (`benches/mkbench.rs:950-1182`). Replica placement strategies are
+  mesh shapes here, so the sweep axis is the simulated replica count and
+  the log shard count.
+- per-second throughput capture and CSV records with the reference's
+  column shape (name, rs, ls, tm, batch, threads, duration, thread_id,
+  core_id, second, ops — `benches/mkbench.rs:498-552`).
+- `>> X Mops (min, max)` stdout summaries (`benches/mkbench.rs:592-604`).
+- `baseline_comparison` — single-replica, same workload, data structure
+  direct vs behind-the-log (`benches/mkbench.rs:189-319`).
+- `measure_kernel` — the combiner-round tiers with their bit-identity
+  gate and the `kernel.launches` accounting; `measure_mesh`,
+  `measure_serve`, `measure_chaos`, `measure_native`.
+
+Device rule: `device=None` is the card and raises without one; the
+tests pass `device="cpu"`. Mesh entry points take a device count, a
+device list or a `MachineTopology` (`trait.mesh_devices`).
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import random
+import threading
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from node_replication_torch.harness.trait import (
+    ConcurrentDsRunner,
+    FleetRunner,
+    MultiLogRunner,
+    NativeRunner,
+    PartitionedRunner,
+    ReplicatedRunner,
+    ShardedCnrRunner,
+    ShardedRunner,
+    mesh_devices,
+    stage,
+)
+from node_replication_torch.harness.workloads import (
+    WorkloadSpec,
+    generate_batches,
+    split_write_read,
+)
+from node_replication_torch.utils.trace import get_tracer
+
+SCALEOUT_CSV = "scaleout_benchmarks.csv"
+SKEW_CSV = "cnr_skew_stats.csv"
+# spread_pct/attempts (r5): the contention-aware annotations the
+# flagship bench carries (bench.py) — blank on rows measured without
+# the attempts loop
+_SKEW_FIELDS = [
+    "name", "rs", "ls", "batch", "distribution", "imbalance",
+    "per_log_tails", "client_mops", "replay_mops", "spread_pct",
+    "attempts",
+]
+BASELINE_CSV = "baseline_comparison.csv"
+SERVE_CSV = "serve_benchmarks.csv"
+CHAOS_CSV = "chaos_benchmarks.csv"
+RECOVERY_CSV = "recovery_benchmarks.csv"
+REPLICATION_CSV = "replication_benchmarks.csv"
+TREE_CSV = "tree_benchmarks.csv"
+OVERLOAD_CSV = "overload_benchmarks.csv"
+MESH_CSV = "mesh_benchmarks.csv"
+SHARDED_CSV = "sharded_benchmarks.csv"
+# One row per sharded-fleet measurement (`bench.py --sharded`): N
+# keyspace-sharded primary processes behind a `ShardRouter`.
+# `baseline_ops` is the 1-shard acked-write throughput under the same
+# client load; `aggregate_ops`/`scaling_x` are the horizontal-scaling
+# claim (the gate: N=3 must clear 2.2x). The failover block is the
+# per-shard one — SIGKILL of `victim_shard`'s primary, parent-side
+# promotion, router re-home — with `survivor_hold` = the OTHER
+# shards' goodput during the outage window over their pre-kill
+# window (gate: >= 0.9), and the two hard gates `lost`/`duplicated`
+# from the per-shard ack-chain verifier (both must be 0).
+_SHARDED_FIELDS = [
+    "name", "n_shards", "clients", "duration",
+    "baseline_ops", "aggregate_ops", "scaling_x",
+    "acked", "victim_shard", "victim_acked",
+    "detect_s", "promote_s", "rto_s", "survivor_hold",
+    "lost", "duplicated", "post_promote_ops",
+    # --txn 2PC crash-matrix columns (blank on plain --sharded rows;
+    # `_append_csv`'s header-upgrade rewrite keeps pre-txn CSVs
+    # aligned): kill rounds run / acked txns verified by per-key
+    # read-back / in-doubt intents found and resolved after restart /
+    # half-committed txns observed (gated to 0) / non-txn throughput
+    # parity vs a with_txn=False fleet (gated >= 0.9)
+    "txn_rounds", "txn_acked", "txn_in_doubt", "txn_resolved",
+    "txn_half_committed", "txn_parity",
+    # --reshard live-split columns: keys re-homed by the N->2N split /
+    # acked writes lost or duplicated across the cutover (gated to 0)
+    # / the split's fence window / the worst measured per-moved-key
+    # ack gap (the ONLINE claim, gated)
+    "moved_keys", "reshard_lost", "reshard_dup",
+    "fence_s", "moved_unavail_s",
+]
+# One row per (device count) point of a mesh scaling curve
+# (`bench.py --mesh`): replayed-dispatch throughput at that width,
+# `scaling_x` = throughput / the curve's 1-device throughput, and
+# `efficiency` = scaling_x / devices (1.0 = perfectly linear).
+# `bit_identical` is the curve's hard gate: the sharded fleet's states
+# after the verification steps equal the un-sharded fleet's
+# bit-for-bit (blank-or-1 rows are gate-worthy; 0 means the curve is
+# measuring a DIFFERENT computation and the bench exits nonzero).
+_MESH_FIELDS = [
+    "name", "devices", "replicas", "batch", "keys", "duration",
+    "throughput_mdps", "scaling_x", "efficiency", "bit_identical",
+    "spread_pct", "tier", "launches_per_round",
+]
+# One row per overload run (`bench.py --overload`), static baseline
+# and adaptive controller side by side: open-loop Poisson arrivals at
+# `rate` (a multiple of the measured closed-loop `capacity_ops`) with
+# a heavy-tailed burst mix, `good` = completed within the deadline
+# SLO, `goodput_ops` = good/duration — the gated metric. Shed columns
+# split by priority class; `lost`/`duplicated` are the ack-chain
+# verifier's hard gates (both must be 0).
+_OVERLOAD_FIELDS = [
+    "name", "mode", "pipeline_overlap", "clients", "capacity_ops",
+    "rate", "deadline_ms",
+    "duration", "arrivals", "accepted", "completed", "good",
+    "goodput_ops", "shed", "shed_critical", "shed_normal",
+    "shed_bulk", "evicted", "circuit_open", "deadline_miss",
+    "brownout_reads", "max_brownout_lag", "priority_inversions",
+    "p50_ms", "p99_ms", "lost", "duplicated",
+]
+# One row per follower-failover measurement (`bench.py --follower`):
+# the staleness-bounded read-scale-out phase (reads served against a
+# live follower, stale rejections counted) and the failover phase —
+# SIGKILL of the primary, heartbeat detection, most-advanced election,
+# promotion — with the measured RTO split (detect + promote) and the
+# two hard gates (lost/duplicated fsync-acked writes, both must be 0).
+_REPLICATION_FIELDS = [
+    "name", "clients", "acked", "kill_after_acks", "max_lag_pos",
+    "reads", "stale_reads", "applied_pos", "new_epoch",
+    "drained_records", "detect_s", "promote_s", "rto_s",
+    "lost", "duplicated", "post_restart_ops",
+]
+# One row per tree-replication measurement (`bench.py --tree`): a
+# socket-transported 1 -> relays -> followers topology. The three
+# gated claims, one column group each: `agg_reads_ops`/`read_scaling_x`
+# (aggregate follower read throughput vs one follower — must scale)
+# with `primary_tput_hold` (primary write throughput under the full
+# tree / alone, must hold within tolerance), `bootstrap_s` vs
+# `full_replay_s` (a snapshot-bootstrapped cold follower must catch
+# up faster than full-WAL replay), and the mid-tree failover block
+# (detect/promote/rto + `lost`/`duplicated`, both must be 0).
+_TREE_FIELDS = [
+    "name", "relays", "followers", "acked", "agg_reads_ops",
+    "single_reads_ops", "read_scaling_x", "primary_tput_hold",
+    "bootstrap_pos", "bootstrap_s", "full_replay_s",
+    "bootstrap_speedup_x", "detect_s", "promote_s", "rto_s",
+    "lost", "duplicated", "post_restart_ops",
+    "obs_nodes", "obs_records", "obs_multiproc_records",
+]
+# One row per crash-recovery measurement (`bench.py --crash`): what
+# the seeded SIGKILL destroyed vs. what recovery restored — fsync-acked
+# ops before the kill, the snapshot/WAL split the restart replayed
+# from, restore latency, and the two hard gates (lost/duplicated
+# fsync-acked responses, both must be 0).
+_RECOVERY_FIELDS = [
+    "name", "clients", "durability", "acked", "kill_after_acks",
+    "snapshot_pos", "wal_records", "wal_ops", "truncated_bytes",
+    "recovery_s", "tail", "lost", "duplicated", "post_restart_ops",
+]
+# One row per chaos measurement (`bench.py --chaos`): availability
+# (completed/attempts), re-homed request count, and repair-latency
+# percentiles next to the usual serve latency columns. `kills` is how
+# many injected faults actually fired during the window.
+_CHAOS_FIELDS = [
+    "name", "clients", "duration", "attempts", "completed", "lost",
+    "kills", "repairs", "rehomed", "availability",
+    "repair_p50_ms", "repair_p95_ms", "repair_max_ms",
+    "throughput_ops", "p50_ms", "p95_ms", "p99_ms",
+]
+# One row per serve measurement (not per-second): client-perceived
+# latency percentiles + admission accounting next to throughput, the
+# serve analog of the reference's `>> X Mops` summaries. `rate` is the
+# open-loop target (blank for closed loop); shed/deadline_miss are the
+# typed-rejection counts the frontend recorded over the run.
+_SERVE_FIELDS = [
+    "name", "mode", "pipeline_overlap", "clients", "rate", "duration",
+    "attempts", "accepted", "completed", "shed", "deadline_miss",
+    "throughput_ops", "p50_ms", "p95_ms", "p99_ms",
+    # host-profiling columns (`bench.py --serve --profile`,
+    # obs/profile.py): "" on unprofiled rows — `_append_csv`'s schema
+    # upgrade backfills "" into pre-profile files
+    "profile_hz", "profile_samples", "profile_duty_cycle",
+    "profile_attributed_frac", "profile_overhead_ratio",
+]
+# Reference column shape (`benches/mkbench.rs:498-552`) with one addition:
+# `ops` counts *completed client ops* (the reference's Mops semantics,
+# cross-system comparable) and `dispatches` counts *replayed dispatches*
+# (NR replays every entry on every replica). VERDICT r1 #3.
+# Derivation note (ADVICE r2): native rows carry dispatches measured
+# in-loop; step-runner per-second rows derive dispatches as
+# ops * (total_dispatches / total_client_ops) — exact, not an estimate,
+# because the step runners execute a fixed dispatches:client-ops ratio
+# every step by construction.
+# Placement note (VERDICT r2 weak #6): step-runner rows are per-SECOND
+# aggregates of a single lock-step device program — no OS threads exist,
+# so thread_id/core_id are -1 (not a fabricated 0). Native rows carry
+# real (thread, core) ids from the engine's in-loop bins.
+_CSV_FIELDS = [
+    "name", "rs", "ls", "tm", "batch", "threads", "duration",
+    "thread_id", "core_id", "second", "ops", "dispatches", "wr_eff",
+]
+# `wr_eff` (r5; VERDICT r2→r4 carryover): the EFFECTIVE write percentage
+# a swept row actually ran, computed from the static (Bw, Br) shape that
+# `split_write_read` realized — rounding makes wr=10 at batch 32 really
+# 9.4% and at batch 4 really 25%, and the row name's nominal ratio hid
+# that. Native rows flip a per-op coin (`nr_bench_hashmap`), so their
+# effective ratio IS the nominal one.
+
+
+def _append_csv(path: str, fields: list[str], rows: list[dict]) -> None:
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    if os.path.exists(path):
+        # schema upgrade: whenever the existing header differs from the
+        # current schema IN ANY WAY — new columns, removed columns, or a
+        # reordered same-set header — rewrite the file once under the
+        # canonical field order. Old rows keep "" in columns they predate
+        # and drop columns the schema no longer has, so historical
+        # measurements stay valid and appended rows can never land
+        # misaligned under a stale header (ADVICE r5: the old
+        # strict-subset check let reordered/removed-column headers fall
+        # through to a misaligned append).
+        with open(path, newline="") as f:
+            r = csv.reader(f)
+            header = next(r, None)
+            if header is not None and header != fields:
+                old_rows = [dict(zip(header, row)) for row in r]
+                tmp = f"{path}.{os.getpid()}.tmp"
+                with open(tmp, "w", newline="") as g:
+                    w = csv.DictWriter(g, fieldnames=fields,
+                                       restval="",
+                                       extrasaction="ignore")
+                    w.writeheader()
+                    w.writerows(old_rows)
+                os.replace(tmp, path)
+    fresh = not os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=fields, restval="")
+        if fresh:
+            w.writeheader()
+        w.writerows(rows)
+
+
+@dataclasses.dataclass
+class MeasureResult:
+    name: str
+    total_dispatches: int
+    duration_s: float
+    per_second: list[tuple[int, int]]  # (second, client ops)
+    total_client_ops: int = 0
+
+    @property
+    def mops(self) -> float:
+        """Replayed-dispatch Mops (the flagship bench's aggregate-replay
+        metric)."""
+        return self.total_dispatches / self.duration_s / 1e6
+
+    @property
+    def client_mops(self) -> float:
+        """Completed-client-op Mops (the reference's cross-system
+        comparable metric, `benches/mkbench.rs:592-604`)."""
+        return self.total_client_ops / self.duration_s / 1e6
+
+
+def measure_step_runner(
+    runner: FleetRunner,
+    wr_opc,
+    wr_args,
+    rd_opc,
+    rd_args,
+    duration_s: float = 2.0,
+    warmup_steps: int = 3,
+    chunk: int = 8,
+) -> MeasureResult:
+    """Drive a step runner for ~`duration_s`, bucketing op counts by
+    wall-clock second (the per-second capture of
+    `benches/mkbench.rs:755-761`). Steps cycle over the pre-staged
+    workload.
+
+    `chunk` is the INITIAL steps-per-fence; it doubles whenever a fenced
+    round finishes in under ~0.25s, so the fence (a synchronize plus a
+    readback, `utils/fence.py`) is amortized instead of dominating fast
+    runners. Every chunk's client ops land in the bucket of the second
+    it ended in, so the buckets sum to the total."""
+    S = wr_opc.shape[0]
+    runner.prepare(wr_opc, wr_args, rd_opc, rd_args)
+    for s in range(min(warmup_steps, S)):
+        runner.run_step(s)
+    runner.block()
+    client_per_step = runner.client_ops_per_step or runner.dispatches_per_step
+
+    buckets: dict[int, int] = {}
+    total = 0
+    total_client = 0
+    idx = 0
+    t0 = time.perf_counter()
+    while True:
+        r0 = time.perf_counter()
+        for _ in range(chunk):
+            runner.run_step(idx % S)
+            idx += 1
+        runner.block()
+        now = time.perf_counter()
+        total += chunk * runner.dispatches_per_step
+        done_client = chunk * client_per_step
+        total_client += done_client
+        buckets[int(now - t0)] = buckets.get(int(now - t0), 0) + done_client
+        if now - t0 >= duration_s:
+            break
+        if now - r0 < 0.25:
+            chunk *= 2
+    dur = time.perf_counter() - t0
+    tracer = get_tracer()
+    if tracer.enabled:
+        # per-second capture into the trace (the reference's per-second
+        # counters, `benches/mkbench.rs:755-761`): one `throughput`
+        # event per wall-clock-second bucket — the report CLI's timeline
+        for sec, ops in sorted(buckets.items()):
+            tracer.emit("throughput", runner=runner.name, second=sec,
+                        ops=ops)
+        tracer.emit(
+            "measure", runner=runner.name, duration_s=dur,
+            client_ops=total_client, dispatches=total,
+        )
+    return MeasureResult(
+        name=runner.name,
+        total_dispatches=total,
+        duration_s=dur,
+        per_second=sorted(buckets.items()),
+        total_client_ops=total_client,
+    )
+
+
+def baseline_comparison(
+    dispatch_factory: Callable,
+    name: str,
+    workload: WorkloadSpec,
+    batch_sizes: Sequence[int] = (1, 8, 32, 128),
+    duration_s: float = 1.0,
+    out_dir: str = ".",
+    log_capacity: int | None = None,
+    device=None,
+) -> list[MeasureResult]:
+    """Single-replica baseline: the same op stream applied to the data
+    structure directly vs through the log (`baseline_comparison`,
+    `benches/mkbench.rs:189-319`). Quantifies log overhead per batch size.
+    Writes `baseline_comparison.csv`. Runs on `device` (None: the
+    card)."""
+    results = []
+    rows = []
+    for batch in batch_sizes:
+        bw, br = split_write_read(batch, workload.write_ratio)
+        gen = generate_batches(workload, 16, 1, bw, br)
+        for system in ("direct", "log"):
+            if system == "direct":
+                runner: FleetRunner = ConcurrentDsRunner(
+                    dispatch_factory(), 1, bw, br, device=device
+                )
+            else:
+                runner = ReplicatedRunner(
+                    dispatch_factory(), 1, bw, br, log_capacity=log_capacity,
+                    device=device,
+                )
+            res = measure_step_runner(
+                runner, *gen, duration_s=duration_s
+            )
+            res.name = f"{name}-{system}"
+            results.append(res)
+            rows.append(
+                {
+                    "name": name,
+                    "rs": "one",
+                    "ls": system,
+                    "tm": "none",
+                    "batch": batch,
+                    "threads": 1,
+                    "duration": round(res.duration_s, 3),
+                    "thread_id": -1,  # fleet-aggregate row (see note)
+                    "core_id": -1,
+                    "second": -1,
+                    "ops": res.total_client_ops,
+                    "dispatches": res.total_dispatches,
+                    "wr_eff": effective_write_pct(bw, br),
+                }
+            )
+            print(f">> {res.name} batch={batch}: "
+                  f"{res.client_mops:.2f} Mops client "
+                  f"({res.mops:.2f} Mops replayed)")
+    _append_csv(os.path.join(out_dir, BASELINE_CSV), _CSV_FIELDS, rows)
+    return results
+
+
+class ScaleBenchBuilder:
+    """Sweep builder (`ScaleBenchBuilder`, `benches/mkbench.rs:1041-1093`).
+
+    Axes: replica counts (ReplicaStrategy analog — how many lock-step
+    replicas the fleet simulates), log strategy (1 = NR single log, n > 1 =
+    CNR key-partitioned logs, `LogStrategy::Custom(n)`), ops per replica
+    per step (combiner batch), and the comparison systems to include.
+
+    `device` is where the single-device systems run (None: the card);
+    `devices` is what the mesh systems ('sharded', 'sharded-cnr') span:
+    a device list or a `MachineTopology`, None for every CUDA device
+    (`trait.mesh_devices`).
+    """
+
+    def __init__(self, dispatch_factory: Callable, name: str,
+                 workload: WorkloadSpec | None = None, device=None,
+                 devices=None):
+        self.dispatch_factory = dispatch_factory
+        self.name = name
+        self.workload = workload or WorkloadSpec()
+        self._device = device
+        self._devices = devices
+        self._replicas = [4]
+        self._log_strategies = [1]
+        self._batches = [32]
+        self._systems = ["nr"]
+        self._duration_s = 2.0
+        self._steps = 16
+        self._log_capacity: int | None = None
+        self._out_dir = "."
+        self._partitioned_factory: Callable | None = None
+        self._strategies: list = [None]
+        self._replay: str = "auto"
+        self._max_attempts = 1
+        self._spread_threshold = 5.0
+        self._repeats = 3
+
+    def replicas(self, counts: Sequence[int]):
+        self._replicas = list(counts)
+        return self
+
+    def log_strategies(self, ns: Sequence[int]):
+        self._log_strategies = list(ns)
+        return self
+
+    def batches(self, bs: Sequence[int]):
+        self._batches = list(bs)
+        return self
+
+    def systems(self, names: Sequence[str]):
+        """Subset of {nr, cnr, partitioned, concurrent}."""
+        self._systems = list(names)
+        return self
+
+    def duration(self, seconds: float):
+        self._duration_s = seconds
+        return self
+
+    def log_capacity(self, entries: int):
+        self._log_capacity = entries
+        return self
+
+    def partitioned(self, factory: Callable):
+        """`factory(nlogs) -> PartitionedModel` enabling parallel per-log
+        replay for the cnr system (`models/partitioned.py`)."""
+        self._partitioned_factory = factory
+        return self
+
+    def replica_strategies(self, strategies: Sequence):
+        """ReplicaStrategy sweep for the 'sharded' system: each strategy
+        maps to a device set via the topology walk (the One/Socket/L1
+        ladder, `benches/mkbench.rs:321-362`, `838-945`)."""
+        self._strategies = list(strategies)
+        return self
+
+    def out_dir(self, path: str):
+        self._out_dir = path
+        return self
+
+    def replay(self, mode: str):
+        """Replay engine for nr/cnr runners: 'auto' (combined when the
+        model provides `window_apply`), 'scan' (force the per-entry
+        vmapped scan — the faithful analog of the reference's replay
+        loop), 'combined' (require `window_apply`)."""
+        if mode not in ("auto", "scan", "combined"):
+            raise ValueError(f"unknown replay mode {mode!r}")
+        self._replay = mode
+        return self
+
+    def attempts(self, max_attempts: int, spread_threshold: float = 5.0,
+                 repeats: int = 3):
+        """Contention-aware measurement (the flagship bench's retry
+        loop, bench.py, applied to sweeps): measure each config as
+        `repeats` back-to-back windows, accept the attempt whose
+        min-to-max spread across repeats is within `spread_threshold`
+        percent, retry up to `max_attempts` windows, else keep the
+        cleanest. The accepted spread/attempt count annotate the skew
+        sidecar rows so ms-scale harness numbers on the shared chip are
+        quotable (VERDICT r4 weak #4)."""
+        self._max_attempts = max(1, int(max_attempts))
+        self._spread_threshold = float(spread_threshold)
+        self._repeats = max(1, int(repeats))
+        return self
+
+    def _measure_attempts(self, runner, gen):
+        """Measure one config under the attempts policy (see
+        `attempts`); returns `(result, spread_pct, n_attempts)` —
+        result is the median-throughput repeat of the accepted attempt.
+        With the default single-attempt policy this is one plain
+        `measure_step_runner` call and spread 0."""
+        if self._max_attempts <= 1:
+            return measure_step_runner(
+                runner, *gen, duration_s=self._duration_s
+            ), 0.0, 1
+        best = None
+        n_att = 0
+        for attempt in range(self._max_attempts):
+            n_att += 1
+            reps = [
+                measure_step_runner(
+                    runner, *gen, duration_s=self._duration_s
+                )
+                for _ in range(self._repeats)
+            ]
+            vals = sorted(r.client_mops for r in reps)
+            med = vals[len(vals) // 2]
+            spread = (
+                100.0 * (vals[-1] - vals[0]) / med if med else 0.0
+            )
+            res = min(
+                reps, key=lambda r: abs(r.client_mops - med)
+            )
+            if best is None or spread < best[1]:
+                best = (res, spread)
+            if spread <= self._spread_threshold:
+                break
+            print(f"## attempt {attempt + 1}: spread {spread:.1f}% > "
+                  f"{self._spread_threshold}% — contended window")
+        return best[0], best[1], n_att
+
+    def _make_runner(self, system: str, nlogs: int, R: int, bw: int,
+                     br: int, strategy=None) -> FleetRunner | None:
+        d = self.dispatch_factory()
+        combined = {"auto": None, "scan": False, "combined": True}[
+            self._replay
+        ]
+        if system == "nr" and nlogs == 1:
+            return ReplicatedRunner(d, R, bw, br, self._log_capacity,
+                                    combined=combined, device=self._device)
+        if system in ("cnr", "sharded-cnr") and nlogs > 1:
+            label = f"{system}{nlogs}"
+            part = None
+            if self._partitioned_factory is not None:
+                try:
+                    part = self._partitioned_factory(nlogs)
+                except ValueError as e:
+                    # e.g. keyspace not divisible by this swept nlogs:
+                    # fall back to the sequential fold rather than
+                    # aborting the whole sweep mid-run.
+                    print(f"## {label}: partitioned replay unavailable "
+                          f"({e}); using sequential fold")
+            if combined and part is None:
+                # never mislabel: a forced-combined config without a
+                # partitioned model would silently measure the scan fold
+                print(f"## {label}: skipping — replay 'combined' "
+                      f"forced but no partitioned model")
+                return None
+            where = ({"devices": self._devices}
+                     if system == "sharded-cnr" else
+                     {"device": self._device})
+            cls = (ShardedCnrRunner if system == "sharded-cnr"
+                   else MultiLogRunner)
+            try:
+                return cls(d, R, nlogs, bw, br, self._log_capacity,
+                           partitioned=part,
+                           keyspace=self.workload.keyspace,
+                           combined=combined, **where)
+            except ValueError as e:
+                # e.g. the fleet does not divide over the mesh rows:
+                # skip this config (parity with the 'sharded' branch)
+                print(f"## {label}: skipping — {e}")
+                return None
+        if system == "partitioned" and nlogs == 1:
+            return PartitionedRunner(d, R, bw, br, device=self._device)
+        if system == "concurrent" and nlogs == 1:
+            return ConcurrentDsRunner(d, R, bw, br, device=self._device)
+        if system == "sharded" and nlogs == 1:
+            from node_replication_torch.parallel.topology import (
+                MachineTopology,
+            )
+
+            topo = MachineTopology(mesh_devices(self._devices))
+            if strategy is not None:
+                from node_replication_torch.parallel.mesh import (
+                    strategy_devices,
+                )
+
+                n_dev = len(strategy_devices(strategy, topo))
+                if R % n_dev == 0:
+                    return ShardedRunner(
+                        d, R, bw, br, n_devices=topo,
+                        log_capacity=self._log_capacity,
+                        strategy=strategy,
+                    )
+                return None
+            if R % topo.n_devices() == 0:
+                return ShardedRunner(d, R, bw, br, n_devices=topo,
+                                     log_capacity=self._log_capacity)
+        return None
+
+    def run(self) -> list[MeasureResult]:
+        """Execute the full cross-product; print Mops lines and append
+        per-second CSV records (`scaleout_benchmarks.csv`)."""
+        results = []
+        rows = []
+        skew_rows = []
+        for R in self._replicas:
+            for nlogs in self._log_strategies:
+                for batch in self._batches:
+                    bw, br = split_write_read(
+                        batch, self.workload.write_ratio
+                    )
+                    for system in self._systems:
+                      for strat in (self._strategies
+                                    if system == "sharded" else [None]):
+                        runner = self._make_runner(
+                            system, nlogs, R, bw, br, strategy=strat
+                        )
+                        if runner is None:
+                            continue
+                        if (self._replay != "auto"
+                                and system in ("nr", "cnr",
+                                               "sharded-cnr")):
+                            runner.name += f"-{self._replay}"
+                        gen = generate_batches(
+                            self.workload, self._steps, R, bw, br
+                        )
+                        res, spread, n_att = self._measure_attempts(
+                            runner, gen
+                        )
+                        results.append(res)
+                        ann = (
+                            f" | spread {spread:.1f}% over "
+                            f"{self._repeats}x{n_att}"
+                            if self._max_attempts > 1 else ""
+                        )
+                        print(
+                            f">> {self.name}/{runner.name} R={R} "
+                            f"logs={nlogs} batch={batch}: "
+                            f"{res.client_mops:.2f} Mops client "
+                            f"({res.mops:.2f} Mops replayed){ann}"
+                        )
+                        if nlogs > 1 and hasattr(runner, "stats"):
+                            # skew-faithful routing: per-log appended
+                            # depths expose zipf imbalance (VERDICT r2
+                            # #6), PERSISTED to the sidecar CSV so the
+                            # phenomenon is a committed artifact
+                            # (VERDICT r3 #5), not just a printout
+                            st = runner.stats()
+                            print(
+                                f"## {runner.name} per-log tails "
+                                f"{st['per_log_tail']} imbalance "
+                                f"{st['imbalance']:.2f}"
+                            )
+                            skew_rows.append({
+                                "name": f"{self.name}/{runner.name}",
+                                "rs": R, "ls": nlogs, "batch": batch,
+                                "distribution":
+                                    self.workload.distribution,
+                                "imbalance":
+                                    round(st["imbalance"], 4),
+                                "per_log_tails": "|".join(
+                                    str(t) for t in st["per_log_tail"]
+                                ),
+                                "client_mops":
+                                    round(res.client_mops, 4),
+                                "replay_mops": round(res.mops, 4),
+                                "spread_pct": (
+                                    round(spread, 2)
+                                    if self._max_attempts > 1 else ""
+                                ),
+                                "attempts": (
+                                    n_att
+                                    if self._max_attempts > 1 else ""
+                                ),
+                            })
+                        rows.extend(sweep_rows(
+                            self.name, runner.name, res, R, nlogs, batch,
+                            tm=(strat.value if strat is not None
+                                else "none"),
+                            wr_eff=effective_write_pct(bw, br),
+                        ))
+        _append_csv(
+            os.path.join(self._out_dir, SCALEOUT_CSV), _CSV_FIELDS, rows
+        )
+        if skew_rows:
+            _append_csv(
+                os.path.join(self._out_dir, SKEW_CSV), _SKEW_FIELDS,
+                skew_rows,
+            )
+        return results
+
+
+def effective_write_pct(bw: int, br: int) -> float:
+    """The write percentage the static (Bw, Br) split actually realizes
+    (`split_write_read` rounds; this records what ran — the `wr_eff`
+    column's single source of truth)."""
+    total = bw + br
+    return round(100.0 * bw / total, 2) if total else 0.0
+
+
+def sweep_rows(
+    name: str, runner_name: str, res, rs: int, ls: int, batch: int,
+    tm: str = "none", wr_eff: float | str = "",
+) -> list[dict]:
+    """Per-second CSV rows for one measured step-runner config — the
+    shared row shape of SCALEOUT_CSV (used by the ScaleBenchBuilder
+    sweep and by standalone benches like benches/vspace.py, so the
+    dispatches derivation cannot drift between them)."""
+    disp_frac = res.total_dispatches / max(res.total_client_ops, 1)
+    return [
+        {
+            "name": f"{name}/{runner_name}",
+            "rs": rs, "ls": ls, "tm": tm, "batch": batch,
+            "threads": rs, "duration": round(res.duration_s, 3),
+            "thread_id": -1, "core_id": -1, "second": sec,
+            "ops": ops, "dispatches": int(ops * disp_frac),
+            "wr_eff": wr_eff,
+        }
+        for sec, ops in res.per_second
+    ]
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """One serve-benchmark measurement (closed- or open-loop)."""
+
+    name: str
+    mode: str  # "closed" | "open"
+    clients: int
+    rate: float | None  # open-loop target ops/sec (None for closed)
+    duration_s: float
+    latencies_s: list  # completed ops only, client-perceived seconds
+    attempts: int  # submissions tried (accepted + shed)
+    accepted: int
+    completed: int
+    shed: int
+    deadline_missed: int
+    errors: list  # (client, op_index, message) from the CHECKER only
+    # typed ServeError failures (retry-exhausted Overloaded, deadline
+    # misses, closed frontend) — transport outcomes, NOT oracle
+    # violations; kept apart so `errors` can gate linearizability
+    transport_errors: list
+    # serve-pipeline overlap depth the frontend ran at
+    # (`ServeConfig.pipeline_depth`; 0 = serial worker)
+    pipeline_overlap: int = 0
+
+    def percentile_ms(self, p: float) -> float:
+        if not self.latencies_s:
+            return 0.0
+        return float(
+            np.percentile(np.asarray(self.latencies_s), p)
+        ) * 1e3
+
+    @property
+    def throughput(self) -> float:
+        """Completed client ops per second over the measured wall."""
+        return self.completed / self.duration_s if self.duration_s else 0.0
+
+    @property
+    def shed_rate(self) -> float:
+        return self.shed / self.attempts if self.attempts else 0.0
+
+
+def measure_serve(
+    frontend,
+    op_of: Callable[[int, int], tuple],
+    n_ops: int,
+    clients: int,
+    mode: str = "closed",
+    rate: float | None = None,
+    retry=None,
+    rid_of: Callable[[int], int] | None = None,
+    check: Callable[[int, int, int], str | None] | None = None,
+    name: str = "serve",
+) -> ServeResult:
+    """Drive a `ServeFrontend` from `clients` OS threads and measure
+    client-perceived latency (the serve analog of the reference's
+    per-thread measurement loops, `benches/mkbench.rs:592-604`).
+
+    - `op_of(client, i)` builds op `i` of client `client`
+      (`i` in `[0, n_ops // clients)`); `rid_of(client)` picks the
+      submission replica (defaults to round-robin over the frontend's
+      served rids).
+    - **closed loop** (`mode="closed"`): each client submits, waits for
+      the response, then issues its next op; `retry` (a
+      `serve.client.RetryPolicy`) re-submits `Overloaded` rejections
+      with backoff, and the recorded latency spans the FULL op
+      (backoff included — what a closed-loop caller experiences).
+    - **open loop** (`mode="open"`, requires `rate`): each client
+      submits at its share of `rate` ops/sec without waiting;
+      `Overloaded` sheds the op (no retry — open-loop arrivals don't
+      pause), and latency is harvested from the resolved futures after
+      a final `drain()`.
+    - `check(client, i, resp)` returns an error string for a wrong
+      response (None = ok) — the sequence-numbered no-loss/no-dup
+      verification hook (`models/seqreg.py`).
+    """
+    if mode not in ("closed", "open"):
+        raise ValueError(f"unknown serve mode {mode!r}")
+    if mode == "open" and not rate:
+        raise ValueError("open-loop serve measurement needs a rate")
+    from node_replication_torch.serve import (
+        Overloaded,
+        ServeError,
+        call_with_retry,
+    )
+
+    rids = frontend.rids
+    if rid_of is None:
+        rid_of = lambda c: rids[c % len(rids)]  # noqa: E731
+    per_client = n_ops // clients
+    lat_lock = threading.Lock()
+    latencies: list[float] = []
+    errors: list[tuple] = []
+    transport: list[tuple] = []
+    attempts = [0] * clients
+    open_futs: list[list] = [[] for _ in range(clients)]
+
+    def record(lat_s: float | None, err, kind=errors) -> None:
+        with lat_lock:
+            if lat_s is not None:
+                latencies.append(lat_s)
+            if err is not None:
+                kind.append(err)
+
+    def closed_client(c: int) -> None:
+        rng = random.Random(0xC0FFEE + c)
+        shed_seen = [0]
+
+        def on_shed(attempt, delay):
+            shed_seen[0] += 1
+
+        rid = rid_of(c)
+        exhausted = 0
+        for i in range(per_client):
+            op = op_of(c, i)
+            t0 = time.monotonic()
+            try:
+                if retry is not None:
+                    resp = call_with_retry(
+                        frontend, op, rid=rid, policy=retry, rng=rng,
+                        on_shed=on_shed,
+                    )
+                else:
+                    resp = frontend.call(op, rid=rid)
+            except ServeError as e:
+                if retry is not None and isinstance(e, Overloaded):
+                    # every one of this op's submissions was a shed
+                    # already counted by on_shed; don't let the
+                    # per_client slot double-count it in `attempts`
+                    exhausted += 1
+                record(None, (c, i, f"{type(e).__name__}: {e}"),
+                       kind=transport)
+                continue
+            lat = time.monotonic() - t0
+            err = check(c, i, resp) if check is not None else None
+            record(lat, (c, i, err) if err else None)
+        attempts[c] = per_client + shed_seen[0] - exhausted
+
+    def open_client(c: int) -> None:
+        rid = rid_of(c)
+        interval = clients / rate
+        tried = 0
+        next_t = time.monotonic()
+        for i in range(per_client):
+            now = time.monotonic()
+            if now < next_t:
+                time.sleep(next_t - now)
+            next_t += interval
+            tried += 1
+            try:
+                open_futs[c].append((i, frontend.submit(op_of(c, i),
+                                                        rid=rid)))
+            except Overloaded:
+                pass  # open-loop: shed, move on (frontend counts it)
+        attempts[c] = tried
+
+    before = frontend.stats()
+    target = closed_client if mode == "closed" else open_client
+    threads = [
+        threading.Thread(target=target, args=(c,),
+                         name=f"serve-client-{c}")
+        for c in range(clients)
+    ]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if mode == "open":
+        frontend.drain()
+    duration = time.perf_counter() - t0
+    if mode == "open":
+        for c, futs in enumerate(open_futs):
+            for i, fut in futs:
+                exc = fut.exception(timeout=5.0)
+                if exc is not None:  # deadline miss / closed
+                    record(None,
+                           (c, i, f"{type(exc).__name__}: {exc}"),
+                           kind=transport)
+                    continue
+                err = (
+                    check(c, i, fut.result()) if check is not None
+                    else None
+                )
+                record(fut.latency_s, (c, i, err) if err else None)
+    after = frontend.stats()
+    delta = {
+        k: after[k] - before[k]
+        for k in ("accepted", "completed", "shed", "deadline_missed")
+    }
+    return ServeResult(
+        name=name,
+        mode=mode,
+        clients=clients,
+        rate=rate,
+        duration_s=duration,
+        latencies_s=latencies,
+        attempts=sum(attempts),
+        accepted=delta["accepted"],
+        completed=delta["completed"],
+        shed=delta["shed"],
+        deadline_missed=delta["deadline_missed"],
+        errors=errors,
+        transport_errors=transport,
+        pipeline_overlap=int(getattr(
+            getattr(frontend, "cfg", None), "pipeline_depth", 0,
+        ) or 0),
+    )
+
+
+def serve_rows(name: str, res: ServeResult,
+               profile: dict | None = None) -> list[dict]:
+    """The SERVE_CSV row for one measurement. `profile` (a
+    `bench.py --serve --profile` summary: hz / samples / duty_cycle /
+    attributed_frac / overhead_ratio) fills the profile columns;
+    unprofiled rows leave them ""."""
+    prof = profile or {}
+    return [{
+        "name": f"{name}/{res.name}",
+        "mode": res.mode,
+        "pipeline_overlap": res.pipeline_overlap,
+        "clients": res.clients,
+        "rate": "" if res.rate is None else res.rate,
+        "duration": round(res.duration_s, 3),
+        "attempts": res.attempts,
+        "accepted": res.accepted,
+        "completed": res.completed,
+        "shed": res.shed,
+        "deadline_miss": res.deadline_missed,
+        "throughput_ops": round(res.throughput, 1),
+        "p50_ms": round(res.percentile_ms(50), 3),
+        "p95_ms": round(res.percentile_ms(95), 3),
+        "p99_ms": round(res.percentile_ms(99), 3),
+        "profile_hz": prof.get("hz", ""),
+        "profile_samples": prof.get("samples", ""),
+        "profile_duty_cycle": prof.get("duty_cycle", ""),
+        "profile_attributed_frac": prof.get("attributed_frac", ""),
+        "profile_overhead_ratio": prof.get("overhead_ratio", ""),
+    }]
+
+
+def append_serve_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, SERVE_CSV), _SERVE_FIELDS, rows)
+
+
+def _host_leaves(tree) -> list[np.ndarray]:
+    """A tree's leaves on the host, in `tree_leaves` order (the states
+    and logs the bit-identity gates compare)."""
+    from node_replication_torch.utils.tree import tree_leaves
+
+    return [a.cpu().numpy() for a in tree_leaves(tree)]
+
+
+@dataclasses.dataclass
+class MeshPoint:
+    """One device-count point of a mesh scaling curve
+    (`bench.py --mesh`)."""
+
+    devices: int
+    result: MeasureResult
+    bit_identical: bool
+    spread_pct: float = 0.0
+
+
+def measure_mesh(
+    dispatch_factory: Callable,
+    device_counts: Sequence,
+    n_replicas: int,
+    writes_per_replica: int = 1,
+    reads_per_replica: int = 1,
+    keyspace: int = 1024,
+    duration_s: float = 1.0,
+    verify_steps: int = 4,
+    seed: int = 0,
+    wr_opcode: int = 1,
+    rd_opcode: int = 1,
+    repeats: int = 2,
+    device=None,
+) -> list[MeshPoint]:
+    """Measure the 1→N-device scaling curve of the replica-sharded
+    fused step (`ShardedRunner` over `parallel/mesh.py`), with the
+    bit-identity gate the curve's honesty depends on: before each
+    point is timed, the sharded fleet replays `verify_steps` fixed
+    steps and its states must equal the 1-device reference fleet's
+    bit-for-bit — placement must never change results, only their
+    speed (the mesh acceptance contract, tests/test_mesh_fleet.py).
+
+    Each entry of `device_counts` is a device count (the first n CUDA
+    devices), a device list or a `MachineTopology` (`mesh_devices`; N
+    shards may share one card), and must divide `n_replicas`; a point
+    of one device runs the plain un-sharded runner (the flagship
+    configuration), on that device — on `device` (None: the card) for
+    the count 1, where the reference fleet also runs. Each point is
+    measured `repeats` times; the reported result is the MEDIAN repeat
+    and `spread_pct` is the min→max spread across them (the flagship
+    bench's contention annotation — a shared card can hand a window a
+    misleading slot). Returns one `MeshPoint` per entry, in order;
+    `mesh_rows` turns them into `mesh_benchmarks.csv` rows with
+    scaling/efficiency relative to the first point.
+    """
+    spec = WorkloadSpec(keyspace=keyspace, write_ratio=50, seed=seed)
+    S = 8
+    streams = generate_batches(
+        spec, S, n_replicas, writes_per_replica, reads_per_replica,
+        wr_opcode=wr_opcode, rd_opcode=rd_opcode,
+    )
+
+    def point_devices(entry):
+        if isinstance(entry, int) and entry == 1:
+            return [device]
+        return mesh_devices(entry)
+
+    # 1-device reference states after the verification steps — every
+    # sharded point must reproduce these bit-for-bit
+    ref = ReplicatedRunner(dispatch_factory(), n_replicas,
+                           writes_per_replica, reads_per_replica,
+                           device=device)
+    ref.prepare(*streams)
+    for s in range(verify_steps):
+        ref.run_step(s % S)
+    ref.block()
+    ref_leaves = _host_leaves(ref.states)
+
+    points: list[MeshPoint] = []
+    for entry in device_counts:
+        devs = point_devices(entry)
+        if len(devs) == 1:
+            runner = ReplicatedRunner(
+                dispatch_factory(), n_replicas, writes_per_replica,
+                reads_per_replica, device=devs[0],
+            )
+        else:
+            runner = ShardedRunner(
+                dispatch_factory(), n_replicas, writes_per_replica,
+                reads_per_replica, n_devices=devs,
+            )
+        runner.prepare(*streams)
+        for s in range(verify_steps):
+            runner.run_step(s % S)
+        runner.block()
+        got = _host_leaves(runner.states)
+        bit_identical = len(got) == len(ref_leaves) and all(
+            np.array_equal(a, b) for a, b in zip(ref_leaves, got)
+        )
+        results = [
+            measure_step_runner(runner, *streams,
+                                duration_s=duration_s)
+            for _ in range(max(1, repeats))
+        ]
+        results.sort(key=lambda r: r.mops)
+        res = results[len(results) // 2]  # median repeat
+        spread = (
+            100.0 * (results[-1].mops - results[0].mops) / res.mops
+            if res.mops else 0.0
+        )
+        points.append(MeshPoint(devices=len(devs), result=res,
+                                bit_identical=bit_identical,
+                                spread_pct=spread))
+    return points
+
+
+def mesh_rows(name: str, points: list[MeshPoint], batch: int,
+              keys: int, replicas: int | str = "") -> list[dict]:
+    """MESH_CSV rows: throughput + scaling efficiency vs the curve's
+    first (narrowest) point."""
+    if not points:
+        return []
+    base = points[0].result.mops or 1e-9
+    rows = []
+    for p in points:
+        scaling = p.result.mops / base
+        rows.append({
+            "name": f"{name}/mesh{p.devices}",
+            "devices": p.devices,
+            "replicas": replicas,
+            "batch": batch,
+            "keys": keys,
+            "duration": round(p.result.duration_s, 3),
+            "throughput_mdps": round(p.result.mops, 3),
+            "scaling_x": round(scaling, 4),
+            "efficiency": round(scaling / p.devices, 4),
+            "bit_identical": int(p.bit_identical),
+            "spread_pct": round(p.spread_pct, 2),
+            "tier": "step",  # the fused lock-step scaling curve
+        })
+    return rows
+
+
+def mesh_tier_rows(name: str, window: int,
+                   points: list["KernelPoint"]) -> list[dict]:
+    """MESH_CSV rows for the per-width exec-TIER column (`bench.py
+    --mesh`): one row per (devices, tier) from the combiner-round
+    sweep (`measure_kernel(devices=...)`) — mesh_fused vs the shmap
+    chain at each width, with the counter-derived launch count."""
+    return [{
+        "name": f"{name}/tier{p.devices}/{p.tier}",
+        "devices": p.devices,
+        "replicas": p.n_replicas,
+        "batch": window,
+        "keys": p.n_keys,
+        "duration": round(p.duration_s, 3),
+        "throughput_mdps": round(p.dispatches_per_sec / 1e6, 3),
+        "bit_identical": int(p.bit_identical),
+        "tier": p.tier,
+        "launches_per_round": p.launches_per_round,
+    } for p in points]
+
+
+def append_mesh_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, MESH_CSV), _MESH_FIELDS, rows)
+
+
+# --------------------------------------------------------------- kernel
+KERNEL_CSV = "kernel_benchmarks.csv"
+_KERNEL_FIELDS = [
+    "name", "tier", "devices", "replicas", "keys", "window",
+    "capacity", "rounds", "duration", "dispatches_per_sec",
+    "launches_per_round", "p50_ms", "p95_ms", "bit_identical",
+    "interpret",
+]
+
+
+@dataclasses.dataclass
+class KernelPoint:
+    """One (config, tier) measurement of the combiner-round engines
+    (`bench.py --kernel`): the fused round (K1) vs the append+exec chain
+    on the combined and scan engines — and, with `devices > 1`, the
+    MESH-FUSED round (K1 once per shard) vs the shmap append+exec
+    chain — bit-identity verified BEFORE any timing (a fast wrong
+    kernel is worthless). `launches_per_round` is derived from the
+    `kernel.launches` counter delta over the timed rounds, never a
+    hardcoded constant, so the CSV cannot drift from what actually
+    ran. `interpret` is true where the kernel's plain PyTorch version
+    ran (CPU tensors), false where the CUDA kernel ran."""
+
+    tier: str
+    n_replicas: int
+    n_keys: int
+    window: int
+    capacity: int
+    rounds: int
+    duration_s: float
+    dispatches_per_sec: float
+    launches_per_round: int
+    p50_ms: float
+    p95_ms: float
+    bit_identical: bool
+    interpret: bool
+    devices: int = 1
+
+
+def _kernel_batches(n_keys: int, window: int, arg_width: int, seed: int,
+                    count: int = 8, device=None):
+    """Seeded full-window PUT/REMOVE batches (NOOP-free: every slot
+    live, the flagship round shape), the reference's
+    `np.random.RandomState` stream, staged on `device`."""
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(count):
+        opc = np.where(rng.rand(window) < 0.7, 1, 2).astype(np.int32)
+        args = np.zeros((window, arg_width), np.int32)
+        args[:, 0] = rng.randint(0, n_keys, window)
+        args[:, 1] = rng.randint(0, 1 << 20, window)
+        batches.append((stage(opc, device), stage(args, device)))
+    return batches
+
+
+def measure_kernel(
+    n_keys: int,
+    n_replicas: int,
+    window: int,
+    duration_s: float = 1.0,
+    tiers: Sequence[str] | None = None,
+    verify_rounds: int = 4,
+    seed: int = 0,
+    devices=1,
+    device=None,
+) -> list[KernelPoint]:
+    """Measure one (R, K, W[, devices]) point across the
+    combiner-round tiers.
+
+    At `devices=1` (on `device`, None: the card): chain tiers
+    (`combined`/`scan`) run the round the wrapper's
+    `_append_and_replay` actually runs — an append, a host boundary,
+    then one exec over the appended window — and the `pallas_fused`
+    tier runs the `FusedHashmapEngine` raw round (K1) with
+    TRANSPOSED-RESIDENT state (state stays in kernel layout across
+    rounds — the flagship configuration), 1 launch a round.
+
+    `devices` may also be a device count above 1, a device list or a
+    `MachineTopology` (`mesh_devices`; N shards may share one card).
+    With more than one device the tiers are the MESH pair: `shmap` =
+    the append + `make_shmap_exec` round (2 programs per round),
+    `mesh_fused` = `MeshFusedEngine` (`parallel/collectives.py`), K1
+    once per shard on the shard's replica rows. `kernel.launches`
+    counts each shard's launch, so `launches_per_round` reads the shard
+    count.
+
+    Before any timing, every tier replays `verify_rounds` identical
+    batches from identical init and must match the 1-DEVICE SCAN tier
+    bit-for-bit: model-layout states, every log cursor, the ring
+    content, and per-round responses. Per-round latency (p50/p95) is
+    fenced — each timed round ends on a real device fence
+    (`utils/fence.py`), so the per-batch latency floor is honest, not
+    the enqueue. `launches_per_round` is the `kernel.launches` counter
+    delta over the timed rounds divided by the round count — the fused
+    tiers report through the engines' `note_round` instrumentation hook,
+    the chains count each program at its call site — so the CSV reports
+    what ran, not a constant.
+    """
+    from node_replication_torch.core.log import (
+        LogSpec,
+        log_append,
+        log_catchup_all,
+        log_exec_all,
+        log_init,
+    )
+    from node_replication_torch.core.replica import replicate_state
+    from node_replication_torch.models import make_hashmap
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.parallel.mesh import place, replica_mesh
+    from node_replication_torch.utils.device import resolve_device
+    from node_replication_torch.utils.fence import fence
+
+    n_dev = (devices if isinstance(devices, int)
+             else len(mesh_devices(devices)))
+    if n_replicas % n_dev:
+        raise ValueError(
+            f"R={n_replicas} not divisible by devices={n_dev}"
+        )
+    devs = ([resolve_device(device)] if devices == 1
+            else mesh_devices(devices))
+    home = devs[0]
+    interpret = home.type != "cuda"
+    if tiers is None:
+        tiers = (
+            ("mesh_fused", "shmap") if n_dev > 1
+            else ("pallas_fused", "combined", "scan")
+        )
+    W = int(window)
+    spec = LogSpec(
+        capacity=max(4 * W, 512), n_replicas=n_replicas, arg_width=3,
+        gc_slack=min(128, W),
+    )
+    d = make_hashmap(n_keys)
+    batches = _kernel_batches(n_keys, W, spec.arg_width, seed,
+                              device=home)
+    S = len(batches)
+    mesh = replica_mesh(n_dev, devices=devs) if n_dev > 1 else None
+    reg = get_registry()
+    launch_c = reg.counter("kernel.launches")
+
+    def fresh_fleet():
+        return log_init(spec, home), replicate_state(d.init_state(home),
+                                                     n_replicas)
+
+    def chain_runner(exec_fn, placed: bool):
+        # ONE chain shape for the single-device and shmap tiers:
+        # append, host boundary, exec — each counted at its dispatch
+        # site, so a change to the round protocol or the launch
+        # accounting cannot diverge between them. A single-device fleet
+        # is the pair (log, states), a meshed one a `Placed`.
+
+        class Chain:
+            def __init__(self):
+                self.reset()
+
+            def reset(self):
+                fleet = fresh_fleet()
+                self.fleet = place(*fleet, mesh) if placed else fleet
+
+            @property
+            def log(self):
+                return self.fleet.log if placed else self.fleet[0]
+
+            def round(self, opc, args):
+                log = log_append(spec, self.log, opc, args, W)
+                self.fleet = (self.fleet.with_log(log) if placed
+                              else (log, self.fleet[1]))
+                launch_c.inc()
+                self.fleet, resps = exec_fn(self.fleet)
+                launch_c.inc()
+                return resps
+
+            def model_states(self):
+                return self.fleet.states if placed else self.fleet[1]
+
+            def fence_all(self):
+                fence(self.fleet.trees() if placed else self.fleet)
+
+        return Chain()
+
+    def make_chain(engine: str):
+        exec_fn = log_exec_all if engine == "scan" else log_catchup_all
+
+        def exec_round(fleet):
+            log, states, resps = exec_fn(spec, d, *fleet, W)
+            return (log, states), resps
+
+        return chain_runner(exec_round, placed=False)
+
+    def make_shmap():
+        from node_replication_torch.parallel.collectives import (
+            make_shmap_exec,
+        )
+
+        return chain_runner(make_shmap_exec(d, spec, mesh, W), placed=True)
+
+    def make_fused():
+        eng = d.fused_factory(spec, device=home)
+        if not eng.supports(W):
+            raise ValueError(
+                f"fused engine rejects window {W} at capacity "
+                f"{spec.capacity}"
+            )
+        raw = eng.raw_round(W)
+        K = n_keys
+        kp = eng.kp
+
+        class Fused:
+            def __init__(self):
+                self.reset()
+
+            def reset(self):
+                self.log = log_init(spec, home)
+                st = replicate_state(d.init_state(home), n_replicas)
+                self.vals = torch.zeros((kp, n_replicas), dtype=torch.int32,
+                                        device=home)
+                self.vals[:K] = st["values"].T
+                self.pres = torch.zeros_like(self.vals)
+                self.pres[:K] = st["present"].T.to(torch.int32)
+
+            def round(self, opc, args):
+                t0 = time.perf_counter()
+                self.log, self.vals, self.pres, resps = raw(
+                    self.log, self.vals, self.pres, opc, args, W
+                )
+                # the bench embeds raw_round in its own loop, so the
+                # engine's round() wrapper never runs — report through
+                # the same instrumentation hook (kernel.launches et
+                # al.; one contract, never two)
+                eng.note_round(W, W, time.perf_counter() - t0)
+                return resps.T  # [R, W], the chain layout
+
+            def model_states(self):
+                return {
+                    "values": self.vals[:K].T,
+                    "present": self.pres[:K].T > 0,
+                }
+
+            def fence_all(self):
+                fence(self.log, self.vals, self.pres)
+
+        return Fused()
+
+    def make_mesh_fused():
+        from node_replication_torch.parallel.collectives import (
+            MeshFusedEngine,
+        )
+
+        eng = MeshFusedEngine(d, spec, mesh)
+        if not eng.supports(W):
+            raise ValueError(
+                f"mesh-fused engine rejects window {W} at capacity "
+                f"{spec.capacity} over {n_dev} devices"
+            )
+
+        class MeshFused:
+            def __init__(self):
+                self.reset()
+
+            def reset(self):
+                self.fleet = place(*fresh_fleet(), mesh)
+
+            @property
+            def log(self):
+                return self.fleet.log
+
+            def round(self, opc, args):
+                # the host entry: every shard's K1 round, the lattice
+                # join and the note_round instrumentation
+                # (kernel.launches counts each shard's launch)
+                self.fleet, resps = eng.round(self.fleet, opc, args, W)
+                return resps
+
+            def model_states(self):
+                return self.fleet.states
+
+            def fence_all(self):
+                fence(self.fleet.trees())
+
+        return MeshFused()
+
+    def build(tier: str):
+        if tier == "pallas_fused":
+            return make_fused()
+        if tier == "mesh_fused":
+            return make_mesh_fused()
+        if tier == "shmap":
+            return make_shmap()
+        return make_chain(tier)
+
+    was_enabled = reg.enabled
+    reg.enable()  # launches_per_round is a counter delta
+    try:
+        # ---- bit-identity BEFORE timing (the 1-device scan chain is
+        # the reference at EVERY devices count) --------------------
+        ref = make_chain("scan")
+        ref_resps = []
+        for i in range(verify_rounds):
+            ref_resps.append(ref.round(*batches[i % S]).cpu().numpy())
+        ref.fence_all()
+        ref_states = _host_leaves(ref.model_states())
+        ref_log = _host_leaves(ref.log)
+
+        points: list[KernelPoint] = []
+        for tier in tiers:
+            runner = build(tier)
+            ok = True
+            for i in range(verify_rounds):
+                got = runner.round(*batches[i % S]).cpu().numpy()
+                if not np.array_equal(got, ref_resps[i]):
+                    ok = False
+            runner.fence_all()
+            got_states = _host_leaves(runner.model_states())
+            got_log = _host_leaves(runner.log)
+            ok = ok and len(got_states) == len(ref_states) and all(
+                np.array_equal(a, b)
+                for a, b in zip(ref_states, got_states)
+            ) and len(got_log) == len(ref_log) and all(
+                np.array_equal(a, b) for a, b in zip(got_log, ref_log)
+            )
+            # ---- fenced per-round timing on a fresh fleet ----------
+            # (same runner: reset() only re-inits the fleet)
+            runner.reset()
+            runner.round(*batches[0])  # warm from the fresh init
+            runner.fence_all()
+            lat: list[float] = []
+            total = 0.0
+            i = 0
+            mark = launch_c.value
+            while total < duration_s or len(lat) < 3:
+                t0 = time.perf_counter()
+                runner.round(*batches[i % S])
+                runner.fence_all()
+                dt = time.perf_counter() - t0
+                lat.append(dt)
+                total += dt
+                i += 1
+                if len(lat) >= 10_000:  # plain-version safety valve
+                    break
+            lat.sort()
+            rounds = len(lat)
+            dps = n_replicas * W * rounds / total if total else 0.0
+            points.append(KernelPoint(
+                tier=tier, n_replicas=n_replicas, n_keys=n_keys,
+                window=W, capacity=spec.capacity, rounds=rounds,
+                duration_s=total, dispatches_per_sec=dps,
+                launches_per_round=(
+                    (launch_c.value - mark) // rounds
+                ),
+                p50_ms=1e3 * lat[rounds // 2],
+                p95_ms=1e3 * lat[min(rounds - 1, int(rounds * 0.95))],
+                bit_identical=ok, interpret=interpret,
+                devices=n_dev,
+            ))
+    finally:
+        reg.enabled = was_enabled
+    return points
+
+
+def kernel_rows(name: str, points: list[KernelPoint]) -> list[dict]:
+    """KERNEL_CSV rows for one (R, K, W[, devices]) point's tier
+    sweep."""
+    return [{
+        "name": f"{name}/{p.tier}",
+        "tier": p.tier,
+        "devices": p.devices,
+        "replicas": p.n_replicas,
+        "keys": p.n_keys,
+        "window": p.window,
+        "capacity": p.capacity,
+        "rounds": p.rounds,
+        "duration": round(p.duration_s, 3),
+        "dispatches_per_sec": round(p.dispatches_per_sec, 1),
+        "launches_per_round": p.launches_per_round,
+        "p50_ms": round(p.p50_ms, 4),
+        "p95_ms": round(p.p95_ms, 4),
+        "bit_identical": int(p.bit_identical),
+        "interpret": int(p.interpret),
+    } for p in points]
+
+
+def append_kernel_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, KERNEL_CSV), _KERNEL_FIELDS, rows)
+
+
+@dataclasses.dataclass
+class ChaosResult:
+    """One chaos measurement: a sequence-verified closed-loop serve run
+    with a `FaultPlan` killing (and the lifecycle manager repairing)
+    replicas mid-flight (`bench.py --chaos`)."""
+
+    serve: "ServeResult"
+    fired: list  # the plan's fired-fault records
+    repairs: list  # ReplicaLifecycleManager repair reports
+    rehomed: int
+    health: dict  # HealthTracker snapshot after the run settles
+
+    @property
+    def availability(self) -> float:
+        """Completed / attempted client ops over the chaos window —
+        with pre-append failover + transparent retry this should be
+        1.0: a kill costs latency, never responses."""
+        a = self.serve.attempts
+        return self.serve.completed / a if a else 0.0
+
+    def repair_ms(self, p: float) -> float:
+        durs = sorted(r["duration_s"] for r in self.repairs)
+        if not durs:
+            return 0.0
+        k = max(0, min(len(durs) - 1,
+                       int(round(p / 100.0 * (len(durs) - 1)))))
+        return durs[k] * 1e3
+
+
+def measure_chaos(
+    frontend,
+    manager,
+    plan,
+    op_of: Callable[[int, int], tuple],
+    n_ops: int,
+    clients: int,
+    retry=None,
+    check: Callable[[int, int, int], str | None] | None = None,
+    name: str = "chaos",
+    settle_timeout_s: float = 60.0,
+) -> ChaosResult:
+    """Closed-loop `measure_serve` with `plan` armed for the duration:
+    injected kills retire replicas, the lifecycle `manager` repairs and
+    readmits them, and clients ride `call_with_retry`'s failover
+    re-route — so the oracle (`check`, usually seqreg) verifies that
+    the kill cost latency, not correctness. Waits for outstanding
+    repairs to settle before reporting."""
+    stats0 = frontend.stats()
+    with plan.armed():
+        res = measure_serve(
+            frontend, op_of, n_ops, clients, mode="closed",
+            retry=retry, check=check, name=name,
+        )
+    if not manager.wait_idle(settle_timeout_s):
+        res.transport_errors.append(
+            (-1, -1, "repair did not settle within "
+                     f"{settle_timeout_s}s")
+        )
+    rehomed = frontend.stats()["rehomed"] - stats0.get("rehomed", 0)
+    return ChaosResult(
+        serve=res,
+        fired=list(plan.fired),
+        repairs=list(manager.repairs),
+        rehomed=rehomed,
+        health=manager.health.snapshot(),
+    )
+
+
+def chaos_rows(name: str, res: ChaosResult) -> list[dict]:
+    """The CHAOS_CSV row for one measurement."""
+    s = res.serve
+    return [{
+        "name": f"{name}/{s.name}",
+        "clients": s.clients,
+        "duration": round(s.duration_s, 3),
+        "attempts": s.attempts,
+        "completed": s.completed,
+        "lost": s.attempts - s.completed,
+        "kills": len(res.fired),
+        "repairs": len(res.repairs),
+        "rehomed": res.rehomed,
+        "availability": round(res.availability, 6),
+        "repair_p50_ms": round(res.repair_ms(50), 3),
+        "repair_p95_ms": round(res.repair_ms(95), 3),
+        "repair_max_ms": round(res.repair_ms(100), 3),
+        "throughput_ops": round(s.throughput, 1),
+        "p50_ms": round(s.percentile_ms(50), 3),
+        "p95_ms": round(s.percentile_ms(95), 3),
+        "p99_ms": round(s.percentile_ms(99), 3),
+    }]
+
+
+def append_chaos_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, CHAOS_CSV), _CHAOS_FIELDS, rows)
+
+
+def recovery_rows(name: str, report, *, clients: int, durability: str,
+                  acked: int, kill_after: int, lost: int,
+                  duplicated: int, post_restart_ops: int) -> list[dict]:
+    """The RECOVERY_CSV row for one crash-recovery measurement
+    (`report` is a `durable/recovery.py:RecoveryReport`; the kwargs
+    carry what the crash harness observed around it)."""
+    return [{
+        "name": f"{name}/crash-seqreg",
+        "clients": clients,
+        "durability": durability,
+        "acked": acked,
+        "kill_after_acks": kill_after,
+        "snapshot_pos": report.snapshot_pos,
+        "wal_records": report.wal_records,
+        "wal_ops": report.wal_ops,
+        "truncated_bytes": report.wal_truncated_bytes,
+        "recovery_s": round(report.duration_s, 4),
+        "tail": report.tail,
+        "lost": lost,
+        "duplicated": duplicated,
+        "post_restart_ops": post_restart_ops,
+    }]
+
+
+def append_recovery_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, RECOVERY_CSV),
+                _RECOVERY_FIELDS, rows)
+
+
+def replication_rows(name: str, report, *, clients: int, acked: int,
+                     kill_after: int, max_lag_pos: int, reads: int,
+                     stale_reads: int, lost: int, duplicated: int,
+                     post_restart_ops: int) -> list[dict]:
+    """The REPLICATION_CSV row for one follower-failover measurement
+    (`report` is a `repl/promote.py:PromotionReport`; the kwargs carry
+    what the follower harness observed around it)."""
+    return [{
+        "name": f"{name}/follower-seqreg",
+        "clients": clients,
+        "acked": acked,
+        "kill_after_acks": kill_after,
+        "max_lag_pos": max_lag_pos,
+        "reads": reads,
+        "stale_reads": stale_reads,
+        "applied_pos": report.applied_pos,
+        "new_epoch": report.new_epoch,
+        "drained_records": report.drained_records,
+        "detect_s": round(report.detect_s, 4),
+        "promote_s": round(report.promote_s, 4),
+        "rto_s": round(report.rto_s, 4),
+        "lost": lost,
+        "duplicated": duplicated,
+        "post_restart_ops": post_restart_ops,
+    }]
+
+
+def overload_rows(name: str, run: dict) -> list[dict]:
+    """The OVERLOAD_CSV row for one `bench.py --overload` run dict
+    (the bench builds one per mode: `static` and `adaptive`)."""
+    return [{
+        "name": f"{name}/{run['mode']}",
+        "mode": run["mode"],
+        "pipeline_overlap": run.get("pipeline_overlap", 0),
+        "clients": run["clients"],
+        "capacity_ops": round(run["capacity_ops"], 1),
+        "rate": round(run["rate"], 1),
+        "deadline_ms": round(run["deadline_s"] * 1e3, 3),
+        "duration": round(run["duration_s"], 3),
+        "arrivals": run["arrivals"],
+        "accepted": run["accepted"],
+        "completed": run["completed"],
+        "good": run["good"],
+        "goodput_ops": round(run["goodput"], 1),
+        "shed": run["shed"],
+        "shed_critical": run["shed_by_priority"].get("critical", 0),
+        "shed_normal": run["shed_by_priority"].get("normal", 0),
+        "shed_bulk": run["shed_by_priority"].get("bulk", 0),
+        "evicted": run["evicted"],
+        "circuit_open": run["circuit_open"],
+        "deadline_miss": run["deadline_miss"],
+        "brownout_reads": run["brownout_reads"],
+        "max_brownout_lag": run["max_brownout_lag"],
+        "priority_inversions": run["priority_inversions"],
+        "p50_ms": round(run["p50_ms"], 3),
+        "p99_ms": round(run["p99_ms"], 3),
+        "lost": run["lost"],
+        "duplicated": run["duplicated"],
+    }]
+
+
+def append_overload_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, OVERLOAD_CSV),
+                _OVERLOAD_FIELDS, rows)
+
+
+def append_replication_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, REPLICATION_CSV),
+                _REPLICATION_FIELDS, rows)
+
+
+def tree_rows(name: str, run: dict) -> list[dict]:
+    """The TREE_CSV row for one `bench.py --tree` run dict (see
+    `_TREE_FIELDS` for the gated column groups)."""
+    return [{
+        "name": f"{name}/tree-seqreg",
+        "relays": run["relays"],
+        "followers": run["followers"],
+        "acked": run["acked"],
+        "agg_reads_ops": round(run["agg_reads_ops"], 1),
+        "single_reads_ops": round(run["single_reads_ops"], 1),
+        "read_scaling_x": round(run["read_scaling_x"], 3),
+        "primary_tput_hold": round(run["primary_tput_hold"], 3),
+        "bootstrap_pos": run["bootstrap_pos"],
+        "bootstrap_s": round(run["bootstrap_s"], 4),
+        "full_replay_s": round(run["full_replay_s"], 4),
+        "bootstrap_speedup_x": round(run["bootstrap_speedup_x"], 3),
+        "detect_s": round(run["detect_s"], 4),
+        "promote_s": round(run["promote_s"], 4),
+        "rto_s": round(run["rto_s"], 4),
+        "lost": run["lost"],
+        "duplicated": run["duplicated"],
+        "post_restart_ops": run["post_restart_ops"],
+        # --tree-obs fleet-observability columns (0 when the run had
+        # no exporters; _append_csv's header-mismatch rewrite keeps
+        # pre-obs CSVs aligned)
+        "obs_nodes": run.get("obs_nodes", 0),
+        "obs_records": run.get("obs_records", 0),
+        "obs_multiproc_records": run.get("obs_multiproc_records", 0),
+    }]
+
+
+def append_tree_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, TREE_CSV), _TREE_FIELDS, rows)
+
+
+def sharded_rows(name: str, run: dict) -> list[dict]:
+    """The SHARDED_CSV row for one `bench.py --sharded` run dict (see
+    `_SHARDED_FIELDS` for the gated column groups)."""
+    return [{
+        "name": f"{name}/sharded-seqreg",
+        "n_shards": run["n_shards"],
+        "clients": run["clients"],
+        "duration": round(run["duration"], 3),
+        "baseline_ops": round(run["baseline_ops"], 1),
+        "aggregate_ops": round(run["aggregate_ops"], 1),
+        "scaling_x": round(run["scaling_x"], 3),
+        "acked": run["acked"],
+        "victim_shard": run["victim_shard"],
+        "victim_acked": run["victim_acked"],
+        "detect_s": round(run["detect_s"], 4),
+        "promote_s": round(run["promote_s"], 4),
+        "rto_s": round(run["rto_s"], 4),
+        "survivor_hold": round(run["survivor_hold"], 3),
+        "lost": run["lost"],
+        "duplicated": run["duplicated"],
+        "post_promote_ops": run["post_promote_ops"],
+    }]
+
+
+def append_sharded_csv(out_dir: str, rows: list[dict]) -> None:
+    _append_csv(os.path.join(out_dir, SHARDED_CSV),
+                _SHARDED_FIELDS, rows)
+
+
+def txn_rows(name: str, run: dict) -> list[dict]:
+    """The SHARDED_CSV row for one `bench.py --txn` run dict: the
+    SIGKILL-matrix atomicity gate plus the non-txn throughput-parity
+    leg (columns the plain --sharded rows leave blank)."""
+    return [{
+        "name": f"{name}/sharded-txn",
+        "n_shards": run["n_shards"],
+        "clients": run["clients"],
+        "duration": round(run["duration"], 3),
+        "acked": run["acked"],
+        "lost": run["lost"],
+        "duplicated": run["duplicated"],
+        "txn_rounds": run["txn_rounds"],
+        "txn_acked": run["txn_acked"],
+        "txn_in_doubt": run["txn_in_doubt"],
+        "txn_resolved": run["txn_resolved"],
+        "txn_half_committed": run["txn_half_committed"],
+        "txn_parity": round(run["txn_parity"], 3),
+    }]
+
+
+def reshard_rows(name: str, run: dict) -> list[dict]:
+    """The SHARDED_CSV row for one `bench.py --reshard` run dict: the
+    live N->2N split's exactness + bounded-unavailability gates."""
+    return [{
+        "name": f"{name}/sharded-reshard",
+        "n_shards": run["n_shards"],
+        "clients": run["clients"],
+        "duration": round(run["duration"], 3),
+        "acked": run["acked"],
+        "lost": run["lost"],
+        "duplicated": run["duplicated"],
+        "moved_keys": run["moved_keys"],
+        "reshard_lost": run["reshard_lost"],
+        "reshard_dup": run["reshard_dup"],
+        "fence_s": round(run["fence_s"], 4),
+        "moved_unavail_s": round(run["moved_unavail_s"], 4),
+    }]
+
+
+def measure_native(
+    runner: NativeRunner, duration_s: float = 2.0, seed: int = 1
+) -> MeasureResult:
+    """Measure a native-engine runner (threads in C++). Per-second buckets
+    come from the engine's real in-loop bins, and `native_rows` returns
+    genuine per-(thread, second) CSV records — not a fabricated division
+    (VERDICT r1 #3; reference granularity `benches/mkbench.rs:498-552`).
+    For the native engine every completed client op is exactly one
+    dispatch on the issuing replica's path, so ops == dispatches."""
+    total, per, per_sec = runner.run_duration(int(duration_s * 1000), seed)
+    runner.last_per_thread = per
+    runner.last_per_sec = per_sec
+    by_sec = per_sec.sum(axis=0)
+    return MeasureResult(
+        name=runner.name,
+        total_dispatches=int(total),
+        duration_s=duration_s,
+        per_second=[(s, int(by_sec[s])) for s in range(len(by_sec))],
+        total_client_ops=int(total),
+    )
+
+
+def native_rows(
+    runner: NativeRunner, res: MeasureResult, name: str, batch: int,
+    wr_eff: float | str = "",
+) -> list[dict]:
+    """Per-(thread, second) CSV rows from the native engine's real bins.
+    Native loops flip a per-op coin, so their effective write ratio IS
+    the nominal one — callers pass it through as `wr_eff`."""
+    per_sec = runner.last_per_sec
+    rows = []
+    n_threads, n_secs = per_sec.shape
+    for t in range(n_threads):
+        for s in range(n_secs):
+            rows.append(
+                {
+                    "name": f"{name}/{runner.name}",
+                    "rs": runner.n_replicas,
+                    "ls": runner.nlogs,
+                    "tm": "none",
+                    "batch": batch,
+                    "threads": n_threads,
+                    "duration": round(res.duration_s, 3),
+                    "thread_id": t,
+                    "core_id": t % runner.n_replicas,
+                    "second": s,
+                    "ops": int(per_sec[t, s]),
+                    "dispatches": int(per_sec[t, s]),
+                    "wr_eff": wr_eff,
+                }
+            )
+    return rows

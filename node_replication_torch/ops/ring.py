@@ -87,11 +87,14 @@ class FusedEngineHost:
     def note_round(self, window: int, count: int, duration_s: float,
                    fenced: bool = False) -> None:
         """Count one fused round: tier counter, kernel.* metrics,
-        kernel-launch event. Duration is enqueue-side."""
+        kernel-launch event. Duration is enqueue-side. `kernel.launches`
+        (and the event's `launches`) counts every launch of the round:
+        `launches(window)` a device times `devices` (a mesh shard is a
+        launch of its own)."""
         from node_replication_torch.core import log as _corelog
         from node_replication_torch.utils.trace import get_tracer
 
-        n_launch = self.launches(window)
+        n_launch = self.launches(window) * self.devices
         if self.tier == "mesh_fused":
             _corelog._m_engine_mesh_fused.inc()
         else:

@@ -296,7 +296,8 @@ class MeshFusedEngine(FusedEngineHost):
       mask composed through `_FAR`, so fenced-head GC holds when the
       quarantined replica sits on another shard.
     - `launches(window)` is per device: 1. `tier = "mesh_fused"`,
-      `devices = shards`.
+      `devices = shards`, so `kernel.launches` rises by the shard count
+      a round (`FusedEngineHost.note_round`).
 
     `round(fleet, opcodes, args, count, fenced=None) -> (fleet, resps
     int32[R, W])` is the host entry, with the host's instrumentation

@@ -509,3 +509,77 @@ def test_mesh_entry_points_without_a_card_raise(monkeypatch):
     assert c.device == torch.device("cpu")
     assert c.execute_mut((1, 3, 7), c.register(0)) == 0
     assert c.execute((1, 3), c.register(1)) == 7
+
+
+HARNESS_PATH = ("harness/__init__.py", "harness/trait.py",
+                "harness/workloads.py", "harness/mkbench.py",
+                "native/__init__.py", "native/engine.py")
+
+
+def test_harness_and_native_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(HARNESS_PATH) <= files
+    for rel in HARNESS_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+@pytest.mark.parametrize("pkg,n", [("harness", 12), ("native", 8)])
+def test_harness_and_native_export_the_reference_names(pkg, n):
+    import importlib
+
+    mod = importlib.import_module(f"node_replication_torch.{pkg}")
+    ref = _module_all(ROOT / "node_replication_tpu" / pkg / "__init__.py")
+    assert len(ref) == n
+    assert mod.__all__ == ref
+    assert all(hasattr(mod, name) for name in ref)
+
+
+def test_harness_entry_points_without_a_card_raise(monkeypatch, tmp_path):
+    from node_replication_torch.harness import (
+        ConcurrentDsRunner,
+        MultiLogRunner,
+        PartitionedRunner,
+        ReplicatedRunner,
+        ScaleBenchBuilder,
+        ShardedRunner,
+        WorkloadSpec,
+        baseline_comparison,
+    )
+    from node_replication_torch.harness.mkbench import (
+        measure_kernel,
+        measure_mesh,
+    )
+    from node_replication_torch.harness.trait import ShardedCnrRunner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hm = lambda: make_hashmap(16)  # noqa: E731
+    sweep = lambda **kw: (ScaleBenchBuilder(  # noqa: E731
+        hm, "x", WorkloadSpec(keyspace=16), **kw).replicas([2])
+        .batches([2]).duration(0.01).out_dir(str(tmp_path)))
+    for entry in (
+        lambda: ReplicatedRunner(hm(), 2, 1, 1),
+        lambda: MultiLogRunner(hm(), 2, 2, 1, 1),
+        lambda: PartitionedRunner(hm(), 2, 1, 1),
+        lambda: ConcurrentDsRunner(hm(), 2, 1, 1),
+        lambda: ShardedRunner(hm(), 2, 1, 1),
+        lambda: ShardedRunner(hm(), 2, 1, 1, n_devices=2),
+        lambda: ShardedCnrRunner(hm(), 2, 2, 1, 1),
+        lambda: sweep().run(),
+        lambda: sweep(device="cpu").systems(["sharded"]).run(),
+        lambda: baseline_comparison(hm, "x", WorkloadSpec(keyspace=16),
+                                    batch_sizes=[2], duration_s=0.01,
+                                    out_dir=str(tmp_path)),
+        lambda: measure_kernel(16, 2, 4, duration_s=0.01),
+        lambda: measure_kernel(16, 4, 4, duration_s=0.01, devices=2),
+        lambda: measure_mesh(hm, [1, 2], 2, duration_s=0.01),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
+    # the caller naming the CPU is the only way onto it
+    runner = ShardedRunner(hm(), 4, 1, 1, n_devices=["cpu"] * 2)
+    assert runner.mesh.devices.size == 2
+    res = sweep(device="cpu", devices=["cpu"] * 2).systems(
+        ["nr", "sharded"]).run()
+    assert [r.name for r in res] == ["nr", "nr-mesh2"]
