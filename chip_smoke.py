@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 10 minutes
+    python3 chip_smoke.py            # needs one CUDA card; about 13 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
     python3 chip_smoke.py --repl-primary DIR  # phase 23's primary (internal)
     python3 chip_smoke.py --txn-child DIR     # phase 25's victim (internal)
@@ -295,9 +295,31 @@ The harness (`harness/`, `native/`), `bench.py`'s default config
    `measure_native`, the C++ engine that phase 1 built with g++ (2
    replicas x 2 threads, 0.5 s).
 
+The simulation plane (`sim/`), on the card:
+
+28. A, the CI `sim-smoke` sweep: `python -m node_replication_torch.sim.
+   explore --seeds 500 --procs 4 --out chiprun_out/sim` in a subprocess
+   (every model, wrapper and flavor; each case's fleets on the card, the
+   hashmap fleets launching K1 through the auto tier's calibration):
+   exit 0, no artifact; prints its coverage and seeds/s. B, in process:
+   the first 24 seeds (and more until every flavor and both wrappers
+   appear) on the card and on the CPU, both clean with equal digests
+   and events, K1 launched, rounds by tier; K1 against its plain version
+   at the sim's fleets (R = 1-3, K = 32, a 256-slot ring, gc_slack 32,
+   W = 1 and 16, fenced and not, across the wrap), its time a launch by
+   CUDA events over queued calls beside its bound; each canary caught
+   by `explore --canary NAME --no-shrink` on the card and replayed
+   byte-identically. C, the crash flavor's checks on phase 13's fleet
+   (`engine="pallas"`, a WAL attached, under a SimClock): a
+   `SimScheduler` steps 120 quanta of 256-op writes (one K1 launch each),
+   reads, WAL syncs and up to 2 snapshots, each held to the numpy
+   oracle, then a simulated kill -9 (the active segment cut to its last
+   fsynced size plus a torn remainder) and `recover_fleet` on the card:
+   durable-ack survival, log content, bit identity and state.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-27) and read just after; a kernel that its path never launched
+17, 19-28) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -306,7 +328,8 @@ CUDA device, or without the package beside this script, it exits
 non-zero at once. Details of the run go to
 `chiprun_out/chip_smoke.json`, phase 26's profiles to
 `chiprun_out/phase26_*.folded` (flamegraph.pl / speedscope input),
-phase 27's CSVs to `chiprun_out/phase27/`.
+phase 27's CSVs to `chiprun_out/phase27/`, phase 28's sweep and canary
+output to `chiprun_out/phase28_*.txt`.
 """
 
 from __future__ import annotations
@@ -399,11 +422,12 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_round_bytes(R: int, W: float, L: int = 1 << 16) -> float:
+def k1_round_bytes(R: int, W: float, L: int = 1 << 16,
+                   n_keys: int = K) -> float:
     """Bytes one K1 round must move: both `[Kp, R]` int32 state planes
     in and out, the `[W, R]` responses, the ring's opcodes and args in
     and out, and the window of W entries."""
-    kp = -(-K // 8) * 8
+    kp = -(-n_keys // 8) * 8
     return 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
 
 
@@ -6571,6 +6595,499 @@ def phase_harness(dev, rng) -> dict:
     return out
 
 
+# ------------------------------------------------------ the sim (sim/)
+
+SIM_SEEDS = 500        # leg A's sweep, `explore --seeds`: ~40 s on the card
+SIM_PROCS = 4          # `explore --procs`: the CI sim-smoke job's children
+SIM_PARITY = 24        # leg B's seeds run on the card and on the CPU
+SIM_CANARY_SEEDS = 200
+SIM_KEYS, SIM_RING, SIM_SLACK = 32, 256, 32   # the sim's hashmap fleets
+SIM_K1_R = (1, 2, 3)   # their replica counts
+SIM_K1_W = (1, 16)     # a 1-op round, and a burst
+SIM_QUANTA = 120       # leg C's scheduler quanta
+SIM_BATCH = 256        # leg C's write quantum: one 256-op round
+SIM_SNAPSHOTS = 2      # leg C's snapshots, at most
+SIM_OUT = OUT_DIR / "sim"   # leg A's artifacts: must stay empty
+SIM_DIR = Path(__file__).resolve().parent / ".chip_smoke_sim"
+
+
+def sim_explore_cmd(*args: str) -> list[str]:
+    """The command line of `python -m node_replication_torch.sim.explore`
+    from this checkout (no `--device`: the card)."""
+    return [sys.executable, "-m", "node_replication_torch.sim.explore",
+            *args]
+
+
+def _sim_sweep() -> dict:
+    """Leg A: the CI sim-smoke sweep, `explore --seeds N --procs 4` in a
+    subprocess with the default filters, every case on the card."""
+    import re
+    import shutil
+
+    shutil.rmtree(SIM_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        sim_explore_cmd("--seeds", str(SIM_SEEDS), "--procs",
+                        str(SIM_PROCS), "--out", str(SIM_OUT)),
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "phase28_sweep.txt").write_text(p.stdout + p.stderr)
+    artifacts = sorted(SIM_OUT.glob("*.json")) if SIM_OUT.exists() else []
+    if p.returncode != 0 or artifacts:
+        raise AssertionError(
+            f"phase 28 A: the sweep exited {p.returncode} with "
+            f"{len(artifacts)} artifact(s): {p.stdout[-3000:]} "
+            f"{p.stderr[-2000:]}")
+    matrix: dict = {}
+    for m, w, f, ok, bad in re.findall(
+            r"^\s*(\w+) x\s+(\w+) x\s+(\w+): (\d+) ok(?:, (\d+) FAIL)?$",
+            p.stdout, re.M):
+        key = f"{m}/{w}/{f}"
+        matrix[key] = matrix.get(key, 0) + int(ok)
+    swept = [(int(n), float(s)) for n, s in re.findall(
+        r"swept (\d+) seed\(s\) in ([\d.]+)s", p.stdout)]
+    if sum(matrix.values()) != SIM_SEEDS or sum(n for n, _ in swept) \
+            != SIM_SEEDS:
+        raise AssertionError(f"phase 28 A: {matrix} and {swept} do not "
+                             f"add up to {SIM_SEEDS} clean seeds")
+    out = {"seeds": SIM_SEEDS, "procs": SIM_PROCS, "wall_s": secs,
+           "seeds_per_s": SIM_SEEDS / secs,
+           "child_seeds_per_s": [n / max(s, 1e-9) for n, s in swept],
+           "child_sweep_s": [s for _, s in swept], "matrix": matrix}
+    log(f"phase 28 A: explore --seeds {SIM_SEEDS} --procs {SIM_PROCS} on "
+        f"the card: exit 0, no artifact, {secs:.1f} s of wall "
+        f"({out['seeds_per_s']:.2f} seeds/s, the children's sweeps "
+        + ", ".join(f"{s:.1f}" for _, s in swept) + " s)")
+    log("phase 28 A: coverage " + ", ".join(
+        f"{k} {v}" for k, v in sorted(matrix.items())))
+    return out
+
+
+def _sim_covering_seeds() -> list[int]:
+    """The first SIM_PARITY seeds, then more until every flavor and both
+    wrappers appear."""
+    from node_replication_torch.sim.properties import (
+        FLAVORS,
+        WRAPPERS,
+        generate_case,
+    )
+
+    seeds = list(range(SIM_PARITY))
+    seen = {x for s in map(generate_case, seeds) for x in (s.flavor,
+                                                          s.wrapper)}
+    for seed in range(SIM_PARITY, 50 * SIM_PARITY):
+        if seen >= set(FLAVORS) | set(WRAPPERS):
+            return seeds
+        spec = generate_case(seed)
+        if {spec.flavor, spec.wrapper} - seen:
+            seeds.append(seed)
+            seen |= {spec.flavor, spec.wrapper}
+    raise AssertionError(f"phase 28 B1: seeds 0-{seed} cover only {seen}")
+
+
+def _sim_parity(dev) -> dict:
+    """Leg B1: each seed's case on the card and on the CPU, both clean,
+    with equal digests; the card's K1 launches and rounds per tier."""
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.sim import generate_case, run_case
+
+    seeds = _sim_covering_seeds()
+    reg = get_registry()
+    reg.enable()
+    tiers = {"pallas_fused": ("nr.exec.engine.pallas_fused",
+                              "cnr.exec.engine.pallas_fused"),
+             "chain": ("nr.exec.rounds", "cnr.exec.rounds"),
+             "fused_fallback": ("nr.exec.engine.fused_fallback",
+                                "cnr.exec.engine.fused_fallback")}
+    count = lambda: {t: sum(reg.counter(n).value for n in ns)  # noqa: E731
+                     for t, ns in tiers.items()}
+    c0 = count()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = {s: run_case(generate_case(s), dev) for s in seeds}
+    card_s = time.perf_counter() - t0
+    launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                "hashmap_fused_round": FUSED_KERNEL.launches}
+    c1 = count()
+    t1 = time.perf_counter()
+    on_cpu = {s: run_case(generate_case(s), "cpu") for s in seeds}
+    cpu_s = time.perf_counter() - t1
+    cases = []
+    for s in seeds:
+        a, b = on_card[s], on_cpu[s]
+        if not (a.ok and b.ok and a.digest == b.digest
+                and a.events == b.events):
+            bad = next((i, x, y) for i, (x, y) in enumerate(
+                zip(a.events, b.events)) if x != y) \
+                if a.events != b.events else None
+            raise AssertionError(
+                f"phase 28 B1: seed {s} ({a.spec.flavor}/{a.spec.wrapper}) "
+                f"card ok={a.ok} cpu ok={b.ok}, digests {a.digest} / "
+                f"{b.digest}; first differing event {bad}; violations "
+                f"{[v.as_dict() for v in a.violations + b.violations]}")
+        cases.append([s, a.spec.model, a.spec.wrapper, a.spec.flavor,
+                      a.digest])
+    if launches["hashmap_fused_round"] <= 0:
+        raise AssertionError("phase 28 B1: no K1 launch over the card's "
+                             "cases")
+    rounds = {t: c1[t] - c0[t] for t in tiers}
+    out = {"seeds": seeds, "cases": cases, "card_s": card_s,
+           "cpu_s": cpu_s, "launches": launches, "rounds": rounds,
+           "flavors": sorted({c[3] for c in cases}),
+           "wrappers": sorted({c[2] for c in cases})}
+    log(f"phase 28 B1: {len(seeds)} seeds ({', '.join(out['flavors'])}; "
+        f"{', '.join(out['wrappers'])}) clean on the card and on the CPU, "
+        f"equal digests and events; card {card_s:.1f} s, CPU {cpu_s:.1f} "
+        f"s; K1 launches {launches['hashmap_fused_round']}; rounds "
+        f"pallas_fused {rounds['pallas_fused']}, chain {rounds['chain']} "
+        f"({rounds['fused_fallback']} fused fallbacks)")
+    return out
+
+
+def _k1_sim_check(dev) -> dict:
+    """Leg B2: K1 against its plain version at the sim's fleets (R = 1-3,
+    K = 32, a 256-slot ring with gc_slack 32), W = 1 and 16, fenced and
+    unfenced, over rounds across the ring's wrap; its time a launch from
+    CUDA events over queued calls (launch latency at these sizes)."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 28)
+    err, shapes = 0, {}
+    for Rs in SIM_K1_R:
+        spec = LogSpec(capacity=SIM_RING, n_replicas=Rs, arg_width=3,
+                       gc_slack=SIM_SLACK)
+        for W in SIM_K1_W:
+            kp = -(-SIM_KEYS // 8) * 8
+            vals = torch.from_numpy(rng.integers(
+                -50, 50, (kp, Rs)).astype(np.int32)).to(dev)
+            pres = torch.from_numpy(rng.integers(
+                0, 2, (kp, Rs)).astype(np.int32)).to(dev)
+            ring = (torch.zeros(SIM_RING, dtype=torch.int32, device=dev),
+                    torch.zeros((SIM_RING, 3), dtype=torch.int32,
+                                device=dev))
+            fen = torch.zeros(Rs, dtype=torch.int32, device=dev)
+            fen[Rs - 1] = 1
+            kern = plain = (*ring, vals, pres)
+            tail = SIM_RING - 3 * W - 2
+            rnd = 0
+            while tail <= SIM_RING + W:
+                count = W if W == 1 else int(rng.integers(1, W + 1))
+                opc = np.zeros(W, np.int32)
+                opc[:count] = rng.choice(np.array([1, 1, 1, 2], np.int32),
+                                         count)
+                args = np.zeros((W, 3), np.int32)
+                args[:count, 0] = rng.integers(0, SIM_KEYS, count)
+                args[:count, 1] = rng.integers(1, 1 << 20, count)
+                inputs = (spec, torch.tensor(tail, dtype=torch.int64,
+                                             device=dev),
+                          count, torch.from_numpy(opc).to(dev),
+                          torch.from_numpy(args).to(dev))
+                f = fen if rnd % 2 else None
+                out_k = hashmap_fused_round(*inputs, *kern, SIM_KEYS, f)
+                out_p = hashmap_fused_round_plain(*inputs, *plain,
+                                                  SIM_KEYS, f)
+                e = max_abs_err(out_k, out_p)
+                if e:
+                    raise AssertionError(
+                        f"phase 28 B2: K1 at R={Rs} W={W} disagrees with "
+                        f"its plain version in round {rnd} (fenced="
+                        f"{f is not None}): {e}")
+                err = max(err, e)
+                kern, plain = out_k[:4], out_p[:4]
+                tail += count
+                rnd += 1
+            call = (*inputs, *kern, SIM_KEYS, None)
+            ms = queued_ms(lambda: hashmap_fused_round(*call))
+            plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*call),
+                               reps=10, warmup=2)
+            n_bytes = k1_round_bytes(Rs, W, SIM_RING, SIM_KEYS)
+            bound_ms, by = bound(n_bytes, 4 * W * Rs)
+            shapes[f"R{Rs}_W{W}"] = {
+                "R": Rs, "W": W, "rounds": rnd, "ms": ms,
+                "plain_ms": plain_ms, "bytes": n_bytes,
+                "bound_ms": bound_ms, "bound_by": by}
+    log("phase 28 B2: K1 at the sim's shapes (K=32, ring 256, gc_slack "
+        "32), fenced and not, across the wrap, bit-identical; a launch "
+        "(events over queued calls; launch latency at this size) / plain "
+        "/ bound ms: " + ", ".join(
+            f"R={v['R']} W={v['W']} {v['ms']:.4f} / {v['plain_ms']:.3f} / "
+            f"{v['bound_ms']:.6f}" for v in shapes.values()))
+    return {"max_abs_err": err, "shapes": shapes}
+
+
+def _sim_canaries(dev) -> dict:
+    """Leg B3: each canary caught by a bounded sweep on the card and
+    replayed byte-identically (`explore --canary NAME --no-shrink`;
+    shrinking is host-only ddmin, held by the CPU tests)."""
+    import contextlib
+    import io
+
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.sim import canary, explore
+
+    out, texts = {}, []
+    reset_launch_counts()
+    for name in sorted(canary.CANARIES):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = explore.main(["--canary", name, "--seeds",
+                               str(SIM_CANARY_SEEDS), "--no-shrink",
+                               "--device", str(dev)])
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        texts.append(f"== {name} (exit {rc})\n{text}")
+        caught = [ln for ln in text.splitlines() if " FAILED " in ln]
+        if rc != 0 or not caught or "IDENTICAL" not in text:
+            raise AssertionError(f"phase 28 B3: canary {name} exited {rc}: "
+                                 f"{text[-2000:]}")
+        out[name] = {"rc": rc, "s": secs, "caught": caught[0]}
+    (OUT_DIR / "phase28_canaries.txt").write_text("\n".join(texts))
+    launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                "hashmap_fused_round": FUSED_KERNEL.launches}
+    log("phase 28 B3: every canary caught on the card and replayed "
+        "byte-identically: " + "; ".join(
+            f"{n} ({v['caught'].split(' [')[0]}, {v['s']:.1f} s)"
+            for n, v in out.items()) + f"; launches {launches}")
+    return {"canaries": out, "launches": launches}
+
+
+def _sim_flagship_crash(dev) -> dict:
+    """Leg C: the crash flavor's checks on phase 13's flagship fleet
+    (`engine="pallas"`, a WAL attached, under a SimClock): a seeded
+    SimScheduler steps write (a 256-op round from the sim's write
+    vocabulary at K = 10000, unique payloads), read, wal-sync and
+    snapshot quanta, each response and read held to the numpy oracle;
+    then a simulated kill -9 as the crash flavor makes it (flush, the
+    active segment cut to its last fsynced size plus a torn remainder)
+    and `recover_fleet` on the card: durable-ack-survival, log-content,
+    bit-identity and state-diff."""
+    import random
+    import shutil
+
+    import torch
+
+    from node_replication_torch import NodeReplicated
+    from node_replication_torch.core.log import ring_slice
+    from node_replication_torch.durable import (
+        WAL_SUBDIR,
+        WriteAheadLog,
+        recover_fleet,
+        save_durable_snapshot,
+    )
+    from node_replication_torch.models import HM_GET, make_hashmap
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        REPLAY_KERNEL,
+        reset_launch_counts,
+    )
+    from node_replication_torch.sim import SimScheduler, make_oracle
+    from node_replication_torch.sim.properties import _gen_write
+    from node_replication_torch.utils.clock import SimClock, installed
+
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    SIM_DIR.mkdir()
+    rng = random.Random(SEED + 28)
+    oracle = make_oracle("hashmap", K)
+    acked: list = []   # every write's ops, in log order
+    synced: dict = {}  # segment path -> size at its last fsync
+    st = {"uniq": 1, "snapshots": 0, "reads": 0}
+    kw = _crash_fleet_kwargs(dev)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with installed(SimClock()):
+            nr = NodeReplicated(make_hashmap(K), **kw)
+            wal = WriteAheadLog(str(SIM_DIR / WAL_SUBDIR), policy="batch",
+                                arg_width=nr.dispatch.arg_width)
+            nr.attach_wal(wal)
+            tokens: dict = {}
+
+            def write():
+                rid = rng.randrange(R)
+                ops = []
+                for _ in range(SIM_BATCH):
+                    ops.append(tuple(_gen_write(rng, "hashmap", K,
+                                                st["uniq"])))
+                    st["uniq"] += 1
+                resps = nr.execute_mut_batch(ops, rid)
+                for op, r in zip(ops, resps):
+                    want = oracle.apply(op)
+                    if int(r) != want:
+                        raise AssertionError(
+                            f"phase 28 C: resp-diff: {op} -> {int(r)}, "
+                            f"oracle {want}")
+                acked.extend(ops)
+                return True
+
+            def read():
+                rid, k = rng.randrange(R), rng.randrange(K)
+                if rid not in tokens:
+                    tokens[rid] = nr.register(rid)
+                val = int(nr.execute((HM_GET, k), tokens[rid]))
+                if val != oracle.read((HM_GET, k)):
+                    raise AssertionError(f"phase 28 C: read-diff: key {k} "
+                                         f"on r{rid} -> {val}")
+                st["reads"] += 1
+                return True
+
+            def wal_sync():
+                nr.wal_sync()
+                if wal._segments:
+                    path = wal._segments[-1][1]
+                    synced[path] = os.path.getsize(path)
+                return True
+
+            def snapshot():
+                if st["snapshots"] >= SIM_SNAPSHOTS:
+                    return False
+                save_durable_snapshot(nr, str(SIM_DIR))
+                st["snapshots"] += 1
+                return True
+
+            sched = SimScheduler(SEED + 28)
+            sched.add("write", write, weight=3.0)
+            sched.add("read", read, weight=1.0)
+            sched.add("wal-sync", wal_sync, weight=1.2)
+            sched.add("snapshot", snapshot, weight=0.3)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sched.run(SIM_QUANTA)
+            # the kill lands right after a write round: its record is
+            # journaled, not fsynced
+            write()
+            run_s = time.perf_counter() - t0
+            writes = 1 + sum(1 for _, n, _ in sched.trace if n == "write")
+            launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                        "hashmap_fused_round": FUSED_KERNEL.launches}
+            sk = nr.stats()
+            if not (launches["hashmap_fused_round"] == writes
+                    == sk["fused_rounds"] > 0 and sk["exec_rounds"] == 0):
+                raise AssertionError(
+                    f"phase 28 C: {writes} write quanta but K1 launches "
+                    f"{launches}, fused rounds {sk['fused_rounds']}, chain "
+                    f"rounds {sk['exec_rounds']}")
+            # the simulated kill -9: what the page cache held survives,
+            # the active segment loses all past its last fsync but a
+            # torn remainder that the recovery scan must chop
+            durable = int(wal.durable_tail)
+            with wal._lock:
+                if wal._fh is not None:
+                    wal._fh.flush()
+            path = wal._segments[-1][1]
+            cur = os.path.getsize(path)
+            torn = rng.randrange(64)
+            keep = min(cur, synced.get(path, 0) + torn)
+            os.truncate(path, keep)
+            with wal._lock:
+                if wal._fh is not None:
+                    wal._fh.close()
+                    wal._fh = None
+            del nr, wal, tokens
+            torch.cuda.empty_cache()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            nr2, rep = recover_fleet(str(SIM_DIR), make_hashmap(K),
+                                     policy="batch", attach=True,
+                                     nr_kwargs=kw)
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t1
+            rec_launches = {"hashmap_replay": REPLAY_KERNEL.launches,
+                            "hashmap_fused_round": FUSED_KERNEL.launches}
+        T = int(rep.tail)
+        if T < durable:
+            raise AssertionError(f"phase 28 C: durable-ack-survival: "
+                                 f"recovered tail {T} < fsync-acked "
+                                 f"{durable}")
+        if T > len(acked) or int(nr2.log.tail) != T:
+            raise AssertionError(f"phase 28 C: log-content: recovered tail "
+                                 f"{T} (fleet {int(nr2.log.tail)}) of "
+                                 f"{len(acked)} acked ops")
+        want = np.asarray(acked[:T], np.int32).reshape(T, 3)
+        opcodes, args = ring_slice(nr2.spec, nr2.log, 0, T)
+        if not (np.array_equal(opcodes, want[:, 0])
+                and np.array_equal(args[:, :2], want[:, 1:])
+                and not args[:, 2:].any()):
+            raise AssertionError("phase 28 C: log-content: the ring's "
+                                 "[0, T) is not the acked ops")
+        if not nr2.replicas_equal():
+            raise AssertionError("phase 28 C: bit-identity: replicas "
+                                 "differ after recovery")
+        fold = make_oracle("hashmap", K)
+        for op in acked[:T]:
+            fold.apply(op)
+        state = nr2.verify(lambda s: s)
+        for name, arr in fold.arrays().items():
+            if not np.array_equal(state[name], arr):
+                raise AssertionError(f"phase 28 C: state-diff: leaf {name} "
+                                     f"differs from the oracle at {T}")
+        peak = torch.cuda.max_memory_allocated()
+        quanta = {n: sum(1 for _, m, _ in sched.trace if m == n)
+                  for n in ("write", "read", "wal-sync", "snapshot")}
+        out = {"quanta": quanta, "writes": writes, "reads": st["reads"],
+               "snapshots": st["snapshots"], "acked_ops": len(acked),
+               "durable": durable, "torn_bytes": keep - synced.get(path, 0),
+               "recovered_tail": T, "snapshot_pos": rep.snapshot_pos,
+               "wal_records": rep.wal_records, "run_s": run_s,
+               "recover_s": recover_s, "peak_mem_bytes": peak,
+               "launches": launches, "recovery_launches": rec_launches}
+        log(f"phase 28 C: flagship R={R} K={K} engine=pallas with a WAL "
+            f"under a SimClock: {SIM_QUANTA} quanta ({writes} writes of "
+            f"{SIM_BATCH} with the last after them, each one K1 launch and "
+            f"no chain round; "
+            f"{st['reads']} reads; {st['snapshots']} snapshots) in "
+            f"{run_s:.1f} s, every response and read equal to the oracle; "
+            f"kill -9 at fsync-acked {durable} of {len(acked)} "
+            f"({out['torn_bytes']} torn bytes kept); recovered on the card "
+            f"to tail {T} from the snapshot at {rep.snapshot_pos} + "
+            f"{rep.wal_records} WAL records in {recover_s:.2f} s "
+            f"({rec_launches['hashmap_fused_round']} K1 launches); "
+            f"durable-ack-survival, log-content, bit-identity and "
+            f"state-diff hold; peak device memory {peak} bytes")
+        del nr2
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(SIM_DIR, ignore_errors=True)
+
+
+def phase_sim(dev) -> dict:
+    """Phase 28: the ported simulation plane on the card. A, the CI
+    sweep (`explore --procs 4`, every model, wrapper and flavor); B, in
+    process: the same seeds on the card and the CPU with equal digests
+    (B1), K1 at the sim's fleet shapes against its plain version (B2),
+    the three canaries caught and replayed (B3); C, the crash flavor's
+    checks on the flagship fleet."""
+    t0 = time.perf_counter()
+    out = {"sweep": _sim_sweep(), "parity": _sim_parity(dev),
+           "k1_check": _k1_sim_check(dev), "canaries": _sim_canaries(dev),
+           "crash": _sim_flagship_crash(dev)}
+    c = out["crash"]
+    out["launches"] = {k: out["parity"]["launches"][k]
+                       + out["canaries"]["launches"][k] + c["launches"][k]
+                       + c["recovery_launches"][k]
+                       for k in c["launches"]}
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 28: {out['s']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6656,6 +7173,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["harness"] = phase_harness(dev, rng)
         torch.cuda.empty_cache()
+        res["sim"] = phase_sim(dev)
+        torch.cuda.empty_cache()
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -6677,7 +7196,7 @@ def main() -> int:
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
         "cnr_rounds", "cnr_serve", "mesh_chain", "repl", "shard",
-        "txn", "obs", "harness")) + (
+        "txn", "obs", "harness", "sim")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -6791,6 +7310,25 @@ def main() -> int:
         "profiled_k1": hn["kernel"]["profiled_k1"],
         "bound_ms": hn["kernel"]["bound_ms"], "bound_by": "bytes",
         "served_launches": hn["serve"]["k1_launches"]}
+    # and phase 28's sim: the sim's fleets (R = 1-3, K = 32, ring 256)
+    # launch K1 through the auto tier's calibration (legs B1 and B3),
+    # checked and timed at those shapes (B2), and the flagship's write
+    # rounds and recovery replays (leg C)
+    sm = res["sim"]
+    res["fused"]["max_abs_err"] = max(res["fused"]["max_abs_err"],
+                                      sm["k1_check"]["max_abs_err"])
+    res["fused"]["sim"] = {
+        "K": SIM_KEYS, "ring": SIM_RING, "gc_slack": SIM_SLACK,
+        "launches": sm["launches"]["hashmap_fused_round"],
+        "parity_launches": sm["parity"]["launches"]["hashmap_fused_round"],
+        "canary_launches":
+            sm["canaries"]["launches"]["hashmap_fused_round"],
+        "flagship_launches":
+            sm["crash"]["launches"]["hashmap_fused_round"],
+        "recovery_launches":
+            sm["crash"]["recovery_launches"]["hashmap_fused_round"],
+        "max_abs_err": sm["k1_check"]["max_abs_err"],
+        "shapes": sm["k1_check"]["shapes"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -6824,6 +7362,7 @@ def main() -> int:
         **({"sharded": p["sharded"]} if "sharded" in p else {}),
         **({"obs": p["obs"]} if "obs" in p else {}),
         **({"harness": p["harness"]} if "harness" in p else {}),
+        **({"sim": p["sim"]} if "sim" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

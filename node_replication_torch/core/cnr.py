@@ -57,6 +57,7 @@ from node_replication_torch.core.replica import (
     _FusedTier,
     _locked,
     _PendingRound,
+    hit_replay_site,
     replicate_state,
     states_equal,
 )
@@ -485,6 +486,7 @@ class MultiLogReplicated(_FusedTier):
         if self._try_fused_round_log(log_idx, rid, ops, tids, n, pos0,
                                      pad, opcodes, args,
                                      pending if defer else None):
+            pending.fused = True
             if pending.fused_resps is None:
                 pending.done = True  # ran eagerly end to end
             return pending
@@ -507,6 +509,7 @@ class MultiLogReplicated(_FusedTier):
         """Second half of the per-log combiner pass: replay this log
         until replica `rid` has applied its own ops, or read back and
         deliver the fused launch's responses."""
+        hit_replay_site(pending, self)
         if pending.done:
             return
         pending.done = True

@@ -123,11 +123,13 @@ class _PendingRound:
     """One combiner round between `begin` and `finish` (the split round
     protocol). After `begin` the batch is APPENDED; `finish` replays to
     the target (chain tier) or reads back the fused launch's responses.
-    `done` marks a round `begin` already completed."""
+    `done` marks a round `begin` already completed; `fused` a round the
+    fused tier ran, eagerly or deferred, whose `finish` has yet to hit
+    the `replay` fault site."""
 
     __slots__ = ("rid", "tids", "n", "pos0", "target", "batch",
-                 "fused_resps", "done", "t_chain", "pad", "fkey", "tier",
-                 "log_idx")
+                 "fused_resps", "done", "fused", "t_chain", "pad", "fkey",
+                 "tier", "log_idx")
 
     def __init__(self, rid: int, tids: list[int], n: int, pos0: int,
                  batch: bool = False, log_idx: int = 0):
@@ -142,10 +144,21 @@ class _PendingRound:
         #: device tensor of the fused launch awaiting readback
         self.fused_resps = None
         self.done = False
+        self.fused = False
         self.t_chain: float | None = None
         self.pad = 0
         self.fkey: tuple = ()
         self.tier: str | None = None
+
+
+def hit_replay_site(pending: _PendingRound, owner) -> None:
+    """The `replay` fault site of a fused round, hit once at its finish:
+    where the chain tier hits it (its first exec round, the batch in
+    the log), so an injected replay fault strikes a round whichever
+    tier the calibration chose."""
+    if pending.fused:
+        pending.fused = False
+        fault_hook("replay", -1, owner)
 
 
 class ReplicaToken(NamedTuple):
@@ -1336,6 +1349,7 @@ class NodeReplicated(_FusedTier):
                                  opcodes, args,
                                  pending if defer else None,
                                  fkey=fkey):
+            pending.fused = True
             if pending.fused_resps is None:
                 pending.done = True  # ran eagerly end-to-end
             return pending
@@ -1360,6 +1374,7 @@ class NodeReplicated(_FusedTier):
         """Second half of the protocol: replay until replica `rid` has
         applied its own ops (chain tier), or read back and deliver the
         fused launch's responses."""
+        hit_replay_site(pending, self)
         if pending.done:
             return
         pending.done = True

@@ -87,6 +87,7 @@ their queues/workers while traffic is in flight.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -447,7 +448,8 @@ class _SubmissionQueue:
     """
 
     __slots__ = ("_lock", "_items", "_depth", "_closed", "_in_service",
-                 "accepted", "shed", "completed", "deadline_missed",
+                 "_held", "accepted", "shed", "completed",
+                 "deadline_missed",
                  "evicted", "shed_by_prio", "priority_inversions",
                  "_reg", "_m_wait", "_m_linger")
 
@@ -467,6 +469,7 @@ class _SubmissionQueue:
         self._depth = depth
         self._closed = False
         self._in_service = 0  # ops taken by the worker, not yet finished
+        self._held = 0  # open `ServeFrontend.staging` blocks
         self.accepted = 0
         self.shed = 0
         self.completed = 0
@@ -561,11 +564,29 @@ class _SubmissionQueue:
             self._lock.notify()
             return True
 
+    def hold(self) -> None:
+        """Keep the worker from taking a partial batch (a full one, or
+        a queue at its static depth, still goes) until `release`."""
+        with self._lock:
+            self._held += 1
+
+    def release(self) -> None:
+        with self._lock:
+            self._held -= 1
+            if not self._held:
+                self._lock.notify_all()
+
+    def _ready_unlocked(self, max_ops: int) -> bool:
+        n = self._depth_unlocked()
+        return bool(n) and (not self._held
+                            or n >= min(max_ops, self._depth))
+
     def take_batch(
         self, max_ops: int, linger_s: float
     ) -> list[_Request] | None:
         """Block for the next batch; None = closed and fully drained.
-        Waits for the first op, then lingers up to `linger_s` for the
+        Waits for the first op (while a `staging` block is open: for a
+        full batch, or its end), then lingers up to `linger_s` for the
         batch to fill — unless a full batch is already queued or the
         queue is closing (drain fast). Drains strictly by priority
         class (CRITICAL first), FIFO within each class."""
@@ -576,7 +597,7 @@ class _SubmissionQueue:
                 if self._reg.enabled and not self._depth_unlocked()
                 and not self._closed else None
             )
-            while not self._depth_unlocked() and not self._closed:
+            while not self._ready_unlocked(max_ops) and not self._closed:
                 clock.wait(self._lock)
             if t_wait is not None:
                 self._m_wait.observe(clock.now() - t_wait)
@@ -1307,6 +1328,23 @@ class ServeFrontend:
             raise Overloaded(rid, limit, priority=priority)
         self._m_submitted.inc()
         return fut
+
+    @contextlib.contextmanager
+    def staging(self, rid: int = 0):
+        """Stage several `submit`s on replica `rid` as one unit: its
+        worker takes no partial batch until the block exits (full
+        batches still go), so the rounds a multi-op submission lands in
+        do not depend on how the threads interleave. Each `submit` in
+        the block admits, sheds or raises exactly as outside it."""
+        q = self._queues.get(rid)  # nrcheck: unshared — GIL-atomic read
+        if q is None:
+            yield
+            return
+        q.hold()
+        try:
+            yield
+        finally:
+            q.release()
 
     def _finish_offer(self, rid: int, res: _OfferResult, limit: int,
                       now: float) -> None:

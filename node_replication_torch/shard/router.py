@@ -333,14 +333,16 @@ class LocalBackend:
             return e
 
         staged: list = []
-        for op in ops:
-            try:
-                staged.append(
-                    ("fut", fe.submit(tuple(op), rid=rid,
-                                      deadline_s=deadline_s, **kwargs))
-                )
-            except ServeError as e:
-                staged.append(("err", translate(e)))
+        with fe.staging(rid):
+            for op in ops:
+                try:
+                    staged.append(
+                        ("fut", fe.submit(tuple(op), rid=rid,
+                                          deadline_s=deadline_s,
+                                          **kwargs))
+                    )
+                except ServeError as e:
+                    staged.append(("err", translate(e)))
         pairs: list = []
         for status, item in staged:
             if status == "err":

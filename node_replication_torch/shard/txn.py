@@ -346,10 +346,11 @@ class TxnParticipant:
             need = self._missing_mask(ops, int(info["commit_begin"]))
         results: list = [None] * len(ops)
         try:
-            staged = [
-                (i, self._frontend.submit(ops[i]))
-                for i in range(len(ops)) if need[i]
-            ]
+            with self._frontend.staging():
+                staged = [
+                    (i, self._frontend.submit(ops[i]))
+                    for i in range(len(ops)) if need[i]
+                ]
             for i, fut in staged:
                 results[i] = fut.result(self.apply_timeout_s)
         except FrontendClosed as e:

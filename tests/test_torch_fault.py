@@ -53,7 +53,7 @@ from node_replication_torch.serve import (
     ServeFrontend,
     call_with_retry,
 )
-from node_replication_torch.utils.clock import Clock, installed
+from node_replication_torch.utils.clock import SimClock, installed
 from node_replication_torch.utils.tree import tree_leaves
 
 
@@ -63,22 +63,6 @@ def small_nr(dispatch=None, **kw):
     kw.setdefault("gc_slack", 32)
     kw.setdefault("exec_window", 64)
     return NodeReplicated(dispatch or make_seqreg(4), device="cpu", **kw)
-
-
-class _VirtualClock(Clock):
-    """Virtual time: `sleep` advances `now`."""
-
-    def __init__(self, start=0.0):
-        self.t = float(start)
-
-    def now(self) -> float:
-        return self.t
-
-    def sleep(self, seconds: float) -> None:
-        self.t += max(0.0, seconds)
-
-    def wait(self, cond, timeout=None) -> bool:
-        return cond.wait(0.001)
 
 
 class TestHealthStateMachine:
@@ -99,10 +83,10 @@ class TestHealthStateMachine:
 
     def test_timeline_stamps_use_injected_clock(self):
         # the lifecycle timeline carries the injected clock's stamps
-        with installed(_VirtualClock(100.0)) as clock:
+        with installed(SimClock(start=100.0)) as clock:
             h = HealthTracker(1)
             h.report_worker_exception(0)
-            clock.sleep(0.5)
+            clock.advance(0.5)
             h.quarantine(0)
         stamps = [ts for ts, *_ in h.timeline]
         assert stamps == [100.0, 100.5]

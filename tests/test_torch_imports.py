@@ -2,8 +2,8 @@
 
 - No module of `node_replication_torch/`, and not `chip_smoke.py`,
   imports `jax` or `node_replication_tpu` (an AST scan of every import
-  statement); `shard.__all__` and `obs.__all__` are the reference's,
-  read from its source.
+  statement); `shard.__all__`, `obs.__all__` and `sim.__all__` are the
+  reference's, read from its source.
 - The entry points treat `device=None` as the card and raise without
   one, instead of running on the CPU.
 - The kernel wrappers take their plain version only for CPU tensors:
@@ -12,6 +12,7 @@
 """
 
 import ast
+import json
 from pathlib import Path
 
 import pytest
@@ -158,6 +159,55 @@ def test_obs_exports_the_reference_names():
     assert len(ref) == 13
     assert obs.__all__ == ref
     assert all(hasattr(obs, n) for n in ref)
+
+
+SIM_PATH = ("sim/__init__.py", "sim/scheduler.py", "sim/oracle.py",
+            "sim/properties.py", "sim/shrink.py", "sim/replay.py",
+            "sim/explore.py", "sim/canary.py", "utils/clock.py")
+
+
+def test_sim_modules_are_scanned_and_stand_alone():
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(SIM_PATH) <= files
+    for rel in SIM_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        assert not _imported_roots(path) & FORBIDDEN, rel
+
+
+def test_sim_exports_the_reference_names():
+    import node_replication_torch.sim as sim
+
+    ref = _module_all(ROOT / "node_replication_tpu" / "sim" / "__init__.py")
+    assert len(ref) == 7
+    assert sim.__all__ == ref
+    assert all(hasattr(sim, n) for n in ref)
+
+
+def test_sim_entry_points_without_a_card_raise(monkeypatch, tmp_path):
+    from node_replication_torch.sim import explore, replay
+    from node_replication_torch.sim.properties import generate_case, run_case
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = generate_case(2)
+    artifact = tmp_path / "a.json"
+    artifact.write_text(json.dumps({"spec": spec.as_dict()}))
+    for entry in (
+        lambda: run_case(spec),
+        lambda: explore.main(["--seeds", "2", "--progress", "0"]),
+        lambda: explore.main(["--seeds", "4", "--procs", "2"]),
+        lambda: explore.main(["--canary", "ack-before-fsync",
+                              "--seeds", "2"]),
+        lambda: replay.main(["2"]),
+        lambda: replay.main(["--spec", str(artifact), "--json"]),
+    ):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
+    # the caller asking for the CPU is the only way onto it
+    assert run_case(spec, device="cpu").ok
+    assert replay.main(["2", "--device", "cpu"]) == 0
+    assert explore.main(["--seeds", "2", "--progress", "0",
+                         "--device", "cpu"]) == 0
 
 
 def test_shard_group_without_a_card_raises(monkeypatch, tmp_path):

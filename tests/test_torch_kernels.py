@@ -93,8 +93,11 @@ def test_replay_kernel_equals_plain(dev, R, K, W, window):
 # tiles (fenced lanes at 511 and 512); Kp = 40 is not a multiple of the
 # 16-row tile; K = 1 puts every entry on one row; W = 1, and W = 1920,
 # the largest fused window of a 2048-slot ring (two scan chunks);
-# "negative" keys only; R = 1024, a mesh shard's shape. Each first tail
-# makes the first rounds wrap the ring.
+# "negative" keys only; R = 1024, a mesh shard's shape; R = 1-3 at
+# K = 32 on a 256-slot ring with gc_slack 32, the simulation plane's
+# fleets (one 16 x 512 tile with 1-3 live columns, the scalar path). Each
+# first tail makes the first rounds wrap the ring. A seventh field is
+# the ring's gc_slack (64 when absent).
 K1_CASES = {
     "base": (70, 29, 64, 256, 200, "mixed"),
     "scalar": (34, 13, 64, 256, 200, "mixed"),
@@ -106,14 +109,19 @@ K1_CASES = {
     "w_max": (70, 1000, 1920, 2048, 1000, "mixed"),
     "negative": (70, 29, 64, 256, 200, "negative"),
     "shard": (1024, 1000, 256, 4096, 3900, "mixed"),
+    "sim_r1": (1, 32, 16, 256, 250, "mixed", 32),
+    "sim_r2": (2, 32, 16, 256, 250, "mixed", 32),
+    "sim_r3": (3, 32, 16, 256, 250, "mixed", 32),
+    "sim_r3_w1": (3, 32, 1, 256, 255, "mixed", 32),
 }
 
 
 @pytest.mark.parametrize("fenced", [False, True])
 @pytest.mark.parametrize("case", list(K1_CASES))
 def test_fused_kernel_equals_plain_across_ring_wrap(dev, case, fenced):
-    R, K, W, L, tail, window = K1_CASES[case]
-    spec = LogSpec(capacity=L, n_replicas=R, arg_width=3, gc_slack=64)
+    R, K, W, L, tail, window, *slack = K1_CASES[case]
+    spec = LogSpec(capacity=L, n_replicas=R, arg_width=3,
+                   gc_slack=slack[0] if slack else 64)
     rng = np.random.default_rng(7 + fenced + 10 * list(K1_CASES).index(case))
     ring_opc = torch.from_numpy(
         rng.integers(0, 3, L).astype(np.int32)).to(dev)

@@ -46,7 +46,7 @@ from node_replication_torch.serve import (
     call_with_retry,
 )
 from node_replication_torch.serve.future import ServeFuture
-from node_replication_torch.utils.clock import Clock, installed
+from node_replication_torch.utils.clock import SimClock, installed
 
 
 def small_nr(dispatch=None, **kw):
@@ -60,22 +60,6 @@ def small_nr(dispatch=None, **kw):
 def fast_cfg(**kw):
     kw.setdefault("batch_linger_s", 0.0)
     return ServeConfig(**kw)
-
-
-class _VirtualClock(Clock):
-    """Virtual time for the retry budget: `sleep` advances `now`."""
-
-    def __init__(self):
-        self.t = 0.0
-
-    def now(self) -> float:
-        return self.t
-
-    def sleep(self, seconds: float) -> None:
-        self.t += max(0.0, seconds)
-
-    def wait(self, cond, timeout=None) -> bool:
-        return cond.wait(0.001)
 
 
 class TestServeFuture:
@@ -287,7 +271,7 @@ class TestRetry:
         fe = self.FlakyFrontend(fail_times=99)
         policy = RetryPolicy(max_attempts=50, base_backoff_s=0.5,
                              max_backoff_s=2.0, total_deadline_s=3.0)
-        with installed(_VirtualClock()) as clock:
+        with installed(SimClock()) as clock:
             with pytest.raises(Overloaded):
                 call_with_retry(fe, (HM_PUT, 0, 0), policy=policy)
             assert clock.now() <= 3.0 + 1e-9
@@ -298,7 +282,7 @@ class TestRetry:
         delays = []
         policy = RetryPolicy(max_attempts=50, base_backoff_s=1.0,
                              max_backoff_s=10.0, total_deadline_s=2.0)
-        with installed(_VirtualClock()) as clock:
+        with installed(SimClock()) as clock:
             with pytest.raises(Overloaded):
                 call_with_retry(fe, (HM_PUT, 0, 0), policy=policy,
                                 on_shed=lambda a, d: delays.append(d))
@@ -310,7 +294,7 @@ class TestRetry:
         fe = self.FlakyFrontend(fail_times=99)
         policy = RetryPolicy(max_attempts=5, base_backoff_s=1e9,
                              max_backoff_s=1e9, total_deadline_s=0.5)
-        with installed(_VirtualClock()) as clock:
+        with installed(SimClock()) as clock:
             with pytest.raises(Overloaded):
                 call_with_retry(fe, (HM_PUT, 0, 0), policy=policy)
             assert clock.now() == 0.0  # gave up without sleeping
@@ -539,6 +523,18 @@ class TestPipelinedServing:
         finally:
             if not was:
                 reg.disable()
+
+    def test_simclock_pipelined_handoff(self):
+        # the two-stage handoff under virtual time: every wait in the
+        # channel and queue goes through the injectable clock, so a
+        # SimClock(auto_advance) run completes without real sleeps
+        with installed(SimClock(auto_advance=True)):
+            nr = small_nr(make_seqreg(2))
+            fe = ServeFrontend(nr, fast_cfg(pipeline_depth=1,
+                                            batch_max_ops=4))
+            futs = [fe.submit((SR_SET, 0, i + 1), rid=0) for i in range(24)]
+            assert [f.result(60.0) for f in futs] == list(range(24))
+            fe.close()
 
     def test_grow_mid_traffic_pipelined(self):
         nr = small_nr(make_seqreg(4), n_replicas=2, log_entries=4096,
