@@ -7,6 +7,7 @@
     python3 chip_smoke.py --txn-child DIR     # phase 25's victim (internal)
     python3 chip_smoke.py --obs-primary DIR   # phase 26's primary (internal)
     python3 chip_smoke.py --obs-leaf DIR      # phase 26's leaf (internal)
+    python3 chip_smoke.py --lockcheck-child DIR   # phase 29's checked run
 
 Four models, end to end, from numpy seeds, then the serving path, then
 CNR and the other models. The replicated hashmap at the flagship width
@@ -317,9 +318,27 @@ The simulation plane (`sim/`), on the card:
    fsynced size plus a torn remainder) and `recover_fleet` on the card:
    durable-ack survival, log content, bit identity and state.
 
+The lock-checked flagship (`analysis/`), on the card:
+
+29. a child (`--lockcheck-child DIR`) started with `NR_TPU_LOCKCHECK=1`
+   and `NR_TPU_LOCKGRAPH=DIR/lockgraph.json`, so every factory lock,
+   module-level ones too, is the order-checking kind: phase 13's fleet
+   (a WAL attached, K1 a round) with ship-before-ack into a
+   `DirectoryFeed` and an in-process `Follower` (rids 0-7), the
+   exporter (`obs_port=0`) and the profiler at 97 Hz, 8 clients x 250
+   ops checked against the client models, a socket scrape, every acked
+   write read back from the follower; then phase 25's 2-shard group
+   with 16 cross-shard transactions. It prints K1's launches, the acked
+   ops/s and the `LockOrderError`s seen (0). The parent runs `python -m
+   node_replication_torch.analysis.lint node_replication_torch
+   --check-dynamic DIR/lockgraph.json` (the whole-package lint and the
+   dynamic-in-static check, exit 0) and the `--suppressions` audit
+   (exit 0, beside the child), and requires the six subsystem locks of
+   `LC_NODES` among the dynamic graph's nodes.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-28) and read just after; a kernel that its path never launched
+17, 19-29; phase 29's child counts its own) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -7088,6 +7107,296 @@ def phase_sim(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- the lock-checked flagship
+
+LC_DIR = Path(__file__).resolve().parent / ".chip_smoke_lockcheck"
+LC_CLIENTS, LC_PER = 8, 250   # phase 29's closed-loop clients and ops each
+LC_TXNS = 16                  # phase 29's cross-shard transactions
+LC_READS = 64                 # read-backs through `Follower.read`
+#: subsystem locks that must show up in the child's dynamic graph, so
+#: the phase cannot pass with nothing checked
+LC_NODES = ("ServeFrontend._lock", "WriteAheadLog._lock",
+            "ReplicationShipper._cond", "Follower._cond",
+            "MetricsExporter._lock", "TxnParticipant._lock")
+
+
+def lint_cmd(*args: str) -> list[str]:
+    """The port's nrlint CLI over its own package."""
+    return [sys.executable, "-m", "node_replication_torch.analysis.lint",
+            "node_replication_torch", *args]
+
+
+def lockcheck_child(directory: str) -> int:
+    """`--lockcheck-child DIR`: phase 29's checked run. Started with
+    `NR_TPU_LOCKCHECK=1` and `NR_TPU_LOCKGRAPH=DIR/lockgraph.json`, so
+    every factory lock of the package, module-level ones included, is
+    the order-checking kind and the observed graph is dumped at exit.
+    Drives phase 13's fleet (a WAL attached, engine="pallas": one K1 a
+    round) with ship-before-ack into a `DirectoryFeed` that an
+    in-process `Follower` applies, the exporter (`obs_port=0`) and the
+    sampling profiler on, 8 clients x 250 ops checked against the
+    client models, a socket scrape, every acked write read back from
+    the follower; then a 2-shard `ShardGroup` (phase 25's) with 16
+    cross-shard transactions. Prints one JSON line: K1's launches, the
+    acked ops/s and the `LockOrderError`s seen."""
+    import threading
+
+    import torch
+
+    from node_replication_torch.analysis import locks
+
+    if not (locks.lockcheck_enabled()
+            and os.environ.get("NR_TPU_LOCKGRAPH")):
+        print("chip_smoke: --lockcheck-child needs NR_TPU_LOCKCHECK=1 and "
+              "NR_TPU_LOCKGRAPH", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from node_replication_torch.models import HM_GET, make_hashmap
+    from node_replication_torch.obs import export
+    from node_replication_torch.obs.metrics import get_registry
+    from node_replication_torch.ops.replay import FUSED_KERNEL
+    from node_replication_torch.repl import (
+        DirectoryFeed,
+        Follower,
+        ReplicationShipper,
+    )
+    from node_replication_torch.serve import ServeConfig, ServeFrontend
+
+    # a module-level lock, built at import: checked too
+    if not isinstance(export._capture_lock, locks._CheckedLock):
+        print("chip_smoke: module-level locks are not checked",
+              file=sys.stderr)
+        return 2
+    escaped = []
+    hook = threading.excepthook
+
+    def count_escapes(args):
+        if isinstance(args.exc_value, locks.LockOrderError):
+            escaped.append(f"{args.thread.name}: {args.exc_value}")
+        hook(args)
+
+    threading.excepthook = count_escapes
+    # the instruments' locks nest under the subsystems': checked too
+    get_registry().enable()
+    t_start = time.perf_counter()
+    d = Path(directory)
+    kw = _crash_fleet_kwargs("cuda")
+    rng = np.random.default_rng(SEED + 29)
+    ops = [hm_client_ops(rng, c, LC_PER) for c in range(LC_CLIENTS)]
+    models = [HashmapModel() for _ in range(LC_CLIENTS)]
+    touched = [set() for _ in range(LC_CLIENTS)]
+    scrapes = []
+
+    def check(c, i, resp):
+        want = models[c].apply(ops[c][i])
+        touched[c].add(ops[c][i][1] % K)
+        return (None if resp == want else
+                f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
+
+    def during(c, i):
+        if c == 0 and i == LC_PER // 2:
+            scrapes.append(export.scrape(*fe.exporter.address))
+
+    cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
+                      durability="batch", obs_port=0,
+                      obs_node_id="lockcheck", profile_hz=OBS_HZ)
+    fe = ServeFrontend.from_recovery(str(d / "primary"), make_hashmap(K),
+                                     cfg, rids=range(SV_RIDS),
+                                     nr_kwargs=kw)
+    feed = DirectoryFeed(str(d / "feed"), arg_width=3)
+    shipper = ReplicationShipper(fe.nr.wal, feed)
+    fe.ack_barrier = shipper.barrier
+    fol = Follower(make_hashmap(K), feed, str(d / "f1"),
+                   config=_crash_config(ServeConfig), nr_kwargs=kw,
+                   name="f1", rids=range(SV_RIDS))
+    errors = []
+    times = {"setup_s": time.perf_counter() - t_start}
+    try:
+        r = serve_clients(fe, LC_CLIENTS, LC_PER, lambda c, i: ops[c][i],
+                          check, lambda c: c % SV_RIDS, during=during)
+        if r["errors"] or r["completed"] != r["ops"]:
+            errors.append(f"served: {r['completed']} of {r['ops']} ops; "
+                          f"{r['errors']}")
+        scrapes.append(export.scrape(*fe.exporter.address))
+        fused = scrapes[-1]["metrics"].get("nr.exec.engine.pallas_fused")
+        if not fused:
+            errors.append(f"the scrape counts no K1 round: {fused}")
+        times["serve_s"] = r["wall_s"]
+        t1 = time.perf_counter()
+        tail = feed.tail_pos()
+        if not fol.wait_applied(tail, timeout=300.0):
+            errors.append(f"the follower never applied {tail}: "
+                          f"{fol.stats()}")
+        # the first LC_READS keys through `Follower.read` (its staleness
+        # gauge scans the feed directory once a read), the rest through
+        # the follower's read-only frontend: the same replicas
+        reads, t_fol = 0, 0.0
+        for c, m in enumerate(models):
+            for slot in sorted(touched[c]):
+                t_read = time.perf_counter()
+                if reads < LC_READS:
+                    got = fol.read((HM_GET, slot), rid=c % SV_RIDS,
+                                   min_pos=tail, wait_s=30.0)
+                    t_fol += time.perf_counter() - t_read
+                else:
+                    got = fol.frontend.read((HM_GET, slot),
+                                            rid=c % SV_RIDS, min_pos=tail,
+                                            wait_s=30.0)
+                reads += 1
+                if got != m.vals.get(slot, -1):
+                    errors.append(f"follower key {slot} reads {got}, acked "
+                                  f"{m.vals.get(slot, -1)}")
+                    break
+        times["read_s"] = time.perf_counter() - t1
+        n_fol = min(reads, LC_READS)
+        times["follower_read_ms"] = 1e3 * t_fol / max(1, n_fol)
+        times["frontend_read_ms"] = 1e3 * (
+            times["read_s"] - t_fol) / max(1, reads - n_fol)
+    finally:
+        t1 = time.perf_counter()
+        shipper.stop()
+        fol.close()
+        fe.close()
+        times["close_s"] = time.perf_counter() - t1
+    t0 = time.perf_counter()
+    g = _txn_group(str(d / "shard"), "cuda")
+    try:
+        coord = g.coordinator(name="lockcheck")
+        k = 0
+        for i in range(LC_TXNS):
+            tops = [(1, k, TX_VAL_BASE + k), (1, k + 1, TX_VAL_BASE + k + 1)]
+            if i % 3 == 0:
+                tops.append((1, k + 2, TX_VAL_BASE + k + 2))
+            k += len(tops)
+            got = coord.execute_txn(tops, timeout=300.0)
+            if got != [0] * len(tops):
+                errors.append(f"txn {i}: {got}")
+        for key in range(k):
+            got = g.primaries[g.map.shard_of(key)].live_frontend.read(
+                (HM_GET, key))
+            if got != TX_VAL_BASE + key:
+                errors.append(f"committed key {key} reads {got}")
+                break
+    finally:
+        g.close()
+    times["shard_s"] = tx_s = time.perf_counter() - t0
+    times["child_s"] = time.perf_counter() - t_start
+    seen = locks.current_violations() + len(escaped)
+    nodes = locks.current_nodes()
+    out = {"k1_launches": FUSED_KERNEL.launches,
+           "acked_ops_per_s": r["acked_ops_per_s"], "completed":
+           r["completed"], "p50_ms": r["p50_ms"], "p99_ms": r["p99_ms"],
+           "scrapes": len(scrapes), "scraped_fused": fused,
+           "follower_reads": reads, "txns": LC_TXNS,
+           "txns_per_s": LC_TXNS / tx_s, "lock_order_errors": seen,
+           "escaped": escaped[:5], "errors": errors[:10],
+           "edges": len(locks.current_edges()), "nodes": nodes, **times}
+    print(json.dumps(out), flush=True)
+    return 1 if errors or seen or not FUSED_KERNEL.launches else 0
+
+
+def phase_lockcheck(dev, serve13) -> dict:
+    """Phase 29: the lock-checked flagship. The `--lockcheck-child`
+    subprocess serves, replicates, observes and shards under the
+    checked factory; its dynamic lock graph must be a subgraph of the
+    port's static one (`analysis.lint --check-dynamic`), with the whole
+    package lint-clean and every suppression live and justified."""
+    import shutil
+
+    from node_replication_torch.ops.replay import reset_launch_counts
+
+    del dev
+    shutil.rmtree(LC_DIR, ignore_errors=True)
+    LC_DIR.mkdir()
+    root = Path(__file__).resolve().parent
+    graph = LC_DIR / "lockgraph.json"
+    env = dict(os.environ, NR_TPU_LOCKCHECK="1",
+               NR_TPU_LOCKGRAPH=str(graph))
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    # the suppression audit reads only the sources: it runs beside the
+    # child
+    audit = subprocess.Popen(lint_cmd("--suppressions"), cwd=root,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        child = subprocess.run(child_cmd("--lockcheck-child", LC_DIR),
+                               env=env, capture_output=True, text=True,
+                               timeout=600)
+        audit_out, _ = audit.communicate(timeout=600)
+    finally:
+        if audit.poll() is None:
+            audit.kill()
+            audit.wait()
+    (LC_DIR / "child.log").write_text(child.stdout + child.stderr)
+    lines = [ln for ln in child.stdout.splitlines() if ln.startswith("{")]
+    if child.returncode != 0 or not lines:
+        raise AssertionError(f"phase 29: the checked child exited "
+                             f"{child.returncode}: "
+                             f"{(child.stdout + child.stderr)[-3000:]}")
+    c = json.loads(lines[-1])
+    if c["lock_order_errors"] or not c["k1_launches"]:
+        raise AssertionError(f"phase 29: {c}")
+    child_s = time.perf_counter() - t0
+    lint = subprocess.run(
+        lint_cmd("--check-dynamic", str(graph), "--lockgraph-out",
+                 str(LC_DIR / "static.json")),
+        cwd=root, capture_output=True, text=True, timeout=600)
+    (LC_DIR / "lint.txt").write_text(lint.stdout + lint.stderr)
+    (LC_DIR / "audit.txt").write_text(audit_out)
+    if lint.returncode != 0:
+        raise AssertionError(f"phase 29: nrlint --check-dynamic exited "
+                             f"{lint.returncode}: {lint.stdout[-3000:]}")
+    if audit.returncode != 0:
+        raise AssertionError(f"phase 29: nrlint --suppressions exited "
+                             f"{audit.returncode}: {audit_out[-3000:]}")
+    dyn = json.loads(graph.read_text())
+    static = json.loads((LC_DIR / "static.json").read_text())
+    s_edges = {tuple(e) for e in static["edges"]}
+    missing = [e for e in dyn["edges"] if tuple(e) not in s_edges]
+    absent = [n for n in LC_NODES if n not in dyn["nodes"]]
+    if missing or static["cycles"] or absent:
+        raise AssertionError(f"phase 29: missing {missing}, static cycles "
+                             f"{static['cycles']}, unseen locks {absent}")
+    out = {**c, "dynamic_edges": len(dyn["edges"]),
+           "dynamic_nodes": len(dyn["nodes"]),
+           "static_edges": len(s_edges), "missing": len(missing),
+           "static_cycles": len(static["cycles"]),
+           "audit": audit_out.strip().splitlines()[-1],
+           "lint": lint.stdout.strip().splitlines()[-1],
+           "child_s": child_s, "s": time.perf_counter() - t0,
+           "phase13_acked_ops_per_s": serve13["depth0"]["acked_ops_per_s"],
+           "launches": {"hashmap_fused_round": c["k1_launches"],
+                        "hashmap_replay": 0}}
+    log(f"phase 29: checked child (NR_TPU_LOCKCHECK=1) exited 0 in "
+        f"{child_s:.1f} s: {c['completed']} ops acked, every response "
+        f"equal to the client models, {c['follower_reads']} follower "
+        f"read-backs equal, {c['scrapes']} scrapes, {c['txns']} cross-shard "
+        f"txns committed and read back; K1 launches {c['k1_launches']}; "
+        f"{c['lock_order_errors']} LockOrderErrors; in the child: setup "
+        f"{c['setup_s']:.1f} s, serve {c['serve_s']:.1f}, read-back "
+        f"{c['read_s']:.1f} ({c['follower_read_ms']:.2f} ms a "
+        f"`Follower.read`, {c['frontend_read_ms']:.2f} through its "
+        f"frontend), close {c['close_s']:.1f}, shards "
+        f"{c['shard_s']:.1f} (of {c['child_s']:.1f} after the imports)")
+    log(f"phase 29: dynamic graph {out['dynamic_edges']} edges over "
+        f"{out['dynamic_nodes']} locks, static {out['static_edges']} edges; "
+        f"{out['missing']} edges missing from the static graph, "
+        f"{out['static_cycles']} static cycles; {', '.join(LC_NODES)} seen; "
+        f"{out['lint']}; {out['audit']}")
+    log(f"phase 29: checked-lock acked ops/s {c['acked_ops_per_s']:.1f} "
+        f"(8 clients, WAL + shipped acks + exporter + profiler) beside "
+        f"phase 13's {out['phase13_acked_ops_per_s']:.1f} (16 clients, "
+        f"unchecked; printed, not gated); {out['s']:.1f} s")
+    shutil.rmtree(LC_DIR / "primary", ignore_errors=True)
+    shutil.rmtree(LC_DIR / "f1", ignore_errors=True)
+    shutil.rmtree(LC_DIR / "shard", ignore_errors=True)
+    shutil.rmtree(LC_DIR / "feed", ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7101,6 +7410,8 @@ def main() -> int:
         return obs_primary(sys.argv[2])
     if sys.argv[1:2] == ["--obs-leaf"]:
         return obs_leaf(sys.argv[2])
+    if sys.argv[1:2] == ["--lockcheck-child"]:
+        return lockcheck_child(sys.argv[2])
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -7175,6 +7486,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["sim"] = phase_sim(dev)
         torch.cuda.empty_cache()
+        res["lockcheck"] = phase_lockcheck(dev, res["hashmap_serve"])
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -7196,7 +7508,7 @@ def main() -> int:
     hm_launches = lambda k: sum(res[p]["launches"][k] for p in (
         "step", "replica", "seqreg_serve", "hashmap_serve", "crash",
         "cnr_rounds", "cnr_serve", "mesh_chain", "repl", "shard",
-        "txn", "obs", "harness", "sim")) + (
+        "txn", "obs", "harness", "sim", "lockcheck")) + (
         k1_mesh if k == "hashmap_fused_round" else 0)
     table = [
         ("hashmap_replay", hm_src, f"{hm_ref}:79", res["replay"],
@@ -7329,6 +7641,15 @@ def main() -> int:
             sm["crash"]["recovery_launches"]["hashmap_fused_round"],
         "max_abs_err": sm["k1_check"]["max_abs_err"],
         "shapes": sm["k1_check"]["shapes"]}
+    # and phase 29's lock-checked flagship: the checked child's rounds
+    # (served, follower-applied, sharded), one K1 a round
+    lc = res["lockcheck"]
+    res["fused"]["lockcheck"] = {
+        "R": R, "launches": lc["launches"]["hashmap_fused_round"],
+        "acked_ops_per_s": lc["acked_ops_per_s"],
+        "lock_order_errors": lc["lock_order_errors"],
+        "dynamic_edges": lc["dynamic_edges"],
+        "static_edges": lc["static_edges"], "missing": lc["missing"]}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -7363,6 +7684,7 @@ def main() -> int:
         **({"obs": p["obs"]} if "obs" in p else {}),
         **({"harness": p["harness"]} if "harness" in p else {}),
         **({"sim": p["sim"]} if "sim" in p else {}),
+        **({"lockcheck": p["lockcheck"]} if "lockcheck" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

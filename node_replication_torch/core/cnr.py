@@ -57,6 +57,7 @@ from node_replication_torch.core.replica import (
     _FusedTier,
     _locked,
     _PendingRound,
+    _readback,
     hit_replay_site,
     replicate_state,
     states_equal,
@@ -161,6 +162,11 @@ class MultiLogReplicated(_FusedTier):
         self.exec_window = int(exec_window)
         self.gc_callback = gc_callback
 
+        # one combiner pass at a time across all logs; reentrant so a
+        # watchdog gc_callback can re-enter sync_log on the same thread.
+        # Built before the first state write: the `ml`/`states` setters
+        # take it.
+        self._lock = make_rlock("MultiLogReplicated._lock")
         self.ml = multilog_init(self.spec, self.device)
         self.states = replicate_state(dispatch.init_state(self.device),
                                       n_replicas)
@@ -179,9 +185,6 @@ class MultiLogReplicated(_FusedTier):
             self._placed = place(self._ml, self._states, mesh)
             self._ml = self._states = None
 
-        # one combiner pass at a time across all logs; reentrant so a
-        # watchdog gc_callback can re-enter sync_log on the same thread
-        self._lock = make_rlock("MultiLogReplicated._lock")
         self._threads_per_replica = [0] * n_replicas
         # staged ops: (rid, tid) -> deque[(log, opcode, args)]
         self._pending: dict[tuple[int, int], deque] = {}
@@ -224,6 +227,7 @@ class MultiLogReplicated(_FusedTier):
         return self._ml if self._placed is None else self._placed.log
 
     @ml.setter
+    @_locked
     def ml(self, ml) -> None:
         if self._placed is None:
             self._ml = ml
@@ -239,6 +243,7 @@ class MultiLogReplicated(_FusedTier):
         return self._placed.states
 
     @states.setter
+    @_locked
     def states(self, states) -> None:
         if self._placed is None:
             self._states = states
@@ -431,7 +436,7 @@ class MultiLogReplicated(_FusedTier):
             if pending is None:
                 # the readback is also the round's host fence; only
                 # replica `rid`'s row is delivered
-                resps_np = resps[rid, :n].cpu().numpy()
+                resps_np = _readback(resps[rid, :n])
                 sp.fence(self.ml, self.states)
         dt = time.perf_counter() - t0
         if timing:
@@ -515,7 +520,7 @@ class MultiLogReplicated(_FusedTier):
         pending.done = True
         rid, log_idx = pending.rid, pending.log_idx
         if pending.fused_resps is not None:
-            resps_np = pending.fused_resps[rid, :pending.n].cpu().numpy()
+            resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
             for j, tid in enumerate(pending.tids):
                 self._resps[(rid, tid)].append(int(resps_np[j]))
@@ -563,6 +568,7 @@ class MultiLogReplicated(_FusedTier):
         if sink is not None:
             sink.clear()
 
+    @_locked
     def _batch_groups(self, ops: list[tuple], rid: int) -> dict:
         """Route a batch through the `LogMapper`: `{log: [submission
         indices]}`, each sub-batch checked against the appendable
@@ -722,7 +728,7 @@ class MultiLogReplicated(_FusedTier):
     def verify(self, fn: Callable[[Any], Any], rid: int = 0):
         """Force-sync, then hand replica `rid`'s state (numpy) to `fn`."""
         self.sync()
-        state = tree_map(lambda a: a[rid].cpu().numpy(), self.states)
+        state = tree_map(lambda a: _readback(a[rid]), self.states)
         return fn(state)
 
     @_locked
@@ -734,9 +740,9 @@ class MultiLogReplicated(_FusedTier):
         """Flat per-log counters; `snapshot()` is the structured
         superset."""
         return {
-            "tails": [int(t) for t in self.ml.tail.cpu().numpy()],
-            "ctails": [int(t) for t in self.ml.ctail.cpu().numpy()],
-            "heads": [int(t) for t in self.ml.head.cpu().numpy()],
+            "tails": [int(t) for t in _readback(self.ml.tail)],
+            "ctails": [int(t) for t in _readback(self.ml.ctail)],
+            "heads": [int(t) for t in _readback(self.ml.head)],
             "log_selected": list(self._log_selected),
             "combine_rounds": list(self._combine_rounds),
             "exec_rounds": self._exec_rounds,
@@ -750,10 +756,10 @@ class MultiLogReplicated(_FusedTier):
         """Structured observability snapshot (JSON-safe): per-log
         cursors and per-(log, replica) lag, LogMapper routing counts,
         combiner passes and replay rounds per log, and the metrics."""
-        tails = self.ml.tail.cpu().numpy()
-        heads = self.ml.head.cpu().numpy()
-        ctails = self.ml.ctail.cpu().numpy()
-        ltails = self.ml.ltails.cpu().numpy()
+        tails = _readback(self.ml.tail)
+        heads = _readback(self.ml.head)
+        ctails = _readback(self.ml.ctail)
+        ltails = _readback(self.ml.ltails)
         logs = []
         for l in range(self.nlogs):
             lag = [int(tails[l] - lt) for lt in ltails[l]]
@@ -829,8 +835,8 @@ class MultiLogReplicated(_FusedTier):
             ml.head[log_idx] = lt.min()
         else:
             lt, resps = self._mesh_exec_log(log_idx, window)
-        lt_after = lt.cpu().numpy()
-        resps_np = resps.cpu().numpy()
+        lt_after = _readback(lt)
+        resps_np = _readback(resps)
         if self.mesh is not None:
             self._m_mesh_round.inc()
             self._m_mesh_sync_bytes.inc(resps_np.nbytes + lt_before.nbytes
@@ -845,6 +851,7 @@ class MultiLogReplicated(_FusedTier):
                     int(resps_np[r, pos - int(lt_before[r])])
                 )
 
+    @_locked
     def _mesh_exec_log(self, log_idx: int, window: int):
         """One exec round of log `log_idx` on every row shard, then the
         log's cursor lattice joined on the host (`ctail = max`, `head =

@@ -89,6 +89,7 @@ def make_step(
 
     def step(log, states, wr_opcodes, wr_args, rd_opcodes, rd_args):
         if guard_combined:
+            # nrlint: disable=scalar-cast-in-jit — the opt-in lock-step guard (check_lockstep) reads back once per step by design
             ok = bool((log.ltails == log.tail).all())
             msg = "combined step requires synced cursors (ltails == tail)"
             if guard_plan:

@@ -74,7 +74,7 @@ class ExportError(RuntimeError):
 
 #: `torch.profiler` is one per process, so device captures are too:
 #: the live capture thread of any exporter in this process
-_capture_lock = make_lock("obs.export._capture_lock")
+_capture_lock = make_lock("export._capture_lock")
 _capture: dict = {"thread": None, "seq": 0}
 
 
@@ -171,6 +171,9 @@ class MetricsExporter:
         self.accept_timeout_s = float(accept_timeout_s)
         self.io_timeout_s = float(io_timeout_s)
 
+        # profile_start builds the profiler under this lock, and the
+        # profiler get-or-creates its gauges in the registry:
+        # nrcheck: lock-order MetricsExporter._lock -> MetricsRegistry._lock — the profiler's gauges are created under the exporter lock
         self._lock = make_lock("MetricsExporter._lock")
         self._stats_fns: dict[str, object] = dict(stats_fns or {})
         self._stop = False
@@ -412,6 +415,9 @@ class MetricsExporter:
             tmp = path + ".part"
             prof.export_chrome_trace(tmp)
             os.replace(tmp, path)
+        # the capture thread serves no future and no replica: its
+        # failure is logged and emitted as `obs-device-trace ok: false`
+        # nrlint: disable=swallowed-worker-exception — reported on the trace, which the report and the requester read
         except Exception as e:
             logger.exception("obs exporter %s: device trace failed",
                              self.node_id)

@@ -115,11 +115,13 @@ class Tracer:
             self.enabled = False
 
     def emit(self, event: str, **fields: Any) -> None:
-        # racy-but-benign fast path: one word read
+        # racy-but-benign fast path: one word read; worst case one
+        # event races an enable/disable
+        # nrlint: disable=lock-discipline
         if not self.enabled:
             return
         rec = {
-            "ts": time.time(),
+            "ts": time.time(),  # nrlint: disable=wall-clock-time — correlation field; `mono` below is the ordering clock
             "mono": time.monotonic(),
             "event": event,
             **fields,

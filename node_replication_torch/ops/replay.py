@@ -376,7 +376,7 @@ class FusedHashmapEngine(FusedEngineHost):
         resps[W, R])`."""
         spec, n_keys = self.spec, self.n_keys
 
-        def raw(log, vals_t, pres_t, opcodes, args, count,
+        def raw(log, vals_t, pres_t, opcodes, args, count: int,
                 fenced_vec=None):
             if opcodes.shape[0] != window:
                 raise ValueError(f"round built for window {window}, got "
@@ -405,7 +405,7 @@ class FusedHashmapEngine(FusedEngineHost):
         raw = self.raw_round(window, fenced)
         K, kp = self.n_keys, self.kp
 
-        def fn(log, states, opcodes, args, count, fenced_vec=None):
+        def fn(log, states, opcodes, args, count: int, fenced_vec=None):
             R = states["values"].shape[0]
             dev = states["values"].device
             vals_t = torch.zeros((kp, R), dtype=torch.int32, device=dev)

@@ -885,7 +885,8 @@ class FusedVspaceEngine(FusedEngineHost):
                              "(supports_fenced=False)")
         spec, P, S = self.spec, self.n_pages, self.max_span
 
-        def fn(log, states, opcodes, args, count, fenced_vec=None):
+        def fn(log, states, opcodes, args, count: int,
+               fenced_vec=None):
             if opcodes.shape[0] != window:
                 raise ValueError(f"round built for window {window}, got "
                                  f"{opcodes.shape[0]}")

@@ -349,7 +349,7 @@ class MeshFusedEngine(FusedEngineHost):
         fns = {d: eng.round_fn(window, fenced)
                for d, eng in self._inner.items()}
 
-        def entry(fleet: Placed, opcodes, args, count, *mask):
+        def entry(fleet: Placed, opcodes, args, count: int, *mask):
             parts = _fenced_parts(fleet, mask[0] if fenced else None)
             inputs = _per_device(fleet, opcodes, args)
             ring, new_lts, states, resps = {}, [], [], []

@@ -785,6 +785,7 @@ class ServeFrontend:
         # Declared nestings the analyzer cannot type (`self._nr` is a
         # duck-typed wrapper; queues live in a dict):
         # nrcheck: lock-order ServeFrontend._lock -> NodeReplicated._lock — close/grow/stats call into the wrapper under the frontend lock
+        # nrcheck: lock-order ServeFrontend._lock -> MultiLogReplicated._lock — same nesting through the CNR wrapper
         # nrcheck: lock-order ServeFrontend._lock -> _SubmissionQueue._lock — queue close/drain runs under the frontend lock
         self._lock = make_lock("ServeFrontend._lock")
         self._closed = False

@@ -114,6 +114,12 @@ class TxnParticipant:
         self._wal = wal
         self._decisions = decisions
         self.apply_timeout_s = float(apply_timeout_s)
+        # commit applies the intent through the duck-typed frontend
+        # under this lock (the conflict fence must not open mid-apply),
+        # so the nestings are declared:
+        # nrcheck: lock-order TxnParticipant._lock -> _SubmissionQueue._lock — commit submits the intent's ops under the participant lock
+        # nrcheck: lock-order TxnParticipant._lock -> ServeFuture._cond — and waits for their futures there
+        # nrcheck: lock-order TxnParticipant._lock -> WriteAheadLog._lock — commit reads the WAL's tail (and a re-driven one its records) there
         self._lock = make_lock("TxnParticipant._lock")
         path = directory
         if not path.endswith(".log"):

@@ -95,7 +95,9 @@ class SimClock(Clock):
              timeout: float | None = None) -> bool:
         if timeout is None:
             # the predicate loop lives at the caller (the Clock.wait
-            # contract mirrors Condition.wait)
+            # contract mirrors Condition.wait); spurious wakeups are
+            # re-checked there
+            # nrlint: disable=condition-wait-without-predicate-loop
             cond.wait()
             return True
         with self._cond:
@@ -105,7 +107,9 @@ class SimClock(Clock):
             self._waiters.append(entry)
         try:
             # no real timeout: a real notify, or the clock crossing the
-            # deadline (advance notifies `cond`), wakes us
+            # deadline (advance notifies `cond`), wakes us; the caller's
+            # predicate loop absorbs spurious wakeups
+            # nrlint: disable=condition-wait-without-predicate-loop
             cond.wait()
         finally:
             with self._cond:

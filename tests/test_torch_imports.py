@@ -633,3 +633,33 @@ def test_harness_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     res = sweep(device="cpu", devices=["cpu"] * 2).systems(
         ["nr", "sharded"]).run()
     assert [r.name for r in res] == ["nr", "nr-mesh2"]
+
+
+ANALYSIS_PATH = ("analysis/__init__.py", "analysis/astutil.py",
+                 "analysis/rules.py", "analysis/concurrency.py",
+                 "analysis/lint.py", "analysis/locks.py")
+
+
+def test_analysis_modules_are_scanned_and_stand_alone():
+    # analysis/ is stdlib only: not even torch (it lints, and its lock
+    # factory is imported by every subsystem at import time)
+    files = {str(f.relative_to(ROOT / "node_replication_torch"))
+             for f in _port_files() if "node_replication_torch" in f.parts}
+    assert set(ANALYSIS_PATH) <= files
+    for rel in ANALYSIS_PATH:
+        path = ROOT / "node_replication_torch" / rel
+        roots = _imported_roots(path)
+        assert not roots & (FORBIDDEN | {"torch", "numpy"}), rel
+
+
+@pytest.mark.parametrize("mod", ["analysis", "analysis.locks"])
+def test_analysis_exports_the_reference_names(mod):
+    import importlib
+
+    ours = importlib.import_module(f"node_replication_torch.{mod}")
+    path = ROOT / "node_replication_tpu" / (
+        mod.replace(".", "/") + ("/__init__.py" if mod == "analysis"
+                                 else ".py"))
+    ref = _module_all(path)
+    assert set(ref) <= set(ours.__all__)
+    assert all(hasattr(ours, n) for n in ref)
