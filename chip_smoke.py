@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 13 minutes
+    python3 chip_smoke.py            # needs one CUDA card; 11-17 minutes
     python3 chip_smoke.py --crash-child DIR   # phase 14's victim (internal)
     python3 chip_smoke.py --repl-primary DIR  # phase 23's primary (internal)
     python3 chip_smoke.py --txn-child DIR     # phase 25's victim (internal)
@@ -101,8 +101,9 @@ The serving path (`serve/`, `fault/`, `durable/`):
    closed-loop clients of 1000 ops (50/50 PUT/REMOVE), each on its own
    625 keys, at depth 0 and 1 with a `grow(1)` mid-run in the second:
    every response equal to a per-client model, every round one K1
-   launch (R = 4097 after the grow), every touched key read back from
-   every served rid, all replicas equal to each other and the model;
+   launch (R = 4097 after the grow), every touched key read back
+   (key k from served rid k mod 8), all replicas equal to each other and
+   the model;
    acked ops/s, p50/p99, rounds and mean batch; then a profiled run:
    K1's and all device time per served round against its host wall;
 14. crash and recovery at the flagship widths: a child
@@ -112,7 +113,7 @@ The serving path (`serve/`, `fault/`, `durable/`):
    at a WAL fsync; the parent recovers on the card with `from_recovery`
    (the WAL replayed through K1): every acked op in the WAL once and in
    order, the state equal to a numpy replay of the WAL, replicas equal,
-   acked keys read back from every rid; snapshot bytes, records
+   acked keys read back (key k from rid k mod 8); snapshot bytes, records
    replayed, recovery seconds.
 
 CNR, `cnr`'s multi-log node replication (`core/multilog.py`,
@@ -280,10 +281,11 @@ The shard plane (`shard/`, `durable/txnlog.py`):
 The harness (`harness/`, `native/`), `bench.py`'s default config
 (R = 4096, K = 10000, uniform keys, 50/50):
 
-27. a `ScaleBenchBuilder` sweep of nr, partitioned and concurrent at 1
-   write + 1 read a replica (0.5 s each; CSVs in `chiprun_out/phase27/`),
-   then the nr runner's state after a step against the concurrent
-   fold's and a numpy map's; `measure_kernel(10000, 4096, 256)`: every
+27. a `ScaleBenchBuilder` sweep of nr and partitioned at 1 write + 1
+   read a replica (0.5 s each; CSVs in `chiprun_out/phase27/`), then
+   the nr runner's state after a step against the concurrent fold's
+   (its one step timed; its sweep window cut for time) and a numpy
+   map's; `measure_kernel(10000, 4096, 256)`: every
    tier bit-identical to the scan chain, one K1 launch a `pallas_fused`
    round and two programs a chain round, the fenced p50/p95 beside K1's
    bound, and `torch.profiler` over a short `pallas_fused` call (one
@@ -336,9 +338,26 @@ The lock-checked flagship (`analysis/`), on the card:
    (exit 0, beside the child), and requires the six subsystem locks of
    `LC_NODES` among the dynamic graph's nodes.
 
+The port's examples, as its users run them:
+
+30. each of the ten `examples/torch/*.py` (the reference's `examples/`,
+   one for one, at the reference's own sizes) as `python3
+   examples/torch/NAME.py` from the checkout's root, three at a time,
+   each a process of its own on the card (no `--device`) with a 60 s
+   timeout and `NR_TPU_TRACE=.chip_smoke_examples/NAME.jsonl`
+   (`fleet_dashboard` untraced: it installs its own ring tracer):
+   exit 0 and the example's `NAME OK: ...` line; prints each one's wall
+   seconds, OK line and K1 launches, read from the `kernel-launch`
+   events of its trace, and requires K1 in `nr_hashmap`, `nr_elastic`
+   and `serve_hashmap` (their auto tier finishes its calibration); then
+   K1 at the examples' fleets (R = 2, K = 1024, ring 2048, W = 1)
+   against its plain version, fenced and not, across the wrap, its
+   time a launch by CUDA events over queued calls beside its bound.
+
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
-17, 19-29; phase 29's child counts its own) and read just after; a kernel that its path never launched
+17, 19-29; phase 29's child counts its own, phase 30's examples
+their trace's) and read just after; a kernel that its path never launched
 fails the run; on the mesh only the meshed fleet's launches count.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
@@ -348,7 +367,8 @@ non-zero at once. Details of the run go to
 `chiprun_out/chip_smoke.json`, phase 26's profiles to
 `chiprun_out/phase26_*.folded` (flamegraph.pl / speedscope input),
 phase 27's CSVs to `chiprun_out/phase27/`, phase 28's sweep and canary
-output to `chiprun_out/phase28_*.txt`.
+output to `chiprun_out/phase28_*.txt`, phase 30's example output to
+`chiprun_out/phase30/NAME.log`.
 """
 
 from __future__ import annotations
@@ -362,6 +382,7 @@ import sys
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2273,20 +2294,25 @@ def hm_client_ops(rng, c: int, n: int) -> list[tuple]:
 
 def read_back(fe, models, label: str, keys=None) -> int:
     """Every key of `keys` (default: all of every client's slice) read
-    through `fe.read` from every served rid against the models."""
+    through `fe.read` against the models, key k from served rid k mod
+    the rids' count: every rid's read path serves a share of the keys,
+    and `check_fleet_state` holds every replica's whole state to the
+    models (reading each key from every rid, 8x the reads, was cut for
+    time)."""
     from node_replication_torch.models import HM_GET
 
+    rids = list(fe.rids)
     n = 0
     for c, m in enumerate(models):
         for slot in (range(c * SV_SLICE, (c + 1) * SV_SLICE)
                      if keys is None else sorted(keys[c])):
             want = m.vals.get(slot, -1)
-            for rid in fe.rids:
-                got = fe.read((HM_GET, slot), rid=rid)
-                n += 1
-                if got != want:
-                    raise AssertionError(f"{label}: key {slot} reads {got} "
-                                         f"on replica {rid}, acked {want}")
+            rid = rids[slot % len(rids)]
+            got = fe.read((HM_GET, slot), rid=rid)
+            n += 1
+            if got != want:
+                raise AssertionError(f"{label}: key {slot} reads {got} "
+                                     f"on replica {rid}, acked {want}")
     return n
 
 
@@ -6364,8 +6390,10 @@ def phase_obs(dev, rng) -> dict:
 
 # ------------------------------------------------ the harness (phase 27)
 
-# the sweep's window a system, s (cut from 1 s: the concurrent fold's
-# warm-up and first chunk, 11 steps of 4096 serial ops, set its length)
+# the sweep's window a system, s (cut from 1 s). The concurrent fold is
+# out of the sweep (cut for time): its warm-up and first chunk, 11 steps
+# of 4096 serial `apply_write`s, took ~25 s; its one step in the state
+# check below is timed
 HN_SWEEP_S = 0.5
 HN_CHECK_STEPS = 1      # steps of the nr-vs-concurrent state check
 HN_MESH_VERIFY = 2      # the mesh tiers' verify rounds (shmap ~0.8 s each)
@@ -6391,11 +6419,12 @@ def _np_fold(gen, steps: int):
 def phase_harness(dev, rng) -> dict:
     """Phase 27: the port's harness on the card at the flagship width
     (`bench.py`'s default config: R = 4096, K = 10000, uniform keys,
-    50/50): a `ScaleBenchBuilder` sweep of nr, partitioned and
-    concurrent; `measure_kernel` at W = 256 on one device (K1 a
-    `pallas_fused` round, under `torch.profiler` once) and on 4 shards
-    (`mesh_fused`, K1 a shard); `measure_mesh` at 1 and 4 shards;
-    `measure_serve` on phase 13's served fleet; `measure_native`."""
+    50/50): a `ScaleBenchBuilder` sweep of nr and partitioned, one
+    timed step of the concurrent fold; `measure_kernel` at W = 256 on
+    one device (K1 a `pallas_fused` round, under `torch.profiler` once)
+    and on 4 shards (`mesh_fused`, K1 a shard); `measure_mesh` at 1 and
+    4 shards; `measure_serve` on phase 13's served fleet;
+    `measure_native`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -6431,7 +6460,7 @@ def phase_harness(dev, rng) -> dict:
     t0 = time.perf_counter()
     sweep = (ScaleBenchBuilder(hm, "flagship", wl, device=dev)
              .replicas([R]).batches([2])
-             .systems(["nr", "partitioned", "concurrent"])
+             .systems(["nr", "partitioned"])
              .duration(HN_SWEEP_S).out_dir(str(HN_DIR)).run())
     out["sweep"] = {r.name: {"client_mops": r.client_mops,
                              "replay_mops": r.mops,
@@ -6443,9 +6472,11 @@ def phase_harness(dev, rng) -> dict:
     cc = ConcurrentDsRunner(hm(), R, 1, 1, device=dev)
     for r in (nr, cc):
         r.prepare(*gen)
+        t1 = time.perf_counter()
         for s in range(HN_CHECK_STEPS):
             r.run_step(s)
         r.block()
+    out["concurrent_step_s"] = (time.perf_counter() - t1) / HN_CHECK_STEPS
     a, b = nr.state_dump(0), cc.state_dump()
     values, present = _np_fold(gen, HN_CHECK_STEPS)
     if not (nr.replicas_equal()
@@ -6461,7 +6492,9 @@ def phase_harness(dev, rng) -> dict:
         f"{n} {v['client_mops']:.4f} Mops client ({v['replay_mops']:.2f} "
         f"replayed)" for n, v in out["sweep"].items())
         + f" in {out['sweep_s']:.1f} s; nr after {HN_CHECK_STEPS} step(s) "
-        f"equal to the concurrent fold and a numpy map, replicas equal")
+        f"equal to the concurrent fold and a numpy map, replicas equal; "
+        f"the concurrent fold {out['concurrent_step_s']:.1f} s a step "
+        f"({R} serial writes; out of the sweep, cut for time)")
 
     # 2. measure_kernel on one device: K1 once a pallas_fused round
     bound_ms = k1_round_bytes(R, W_ROUND) / HBM_BYTES_PER_S * 1e3
@@ -7397,6 +7430,223 @@ def phase_lockcheck(dev, serve13) -> dict:
     return out
 
 
+# --------------------------------------------------- the examples (phase 30)
+
+EX_NAMES = ("nr_hashmap", "nr_stack", "nr_elastic", "serve_hashmap",
+            "cnr_hashmap", "cnr_stack", "follower_reads", "tree_replication",
+            "fleet_dashboard", "sharded_hashmap")
+# the hashmap examples whose auto tier finishes its calibration (3 chain
+# rounds at a window, then K1 for 3): each must launch K1
+EX_K1 = ("nr_hashmap", "nr_elastic", "serve_hashmap")
+# the examples' hashmap fleets, as each file builds them: (K, ring,
+# gc_slack, R at the start); a `grow_fleet` event in the trace sets R
+# from then on (`nr_elastic` grows 2 -> 3, and restores that fleet).
+# `sharded_hashmap`'s shards launch no K1 on the card (none of its
+# fleets sees a window often enough to finish the calibration), but a
+# launch there would be of this shape
+EX_FLEETS = {"nr_hashmap": (1 << 10, 2048, 64, 2),
+             "nr_elastic": (256, 512, 32, 2),
+             "serve_hashmap": (1 << 10, 2048, 64, 2),
+             "sharded_hashmap": (64, 1 << 10, 32, 1)}
+# K1 is checked at every (R, K, ring, gc_slack, W) the traces show, and
+# at these besides: `nr_elastic` before and after its join (one op a
+# round), the other two at one op a round and `serve_hashmap`'s batches
+# of 2 and 4 (4 clients, a 1 ms linger)
+EX_SHAPES = ((2, 256, 512, 32, 1), (3, 256, 512, 32, 1),
+             (2, 1 << 10, 2048, 64, 1), (2, 1 << 10, 2048, 64, 2),
+             (2, 1 << 10, 2048, 64, 4))
+# installs its own ring tracer over NR_TPU_TRACE's file (seqreg, no kernel)
+EX_UNTRACED = ("fleet_dashboard",)
+EX_TIMEOUT = 60.0     # s, each example
+# examples at a time: on the card's host a process took 9-15 s, most of
+# it python, torch and CUDA start-up; ten in a row took ~103 s
+EX_PARALLEL = 3
+EX_DIR = Path(__file__).resolve().parent / ".chip_smoke_examples"
+
+
+def _trace_launches(name: str, path: Path) -> dict:
+    """The fused tier's launches in an `NR_TPU_TRACE` file, from its
+    `kernel-launch` events (`ops/ring.py:FusedEngineHost.note_round`),
+    split by K1's shape: the event's window and the example's fleet
+    (`EX_FLEETS`, R raised by `grow_fleet` events). The examples' only
+    fused-capable model is the hashmap, so they are K1's."""
+    n_events = launches = 0
+    by_shape: dict = {}
+    fleet = EX_FLEETS.get(name)
+    r = fleet[3] if fleet else None
+    for ln in path.read_text().splitlines():
+        e = json.loads(ln)
+        n_events += 1
+        if e.get("event") == "grow_fleet":
+            r = int(e["n_replicas"])
+        elif e.get("event") == "kernel-launch":
+            if fleet is None:
+                raise AssertionError(
+                    f"phase 30: {name} launched K1, at a fleet phase 30 "
+                    f"does not know (add it to EX_FLEETS)")
+            n = int(e["launches"])
+            launches += n
+            shape = (r, fleet[0], fleet[1], fleet[2], int(e["window"]))
+            by_shape[shape] = by_shape.get(shape, 0) + n
+    return {"events": n_events, "launches": launches, "by_shape": by_shape}
+
+
+def _run_example(name: str) -> dict:
+    """`python3 examples/torch/<name>.py` from the checkout's root, as a
+    user runs it: no `--device`, so the card."""
+    root = Path(__file__).resolve().parent
+    rel = EX_DIR.relative_to(root)
+    env = dict(os.environ)
+    traced = name not in EX_UNTRACED
+    if traced:
+        env["NR_TPU_TRACE"] = str(rel / f"{name}.jsonl")
+    else:
+        env.pop("NR_TPU_TRACE", None)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, f"examples/torch/{name}.py"],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=EX_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (OUT_DIR / "phase30").mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "phase30" / f"{name}.log").write_text(p.stdout + p.stderr)
+    ok = [ln for ln in p.stdout.splitlines() if ln.startswith(f"{name} OK: ")]
+    if p.returncode != 0 or not ok:
+        raise AssertionError(f"phase 30: {name} exited {p.returncode}: "
+                             f"{(p.stdout + p.stderr)[-3000:]}")
+    out = {"wall_s": wall, "ok": ok[-1], "traced": traced}
+    if traced:
+        out.update(_trace_launches(name, EX_DIR / f"{name}.jsonl"))
+    else:
+        out.update(events=None, launches=None, by_shape={})
+    return out
+
+
+def _k1_examples_check(dev, shape, rng) -> dict:
+    """K1 against its plain version at one of the examples' fleets,
+    `shape` = (R, K, ring, gc_slack, W), fenced (the last replica) and
+    unfenced, over rounds across the ring's wrap; its time a launch from
+    CUDA events over 20 queued calls (launch latency at these sizes)."""
+    import torch
+
+    from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_plain,
+    )
+
+    r, k, ring_n, slack, w = shape
+    spec = LogSpec(capacity=ring_n, n_replicas=r, arg_width=3,
+                   gc_slack=slack)
+    kp = -(-k // 8) * 8
+    vals = torch.from_numpy(rng.integers(
+        -50, 50, (kp, r)).astype(np.int32)).to(dev)
+    pres = torch.from_numpy(rng.integers(
+        0, 2, (kp, r)).astype(np.int32)).to(dev)
+    ring = (torch.zeros(ring_n, dtype=torch.int32, device=dev),
+            torch.zeros((ring_n, 3), dtype=torch.int32, device=dev))
+    fen = torch.zeros(r, dtype=torch.int32, device=dev)
+    fen[r - 1] = 1
+    kern = plain = (*ring, vals, pres)
+    err, rnd = 0, 0
+    tail = ring_n - 8
+    while tail <= ring_n + 8:
+        opc = rng.choice(np.array([1, 1, 1, 2], np.int32), w)
+        args = np.zeros((w, 3), np.int32)
+        args[:, 0] = rng.integers(0, k, w)
+        args[:, 1] = rng.integers(1, 1 << 20, w)
+        inputs = (spec, torch.tensor(tail, dtype=torch.int64, device=dev),
+                  w, torch.from_numpy(opc).to(dev),
+                  torch.from_numpy(args).to(dev))
+        f = fen if rnd % 2 else None
+        out_k = hashmap_fused_round(*inputs, *kern, k, f)
+        out_p = hashmap_fused_round_plain(*inputs, *plain, k, f)
+        e = max_abs_err(out_k, out_p)
+        if e:
+            raise AssertionError(
+                f"phase 30: K1 at R={r} K={k} ring {ring_n} W={w} "
+                f"disagrees with its plain version in round {rnd} "
+                f"(fenced={f is not None}): {e}")
+        err = max(err, e)
+        kern, plain = out_k[:4], out_p[:4]
+        tail += w
+        rnd += 1
+    call = (*inputs, *kern, k, None)
+    ms = queued_ms(lambda: hashmap_fused_round(*call))
+    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*call), reps=10,
+                       warmup=2)
+    n_bytes = k1_round_bytes(r, w, ring_n, k)
+    bound_ms, by = bound(n_bytes, 4 * w * r)
+    return {"R": r, "K": k, "ring": ring_n, "gc_slack": slack, "W": w,
+            "rounds": rnd, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bytes": n_bytes, "bound_ms": bound_ms,
+            "bound_by": by}
+
+
+def phase_examples(dev, shard_k1: int) -> dict:
+    """Phase 30: the port's ten examples on the card, each as a user runs
+    it (`python3 examples/torch/<name>.py`, a process of its own, the
+    card by default), traced by `NR_TPU_TRACE`; exit 0 and the OK line
+    required, K1's launches read from each trace and split by shape.
+    Then K1 against its plain version, with its time and bound, at every
+    shape the traces show and at `EX_SHAPES`. `shard_k1` is phase 24's
+    sharded K1 launches, cited beside `sharded_hashmap`."""
+    import shutil
+
+    shutil.rmtree(EX_DIR, ignore_errors=True)
+    EX_DIR.mkdir()
+    t0 = time.perf_counter()
+    # a failed example raises out of the pool once the running ones end
+    # (each within its own timeout)
+    with ThreadPoolExecutor(EX_PARALLEL) as pool:
+        runs = dict(zip(EX_NAMES, pool.map(_run_example, EX_NAMES)))
+    for name, r in runs.items():
+        how = (f"K1 launches {r['launches']} ({r['events']} trace events)"
+               if r["traced"] else
+               "untraced (it installs its own ring tracer; seqreg, no "
+               "kernel)")
+        if name == "sharded_hashmap":
+            how += (f"; the auto tier stays on the chain at these fleets, "
+                    f"sharded K1 ran in phase 24 ({shard_k1} launches)")
+        log(f"phase 30: {name} {r['wall_s']:.2f} s ({EX_PARALLEL} examples "
+            f"at a time); {how}; {r['ok']}")
+    short = [n for n in EX_K1 if not runs[n]["launches"]]
+    if short:
+        raise AssertionError(f"phase 30: no K1 launch in {short}")
+    examples_s = time.perf_counter() - t0
+    traced: dict = {}
+    for r in runs.values():
+        for shape, n in r["by_shape"].items():
+            traced[shape] = traced.get(shape, 0) + n
+    rng = np.random.default_rng(SEED + 30)
+    shapes = []
+    for shape in sorted(set(traced) | set(EX_SHAPES)):
+        chk = _k1_examples_check(dev, shape, rng)
+        chk["launches"] = traced.get(shape, 0)
+        shapes.append(chk)
+        log(f"phase 30: K1 at R={chk['R']}, K={chk['K']}, ring "
+            f"{chk['ring']}, gc_slack {chk['gc_slack']}, W={chk['W']}: "
+            f"{chk['launches']} launches in the examples; fenced and not, "
+            f"across the wrap, bit-identical over {chk['rounds']} rounds; "
+            f"a launch (events over queued calls) {chk['ms']:.6f} ms, "
+            f"plain {chk['plain_ms']:.3f} ms, bound {chk['bound_ms']:.9f} "
+            f"ms ({chk['bound_by']})")
+    for r in runs.values():
+        r["by_shape"] = [{"R": s[0], "K": s[1], "ring": s[2],
+                          "gc_slack": s[3], "W": s[4], "launches": n}
+                         for s, n in sorted(r["by_shape"].items())]
+    out = {"runs": runs, "k1_shapes": shapes, "examples_s": examples_s,
+           "launches": {"hashmap_fused_round": sum(
+               r["launches"] or 0 for r in runs.values())},
+           "loss_ms": sum(c["launches"] * (c["ms"] - c["bound_ms"])
+                          for c in shapes),
+           "s": time.perf_counter() - t0}
+    log(f"phase 30: ten examples in {examples_s:.1f} s, {EX_PARALLEL} at a "
+        f"time; K1 launches "
+        f"{out['launches']['hashmap_fused_round']} (from their traces), "
+        f"loss {out['loss_ms']:.3f} ms; {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7487,6 +7737,9 @@ def main() -> int:
         res["sim"] = phase_sim(dev)
         torch.cuda.empty_cache()
         res["lockcheck"] = phase_lockcheck(dev, res["hashmap_serve"])
+        torch.cuda.empty_cache()
+        res["examples"] = phase_examples(
+            dev, res["shard"]["launches"]["hashmap_fused_round"])
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         res["seconds"] = time.perf_counter() - t0
     except Exception:
@@ -7650,6 +7903,19 @@ def main() -> int:
         "lock_order_errors": lc["lock_order_errors"],
         "dynamic_edges": lc["dynamic_edges"],
         "static_edges": lc["static_edges"], "missing": lc["missing"]}
+    # and phase 30's examples: the hashmap examples' fleets (R = 2-3,
+    # K = 256 with a 512-slot ring, K = 1024 with a 2048-slot ring, W =
+    # 1-4), their launches read from each example's trace (processes of
+    # their own) and split by shape, K1 checked and timed at each shape
+    ex = res["examples"]
+    res["fused"]["max_abs_err"] = max(
+        [res["fused"]["max_abs_err"]]
+        + [c["max_abs_err"] for c in ex["k1_shapes"]])
+    res["fused"]["examples"] = {
+        "shapes": ex["k1_shapes"], "loss_ms": ex["loss_ms"],
+        "launches": ex["launches"]["hashmap_fused_round"],
+        "launches_by_example": {n: r["launches"]
+                                for n, r in ex["runs"].items()}}
     # and both fused kernels once per mesh shard (phases 19-22): the
     # per-shard shape's checks and times, and the in-path device time
     for p, chk, n, extra in (
@@ -7685,6 +7951,7 @@ def main() -> int:
         **({"harness": p["harness"]} if "harness" in p else {}),
         **({"sim": p["sim"]} if "sim" in p else {}),
         **({"lockcheck": p["lockcheck"]} if "lockcheck" in p else {}),
+        **({"examples": p["examples"]} if "examples" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
     } for kname, src, ref, p, launches in table]

@@ -663,3 +663,23 @@ def test_analysis_exports_the_reference_names(mod):
     ref = _module_all(path)
     assert set(ref) <= set(ours.__all__)
     assert all(hasattr(ours, n) for n in ref)
+
+
+# the port's user-facing scripts: one example for each of the
+# reference's `examples/*.py`, and the TSAN stress of its native engine
+PORT_SCRIPTS = sorted(
+    str(p.relative_to(ROOT))
+    for p in (ROOT / "examples" / "torch").glob("*.py")
+) + ["scripts/tsan_stress_torch.py"]
+
+
+def test_port_scripts_are_all_listed():
+    assert len(PORT_SCRIPTS) == 11
+    assert all((ROOT / rel).exists() for rel in PORT_SCRIPTS)
+
+
+@pytest.mark.parametrize("rel", PORT_SCRIPTS)
+def test_port_script_imports_neither_jax_nor_the_reference(rel):
+    roots = _imported_roots(ROOT / rel)
+    assert "node_replication_torch" in roots
+    assert not roots & FORBIDDEN
