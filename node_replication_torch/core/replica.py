@@ -84,11 +84,19 @@ FUSED_CAL_SAMPLES = 2
 BATCH_TID = -1
 
 
+# Every device-to-host read of the combiner round goes through
+# `_readback`: a `d2h` span around it and one count in `nr.d2h.reads`.
+_m_d2h_reads = get_registry().counter("nr.d2h.reads")
+
+
 def _readback(t: torch.Tensor) -> np.ndarray:
     """A round's device-to-host read: waits for the card. `.cpu()` is a
     C call with no Python frame, so this frame is what the sampling
     profiler (`obs/profile.py`) attributes to the `readback` stage."""
-    return t.cpu().numpy()
+    with span("d2h"):
+        out = t.cpu().numpy()
+    _m_d2h_reads.inc()
+    return out
 
 
 class _BatchSink:
@@ -1297,6 +1305,8 @@ class NodeReplicated(_FusedTier):
                 # fence; only replica `rid`'s row is delivered
                 resps_np = _readback(resps[rid, :n])
                 sp.fence(*self._fleet_trees())
+        if pending is None:
+            eng.settle()
         if timing:
             self._note_fused_sample(
                 "pallas_fused", pad, time.perf_counter() - t0, fkey
@@ -1319,8 +1329,10 @@ class NodeReplicated(_FusedTier):
             pending.fused_resps = resps
             pending.tier = eng.tier
             return True
-        for j, tid in enumerate(tids):
-            self._contexts[(rid, tid)].enqueue_resps([int(resps_np[j])])
+        with span("deliver"):
+            for j, tid in enumerate(tids):
+                self._contexts[(rid, tid)].enqueue_resps(
+                    [int(resps_np[j])])
         self.last_round_tier = eng.tier
         self._tier_by_rid[rid] = eng.tier
         self._pos_by_rid[rid] = pos0
@@ -1347,15 +1359,16 @@ class NodeReplicated(_FusedTier):
             )
         self._m_batch.observe(n)
         rounds = 0
-        while int(log_space(self.spec, self.log)) < n:
+        while int(_readback(log_space(self.spec, self.log))) < n:
             self._exec_round()
             rounds = self._watchdog(rounds, "append-gc")
 
-        pos0 = int(self.log.tail)
+        pos0 = int(_readback(self.log.tail))
         pad = 1 << (max(n, 1) - 1).bit_length()
-        opcodes, args, _ = encode_ops(
-            ops, self.spec.arg_width, pad_to=pad, device=self.device
-        )
+        with span("encode"):
+            opcodes, args, _ = encode_ops(
+                ops, self.spec.arg_width, pad_to=pad, device=self.device
+            )
         fkey = self._fused_fence_key()
         timing = self._fused_calibrating(fkey)
         defer = defer and not timing
@@ -1401,10 +1414,13 @@ class NodeReplicated(_FusedTier):
         if pending.fused_resps is not None:
             resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
-            for j, tid in enumerate(pending.tids):
-                self._contexts[(rid, tid)].enqueue_resps(
-                    [int(resps_np[j])]
-                )
+            if self._fused is not None:
+                self._fused.settle()
+            with span("deliver"):
+                for j, tid in enumerate(pending.tids):
+                    self._contexts[(rid, tid)].enqueue_resps(
+                        [int(resps_np[j])]
+                    )
             tier = pending.tier or "pallas_fused"
             self.last_round_tier = tier
             self._tier_by_rid[rid] = tier
@@ -1462,7 +1478,8 @@ class NodeReplicated(_FusedTier):
             sink = _BatchSink()
             self._contexts[(rid, BATCH_TID)] = sink
         if n == 0:
-            pending = _PendingRound(rid, [], 0, int(self.log.tail),
+            pending = _PendingRound(rid, [], 0,
+                                    int(_readback(self.log.tail)),
                                     batch=True)
             pending.done = True
             self._pending_batch[rid] = pending
@@ -1519,8 +1536,13 @@ class NodeReplicated(_FusedTier):
     @_locked
     def execute_mut_batch(self, ops: list[tuple], rid: int = 0) -> list:
         """Execute a caller-assembled batch of write ops as ONE
-        combiner round (`begin_mut_batch` + `finish_mut_batch`)."""
-        return self.finish_mut_batch(self.begin_mut_batch(ops, rid))
+        combiner round (`begin_mut_batch` + `finish_mut_batch`), inside
+        a `mut-batch` span whose `round` (the round's first log
+        position) every span of the round carries."""
+        with span("mut-batch", rid=rid, n=len(ops), round=None) as sp:
+            pending = self.begin_mut_batch(ops, rid)
+            sp.add(round=pending.pos0)
+            return self.finish_mut_batch(pending)
 
     @_locked
     def sync(self, rid: int | None = None) -> None:

@@ -8,8 +8,11 @@ Single-process half:
 - `obs.metrics` — process-wide counters/gauges/histograms
   (`get_registry()`; enable with NR_TPU_METRICS=1).
 - `obs.recorder` — the `Tracer` flight recorder and `span` timing
-  context (enable with NR_TPU_TRACE=<path|mem>; fence-accurate spans
-  with NR_TPU_TRACE_FENCE=1; per-record sampling with
+  context: each span event carries `t0_ns`/`t1_ns` (perf_counter_ns),
+  `duration_s`, its `id` and its `parent`'s, and inside a combiner
+  round's `mut-batch` span the round's `round` (enable with
+  NR_TPU_TRACE=<path|mem>; fence-accurate spans with
+  NR_TPU_TRACE_FENCE=1; per-record sampling with
   NR_TPU_TRACE_SAMPLE=1/N). `utils/trace.py` re-exports these.
 - `obs.profile` — the host sampling profiler (`SamplingProfiler`,
   `host_budget`; `ServeConfig(profile_hz=...)`).

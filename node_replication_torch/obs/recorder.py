@@ -5,9 +5,29 @@ process-wide `Tracer` appends JSONL events (`{"ts", "mono", "event",
 ...fields}`) to a file, collects them in an unbounded buffer, or keeps
 the last N in a ring (flight-recorder mode).
 
-Spans: `span("name", **fields)` times a section and emits `duration_s`
-on exit. CUDA launches return before the device finishes, so a span
-around device work measures the enqueue unless it fences: opt into
+Spans: `with span("name", **fields) as sp:` times a section and emits
+`<name>` on exit with the fields given, those added by `sp.add(...)`,
+and:
+
+- `t0_ns`, `t1_ns`: `time.perf_counter_ns()` at entry and exit (the
+  monotonic clock a device trace can be mapped onto), and
+  `duration_s`, their difference in seconds;
+- `id`: unique in the process; `parent`: the `id` of the span open
+  around it on the same thread (a thread-local stack), or None;
+- `fenced`: whether the span fenced its device work (below).
+
+A span opened with a `round=` field (`round=None` until the position
+is known, then `sp.add(round=pos)`) holds its descendants' events and
+emits them at its own exit, each stamped with its `round`, then its
+own event: the spans of one combiner round share an identifier
+(`core/replica.py:execute_mut_batch`'s `mut-batch`, `round` = the
+round's first log position). While a torch profiler records in the
+process, such a span also enters a profiler record of its name, so the
+profiler's trace places each round on the trace's own clock (and its
+descendants, by their offsets from it).
+
+CUDA launches return before the device finishes, so a span around
+device work measures the enqueue unless it fences: opt into
 fence-accurate spans with `NR_TPU_TRACE_FENCE=1` (or
 `get_tracer().fence_spans = True`) and tell the span what to fence:
 
@@ -18,10 +38,11 @@ fence-accurate spans with `NR_TPU_TRACE_FENCE=1` (or
 At exit the span runs `utils/fence.py:fence()` over the registered
 trees before taking the end timestamp; the event carries `fenced: true`.
 
-Disabled by default: `emit` is one branch, and `span` yields a shared
-no-op singleton without reading the clock. Enable with
-`NR_TPU_TRACE=<path>` (file), `NR_TPU_TRACE=mem` (in-memory; bound it
-with `NR_TPU_TRACE_RING=<n>`), or `get_tracer().enable(...)`.
+Disabled by default: `emit` is one branch, and `span` is one flag
+check that returns a shared no-op span, reading no clock, building no
+record and making no generator. Enable with `NR_TPU_TRACE=<path>`
+(file), `NR_TPU_TRACE=mem` (in-memory; bound it with
+`NR_TPU_TRACE_RING=<n>`), or `get_tracer().enable(...)`.
 
 Per-record sampling: `NR_TPU_TRACE_SAMPLE=1/N` (or `N`) keeps the
 replication plane's per-record hop events only for positions with
@@ -31,37 +52,27 @@ replication plane's per-record hop events only for positions with
 from __future__ import annotations
 
 import collections
-import contextlib
+import itertools
 import json
 import os
+import sys
+import threading
 import time
 from typing import Any
 
 from node_replication_torch.analysis.locks import make_lock
 
 
-class _Span:
-    """Mutable per-span holder the `span` context manager yields: attach
-    late fields with `add(...)`, register device trees to fence with
-    `fence(...)`."""
-
-    __slots__ = ("fields", "fence_args")
-
-    def __init__(self):
-        self.fields: dict[str, Any] = {}
-        self.fence_args: tuple | None = None
-
-    def add(self, **fields: Any) -> None:
-        self.fields.update(fields)
-
-    def fence(self, *trees: Any) -> None:
-        self.fence_args = trees
-
-
 class _NullSpan:
     """Shared do-nothing span for the disabled path (no allocation)."""
 
     __slots__ = ()
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
     def add(self, **fields: Any) -> None:
         pass
@@ -126,13 +137,18 @@ class Tracer:
             "event": event,
             **fields,
         }
+        self._write((rec,))
+
+    def _write(self, recs) -> None:
+        """Append finished records to the sink, in order."""
         with self._lock:
             if self._fh is not None:
-                self._fh.write(json.dumps(rec) + "\n")
-                self._emitted += 1
+                for rec in recs:
+                    self._fh.write(json.dumps(rec) + "\n")
+                self._emitted += len(recs)
             elif self._buffer is not None:
-                self._buffer.append(rec)
-                self._emitted += 1
+                self._buffer.extend(recs)
+                self._emitted += len(recs)
 
     @property
     def buffered(self) -> bool:
@@ -217,25 +233,110 @@ def pos_sampled(pos: int) -> bool:
     return _sample_n <= 1 or int(pos) % _sample_n == 0
 
 
-@contextlib.contextmanager
-def span(event: str, **fields: Any):
-    """Time a section; emits `<event>` with `duration_s` on exit (see
-    module docstring). Disabled tracer: yields a shared no-op span."""
-    t = _tracer
-    if not t.enabled:
-        yield _NULL_SPAN
-        return
-    sp = _Span()
-    t0 = time.perf_counter()
-    try:
-        yield sp
-    finally:
+_ids = itertools.count(1)
+_local = threading.local()
+_new_span = object.__new__
+
+
+def _profiler_record(event: str):
+    """A torch profiler record named `event`, entered, while a profiler
+    records in this process; else None. `_RecordFunctionFast` (a record
+    made in C++) where torch has it, `record_function` otherwise."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    rec = (fast(event) if fast is not None
+           else torch.profiler.record_function(event))
+    rec.__enter__()
+    return rec
+
+
+class _Span:
+    """A live span (tracer enabled): the context manager `span` builds
+    and returns. Attach late fields with `add(...)`, register device
+    trees to fence with `fence(...)`."""
+
+    __slots__ = ("event", "fields", "fence_args", "id", "parent",
+                 "sink", "held", "record", "t0_ns")
+
+    def add(self, **fields: Any) -> None:
+        self.fields.update(fields)
+
+    def fence(self, *trees: Any) -> None:
+        self.fence_args = trees
+
+    def __enter__(self) -> "_Span":
+        try:
+            stack = _local.stack
+        except AttributeError:
+            stack = _local.stack = []
+        if stack:
+            parent = stack[-1]
+            self.parent = parent.id
+            #: the innermost enclosing span that holds events
+            self.sink = parent if parent.held is not None else parent.sink
+        else:
+            self.parent = self.sink = None
+        self.id = next(_ids)
+        stack.append(self)
+        self.record = (None if self.held is None
+                       else _profiler_record(self.event))
+        self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t = _tracer
         fenced = False
-        if t.fence_spans and sp.fence_args is not None:
+        if t.fence_spans and self.fence_args is not None:
             from node_replication_torch.utils.fence import fence
 
-            fence(*sp.fence_args)
+            fence(*self.fence_args)
             fenced = True
-        dur = time.perf_counter() - t0
-        t.emit(event, duration_s=dur, fenced=fenced, **fields,
-               **sp.fields)
+        t1 = time.perf_counter_ns()
+        if self.record is not None:
+            self.record.__exit__(None, None, None)
+        stack = _local.stack
+        if stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        rec = {
+            "ts": time.time(),  # nrlint: disable=wall-clock-time — correlation field; `mono` below is the ordering clock
+            "mono": time.monotonic(), "event": self.event,
+            "duration_s": (t1 - self.t0_ns) * 1e-9, "fenced": fenced,
+            "t0_ns": self.t0_ns, "t1_ns": t1, "id": self.id,
+            "parent": self.parent, **self.fields,
+        }
+        held = self.held
+        if held is not None:
+            rnd = rec["round"]
+            for r in held:
+                if r.get("round") is None:
+                    r["round"] = rnd
+            held.append(rec)
+            self.held = None
+        sink = self.sink
+        if sink is not None and sink.held is not None:
+            if held is None:
+                sink.held.append(rec)
+            else:
+                sink.held.extend(held)
+        else:
+            t._write((rec,) if held is None else held)
+        return None
+
+
+def span(event: str, **fields: Any):
+    """Time a section: a context manager that emits `<event>` on exit
+    (see module docstring). Disabled tracer: the shared no-op span."""
+    if not _tracer.enabled:
+        return _NULL_SPAN
+    # set here, not in an `__init__`: a combiner round opens eight spans
+    sp = _new_span(_Span)
+    sp.event = event
+    sp.fields = fields
+    sp.fence_args = None
+    #: descendants' events, held until the span knows its round
+    sp.held = [] if "round" in fields else None
+    return sp

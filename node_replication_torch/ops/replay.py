@@ -342,6 +342,11 @@ class FusedHashmapEngine(FusedEngineHost):
     States cross the boundary in model layout (`[R, K]` values + bool
     present); the transposes to the kernel's `[Kp, R]` planes happen in
     `round_fn`. `raw_round` is the transposed-resident form.
+
+    While the metrics registry is on, `round_fn` records CUDA events
+    around its layout copies (the planes in, the states and responses
+    out) and `settle()` adds their device time, once the round's events
+    have completed, to `nr.fused.copies_device_s`: no sync of its own.
     """
 
     supports_fenced = True
@@ -357,6 +362,38 @@ class FusedHashmapEngine(FusedEngineHost):
         self.device = resolve_device(device)
         self.kp = _round_up(self.n_keys, 8)
         self._init_host()
+        from node_replication_torch.obs.metrics import get_registry
+
+        self._reg = get_registry()
+        self._m_copies = self._reg.histogram("nr.fused.copies_device_s")
+        #: per round: CUDA events before and after the copies in, then
+        #: the copies out, oldest first, until `settle` reads them; read
+        #: ones wait in `_free_marks` for a later round
+        self._copy_marks: list[tuple] = []
+        self._free_marks: list[tuple] = []
+
+    def _marks(self, dev: torch.device):
+        """Four timing events for this round's copies, or None: the
+        registry off (no event is made) or the planes on the CPU."""
+        if not self._reg.enabled or dev.type != "cuda":
+            return None
+        if self._copy_marks:
+            self.settle()
+        if self._free_marks:
+            return self._free_marks.pop()
+        return tuple(torch.cuda.Event(enable_timing=True)
+                     for _ in range(4))
+
+    def settle(self) -> None:
+        """Observe the copies' device time of each round whose events
+        have completed; a round still on the card waits for a later
+        call (`Event.query` does not block)."""
+        marks = self._copy_marks
+        while marks and marks[0][3].query():
+            e0, e1, e2, e3 = done = marks.pop(0)
+            self._m_copies.observe(
+                (e0.elapsed_time(e1) + e2.elapsed_time(e3)) * 1e-3)
+            self._free_marks.append(done)
 
     def supports(self, window: int) -> bool:
         """Window fits the reference's ring-span rule and the
@@ -408,13 +445,21 @@ class FusedHashmapEngine(FusedEngineHost):
         def fn(log, states, opcodes, args, count: int, fenced_vec=None):
             R = states["values"].shape[0]
             dev = states["values"].device
+            marks = self._marks(dev)
+            if marks is not None:
+                stream = torch.cuda.current_stream(dev)
+                marks[0].record(stream)
             vals_t = torch.zeros((kp, R), dtype=torch.int32, device=dev)
             vals_t[:K] = states["values"].T
             pres_t = torch.zeros_like(vals_t)
             pres_t[:K] = states["present"].T
+            if marks is not None:
+                marks[1].record(stream)
             log, vals_t, pres_t, resps = raw(
                 log, vals_t, pres_t, opcodes, args, count, fenced_vec
             )
+            if marks is not None:
+                marks[2].record(stream)
             states = {
                 "values": vals_t[:K].T.contiguous(),
                 "present": (pres_t[:K] > 0).T.contiguous(),
@@ -425,6 +470,9 @@ class FusedHashmapEngine(FusedEngineHost):
                                                      dtype=torch.bool)
                 resps = torch.where(fen[:, None], torch.zeros_like(resps),
                                     resps)
+            if marks is not None:
+                marks[3].record(stream)
+                self._copy_marks.append(marks)
             return log, states, resps
 
         return fn

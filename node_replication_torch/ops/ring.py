@@ -59,38 +59,37 @@ def append_window_planes(mask: int, ring_opc, ring_args, opcodes, args,
 
 
 class FusedEngineHost:
-    """Host-side plumbing of the fused engines: the `kernel.*` metrics,
-    the `log.engine.pallas_fused` tier counter and the `kernel-launch`
-    trace event. The reference also caches a jitted round function
-    per window here; the port runs eagerly and caches nothing but the
-    built kernel library (`ops/replay.py`). Subclasses provide
-    `round_fn(window, fenced)`, `launches(window)`, `supports(window)`
-    and a `supports_fenced` class flag."""
+    """Host-side plumbing of the fused engines: the `kernel.launches`
+    counter, the `log.engine.pallas_fused` (or `mesh_fused`) tier
+    counter and the `kernel-launch` trace event, and `settle()`, which
+    the wrapper calls once a round's responses are on the host. The
+    reference also caches a jitted round function per window here; the
+    port runs eagerly and caches nothing but the built kernel library
+    (`ops/replay.py`). Subclasses provide `round_fn(window, fenced)`,
+    `launches(window)`, `supports(window)` and a `supports_fenced`
+    class flag."""
 
     supports_fenced = False
     tier = "pallas_fused"
     devices = 1
 
     def _init_host(self) -> None:
-        from node_replication_torch.obs.metrics import (
-            COUNT_BUCKETS,
-            get_registry,
-        )
+        from node_replication_torch.obs.metrics import get_registry
 
-        reg = get_registry()
-        self._m_launches = reg.counter("kernel.launches")
-        self._m_ops = reg.counter("kernel.fused_window_ops")
-        self._m_window = reg.histogram("kernel.window",
-                                       buckets=COUNT_BUCKETS)
-        self._m_dur = reg.histogram("kernel.round.duration_s")
+        self._m_launches = get_registry().counter("kernel.launches")
+
+    def settle(self) -> None:
+        """Record what the engine measured on the device during rounds
+        whose results the host has read back (nothing here; see
+        `FusedHashmapEngine`). Never waits for the card."""
 
     def note_round(self, window: int, count: int, duration_s: float,
                    fenced: bool = False) -> None:
-        """Count one fused round: tier counter, kernel.* metrics,
-        kernel-launch event. Duration is enqueue-side. `kernel.launches`
-        (and the event's `launches`) counts every launch of the round:
-        `launches(window)` a device times `devices` (a mesh shard is a
-        launch of its own)."""
+        """Count one fused round: the tier counter, `kernel.launches`
+        and the `kernel-launch` event, whose `duration_s` is
+        enqueue-side. `kernel.launches` (and the event's `launches`)
+        counts every launch of the round: `launches(window)` a device
+        times `devices` (a mesh shard is a launch of its own)."""
         from node_replication_torch.core import log as _corelog
         from node_replication_torch.utils.trace import get_tracer
 
@@ -100,9 +99,6 @@ class FusedEngineHost:
         else:
             _corelog._m_engine_pallas_fused.inc()
         self._m_launches.inc(n_launch)
-        self._m_ops.inc(int(count))
-        self._m_window.observe(window)
-        self._m_dur.observe(duration_s)
         tracer = get_tracer()
         if tracer.enabled:
             tracer.emit(
