@@ -21,11 +21,16 @@ CNR and the other models. The replicated hashmap at the flagship width
    of the entries on 8 hot keys, over the flagship planes and over
    R - 2 columns (not 16-byte aligned); logs K2's tile, its device time
    (`torch.profiler`) and its ptxas registers and spills;
-3. the fused combiner-round kernel (K1), fenced and unfenced, against
-   its plain version over rounds of W = 256 that wrap a 2^16 ring; its
-   device time; then the same at R = 1024 (a mesh shard) and R = 4097
-   (the scalar path of a fleet grown by one) over 4 rounds across the
-   wrap, each with its event, profiler and queued device time;
+3. the fused combiner-round kernel (K1) over the model's `[R, K]`
+   states (the instance `round_fn` launches, on every path), fenced and
+   unfenced, against its plain version over rounds of W = 256 that wrap
+   a 2^16 ring; its device time beside its bound
+   (`k1_model_round_bytes`); then K1 over the `[Kp, R]` planes
+   (`raw_round`'s instance), K1 over the states bit-identical to it with
+   the transposes around it, and its time; then K1 over the states at R
+   = 1024 (a mesh shard) and R = 4097 (a fleet grown by one) over 4
+   rounds across the wrap, each with its event, profiler and queued
+   device time;
 4. the lock-step step path: 64 steps of `make_pallas_step` (K2) and of
    `make_step(combined=True)` (PyTorch ops), bit-identical; then what
    sets the K2 step's pace (host enqueue time against device kernel time);
@@ -350,15 +355,17 @@ The port's examples, as its users run them:
    seconds, OK line and K1 launches, read from the `kernel-launch`
    events of its trace, and requires K1 in `nr_hashmap`, `nr_elastic`
    and `serve_hashmap` (their auto tier finishes its calibration); then
-   K1 at the examples' fleets (R = 2, K = 1024, ring 2048, W = 1)
-   against its plain version, fenced and not, across the wrap, its
+   K1 over the states at the examples' fleets (R = 2, K = 1024, ring
+   2048, W = 1) against its plain version, fenced and not, across the wrap, its
    time a launch by CUDA events over queued calls beside its bound.
 
 Every comparison is exact (integer data, tolerance 0). Launch counts
 are zeroed just before each main-path phase (4, 5, 7, 8, 10-14, 16,
 17, 19-29; phase 29's child counts its own, phase 30's examples
 their trace's) and read just after; a kernel that its path never launched
-fails the run; on the mesh only the meshed fleet's launches count.
+fails the run; on the mesh only the meshed fleet's launches count. Every
+read of K1's count (`k1_launches`) requires each launch to have gone
+over the model's states.
 The last
 two lines are a `{"kernels": [...]}` summary and `{"ok": true,
 "device": ...}`; any failure exits non-zero before them. Without a
@@ -464,11 +471,45 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
 
 def k1_round_bytes(R: int, W: float, L: int = 1 << 16,
                    n_keys: int = K) -> float:
-    """Bytes one K1 round must move: both `[Kp, R]` int32 state planes
-    in and out, the `[W, R]` responses, the ring's opcodes and args in
-    and out, and the window of W entries."""
+    """Bytes one K1 round over the planes must move: both `[Kp, R]` int32
+    state planes in and out, the `[W, R]` responses, the ring's opcodes
+    and args in and out, and the window of W entries."""
     kp = -(-n_keys // 8) * 8
     return 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
+
+
+def k1_model_round_bytes(R: int, W: float, L: int = 1 << 16,
+                         n_keys: int = K) -> float:
+    """Bytes one K1 round over the model's states must move: the int32
+    values and byte present `[R, K]` in and out, the `[R, W]` responses,
+    the ring's opcodes and args in and out, and the window of W
+    entries."""
+    return 4 * (2 * n_keys * R + W * R + 2 * L * 4 + W * 4) + 2 * n_keys * R
+
+
+def k1_launches() -> int:
+    """K1's launches since the counters were last reset, after checking
+    that every one went over the model's states (`round_fn`'s instance,
+    counted by `FUSED_MODEL_KERNEL`): no path launches K1 over the
+    planes."""
+    from node_replication_torch.ops.replay import (
+        FUSED_KERNEL,
+        FUSED_MODEL_KERNEL,
+    )
+
+    if FUSED_MODEL_KERNEL.launches != FUSED_KERNEL.launches:
+        raise AssertionError(
+            f"{sys._getframe(1).f_code.co_name}: {FUSED_KERNEL.launches} "
+            f"K1 launches, {FUSED_MODEL_KERNEL.launches} of them over the "
+            f"states")
+    return FUSED_KERNEL.launches
+
+
+def planes_to_states(vals, pres, n_keys: int = K) -> tuple:
+    """The model's states `(values int32[R, K], present bool[R, K])` of
+    `[Kp, R]` int32 planes."""
+    return (vals[:n_keys].T.contiguous(),
+            (pres[:n_keys] > 0).T.contiguous())
 
 
 def random_planes(gen, dev, kp: int):
@@ -603,14 +644,16 @@ def phase_replay(dev, rng, gen) -> dict:
 
 
 def phase_fused(dev, rng, gen) -> dict:
-    """K1 (unfenced and fenced) against its plain version, W = 256, over
-    enough rounds to wrap a 2^16-slot ring."""
+    """K1 over the model's states (the instance `round_fn` launches),
+    unfenced and fenced, against its plain version, W = 256, over enough
+    rounds to wrap a 2^16-slot ring; then K1 over the planes against it,
+    and K1 at the other fleets' shapes."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model,
+        hashmap_fused_round_model_plain,
     )
 
     kp = -(-K // 8) * 8
@@ -619,10 +662,10 @@ def phase_fused(dev, rng, gen) -> dict:
     L = spec.capacity
     ring_opc = torch.zeros(L, dtype=torch.int32, device=dev)
     ring_args = torch.zeros((L, 3), dtype=torch.int32, device=dev)
-    vals, pres = random_planes(gen, dev, kp)
+    states = planes_to_states(*random_planes(gen, dev, kp))
     fen = torch.zeros(R, dtype=torch.int32, device=dev)
-    fen[[0, 31, 32, R // 2 - 1, R - 1]] = 1
-    kern = plain = (ring_opc, ring_args, vals, pres)
+    fen[[0, 127, 128, R // 2 - 1, R - 1]] = 1
+    kern = plain = (ring_opc, ring_args, *states)
     tail, err, rnd = 0, 0, 0
     times = {False: ([], []), True: ([], [])}
     while tail <= L + W:  # past one whole wrap of the ring
@@ -639,18 +682,18 @@ def phase_fused(dev, rng, gen) -> dict:
         f = fen if fenced else None
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        out_k = hashmap_fused_round(spec, tail_t, count, opc_t, args_t,
-                                    *kern, K, f)
+        out_k = hashmap_fused_round_model(spec, tail_t, count, opc_t,
+                                          args_t, *kern, K, f)
         ev[1].record()
         ev[2].record()
-        out_p = hashmap_fused_round_plain(spec, tail_t, count, opc_t,
-                                          args_t, *plain, K, f)
+        out_p = hashmap_fused_round_model_plain(spec, tail_t, count, opc_t,
+                                                args_t, *plain, K, f)
         ev[3].record()
         ev[3].synchronize()
         times[fenced][0].append(ev[0].elapsed_time(ev[1]))
         times[fenced][1].append(ev[2].elapsed_time(ev[3]))
         e = max_abs_err(out_k, out_p)
-        if e:
+        if e or any(a.dtype != b.dtype for a, b in zip(out_k, out_p)):
             raise AssertionError(
                 f"K1 disagrees with its plain version in round {rnd} "
                 f"(fenced={fenced}): {e}")
@@ -660,43 +703,119 @@ def phase_fused(dev, rng, gen) -> dict:
         rnd += 1
     rounds = rnd
     # one standalone unfenced call on the last round's inputs
-    dt = device_time(lambda: hashmap_fused_round(
+    dt = device_time(lambda: hashmap_fused_round_model(
         spec, tail_t, count, opc_t, args_t, *kern, K, None))
-    n_bytes = k1_round_bytes(R, W, L)
+    n_bytes = k1_model_round_bytes(R, W, L)
     bound_ms, by = bound(n_bytes, 4 * W * R)
     ms = statistics.median(times[False][0][1:])
     ms_f = statistics.median(times[True][0])
     plain_ms = statistics.median(times[False][1][1:])
     plain_ms_f = statistics.median(times[True][1])
-    log(f"phase 3: K1 R={R} K={K} W={W} ring={L}: {rounds} rounds to tail "
-        f"{tail}, bit-identical; kernel {ms:.4f} ms (fenced {ms_f:.4f}), "
-        f"plain {plain_ms:.2f} ms (fenced {plain_ms_f:.2f}), bound "
-        f"{bound_ms:.4f} ms ({n_bytes} bytes)")
+    log(f"phase 3: K1 over the states R={R} K={K} W={W} ring={L}: {rounds} "
+        f"rounds to tail {tail}, bit-identical; kernel {ms:.4f} ms (fenced "
+        f"{ms_f:.4f}), plain {plain_ms:.2f} ms (fenced {plain_ms_f:.2f}), "
+        f"bound {bound_ms:.4f} ms ({n_bytes:.0f} bytes)")
     log_device("phase 3: K1", dt)
-    del kern, plain, out_k, out_p
+    del plain, out_k, out_p
+    planes = _k1_planes_check(dev, spec, kern, tail)
+    del kern
     shapes = {Rk: _k1_shape_check(dev, Rk) for Rk in K1_SHAPES}
-    return {"max_abs_err": max([err] + [c["max_abs_err"]
-                                        for c in shapes.values()]),
+    return {"max_abs_err": max([err, planes["max_abs_err"]]
+                               + [c["max_abs_err"]
+                                  for c in shapes.values()]),
             "ms": ms, "ms_fenced": ms_f, **dt,
             "plain_ms": plain_ms, "plain_ms_fenced": plain_ms_f,
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
             "rounds": rounds, "tail": tail, "R": R, "K": K, "W": W,
-            "capacity": L, "shapes": shapes}
+            "capacity": L, "shapes": shapes, "planes": planes}
+
+
+def _k1_planes_check(dev, spec, model, tail: int,
+                     rounds: int = 8) -> dict:
+    """K1 over the `[Kp, R]` planes (`hashmap_fused_round`, which
+    `raw_round` launches) at the flagship shape, from phase 3's last ring
+    and states: `rounds` rounds of W = 256, every second one fenced, K1
+    over the states bit-identical to it with the transposes around it (a
+    fenced replica's responses zeroed); then its event and profiler time
+    and its bound. Its own seed."""
+    import torch
+
+    from node_replication_torch.ops import kernel_lib
+    from node_replication_torch.ops.replay import (
+        hashmap_fused_round,
+        hashmap_fused_round_model,
+    )
+
+    W, L = W_ROUND, spec.capacity
+    kp = -(-K // 8) * 8
+    rng = np.random.default_rng(SEED + 3)
+    ring_opc, ring_args, values, present = model
+    vt = torch.zeros((kp, R), dtype=torch.int32, device=dev)
+    vt[:K] = values.T
+    pt = torch.zeros_like(vt)
+    pt[:K] = present.T.to(torch.int32)
+    fen = torch.zeros(R, dtype=torch.int32, device=dev)
+    fen[[0, 127, 128, R // 2, R - 1]] = 1
+    err = 0
+    for rnd in range(rounds):
+        count = int(rng.integers(W // 2, W + 1))
+        opc = np.zeros(W, np.int32)
+        opc[:count] = rng.choice(np.array([1, 2], np.int32), count)
+        args = np.zeros((W, 3), np.int32)
+        args[:count, 0] = rng.integers(-K, 2 * K, count)
+        args[:count, 1] = rng.integers(1, 1 << 31, count)
+        f = fen if rnd % 2 else None
+        inputs = (spec, torch.tensor(tail, dtype=torch.int64, device=dev),
+                  count, torch.from_numpy(opc).to(dev),
+                  torch.from_numpy(args).to(dev))
+        out_m = hashmap_fused_round_model(*inputs, *model, K, f)
+        ro, ra, vt, pt, resps = hashmap_fused_round(*inputs, ring_opc,
+                                                    ring_args, vt, pt, K, f)
+        resps = resps.T.contiguous()
+        if f is not None:
+            resps[f > 0] = 0
+        want = (ro, ra, *planes_to_states(vt, pt), resps)
+        e = max_abs_err(out_m, want)
+        if e or any(a.dtype != b.dtype for a, b in zip(out_m, want)):
+            raise AssertionError(
+                f"phase 3: K1 over the states disagrees with K1 over the "
+                f"planes in round {rnd} (fenced={f is not None}): {e}")
+        err = max(err, e)
+        model, ring_opc, ring_args = out_m[:4], ro, ra
+        tail += count
+    x = (*inputs, ring_opc, ring_args, vt, pt, K, None)
+    ms = cuda_ms(lambda: hashmap_fused_round(*x), reps=10, warmup=2)
+    dt = device_time(lambda: hashmap_fused_round(*x))
+    q_ms = queued_ms(lambda: hashmap_fused_round(*x))
+    n_bytes = k1_round_bytes(R, W, L)
+    bound_ms, by = bound(n_bytes, 4 * W * R)
+    ptxas = ptxas_report(kernel_lib.BUILD_LOG.get("hashmap_replay.cu", ""),
+                         "hashmap_round_kernel")
+    log(f"phase 3: K1 over the planes R={R} K={K} W={W}: {rounds} rounds, "
+        f"K1 over the states bit-identical to it with the transposes "
+        f"around it; kernel {ms:.4f} ms, queued {q_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({n_bytes:.0f} bytes)")
+    log_device("phase 3: K1 over the planes", dt)
+    for line in ptxas:
+        log(f"  ptxas hashmap_round_kernel: {line}")
+    return {"max_abs_err": err, "ms": ms, "queued_ms": q_ms, **dt,
+            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
+            "rounds": rounds, "R": R, "K": K, "W": W, "ptxas": ptxas}
 
 
 def _k1_shape_check(dev, Rk: int) -> dict:
-    """K1 against its plain version at R = Rk replicas: K1_SHAPE_ROUNDS
-    rounds of W = 256 from a tail just below 2^16, so that they cross
-    the ring's wrap, unfenced and fenced in turn (fenced lanes at the
-    column tiles' edges); then its event, profiler and queued device
-    time and its bound at W = 256. Its own seeds: later phases' inputs
-    stay as they were."""
+    """K1 over the states against its plain version at R = Rk replicas:
+    K1_SHAPE_ROUNDS rounds of W = 256 from a tail just below 2^16, so
+    that they cross the ring's wrap, unfenced and fenced in turn (fenced
+    rows at the replica tiles' edges); then its event, profiler and
+    queued device time and its bound at W = 256. Its own seeds: later
+    phases' inputs stay as they were."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     kp = -(-K // 8) * 8
@@ -714,7 +833,7 @@ def _k1_shape_check(dev, Rk: int) -> dict:
             torch.zeros((L, 3), dtype=torch.int32, device=dev))
     fen = torch.zeros(Rk, dtype=torch.int32, device=dev)
     fen[[0, 511, 512, Rk // 2, Rk - 1]] = 1
-    kern = plain = (*ring, vals, pres)
+    kern = plain = (*ring, *planes_to_states(vals, pres))
     tail, err = L - 300, 0
     for rnd in range(K1_SHAPE_ROUNDS):
         count = W if rnd == K1_SHAPE_ROUNDS - 1 else \
@@ -728,8 +847,8 @@ def _k1_shape_check(dev, Rk: int) -> dict:
                   count, torch.from_numpy(opc).to(dev),
                   torch.from_numpy(args).to(dev))
         f = fen if rnd % 2 else None
-        out_k = hashmap_fused_round(*inputs, *kern, K, f)
-        out_p = hashmap_fused_round_plain(*inputs, *plain, K, f)
+        out_k = k1(*inputs, *kern, K, f)
+        out_p = k1_plain(*inputs, *plain, K, f)
         e = max_abs_err(out_k, out_p)
         if e:
             raise AssertionError(
@@ -742,11 +861,11 @@ def _k1_shape_check(dev, Rk: int) -> dict:
         raise AssertionError(f"phase 3: K1 at R={Rk} never wrapped")
     # the last round again, unfenced, on its own inputs
     inputs = (*inputs, *kern, K, None)
-    ms = cuda_ms(lambda: hashmap_fused_round(*inputs), reps=10, warmup=2)
-    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*inputs), reps=2)
-    dt = device_time(lambda: hashmap_fused_round(*inputs))
-    q_ms = queued_ms(lambda: hashmap_fused_round(*inputs))
-    n_bytes = k1_round_bytes(Rk, W, L)
+    ms = cuda_ms(lambda: k1(*inputs), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: k1_plain(*inputs), reps=2)
+    dt = device_time(lambda: k1(*inputs))
+    q_ms = queued_ms(lambda: k1(*inputs))
+    n_bytes = k1_model_round_bytes(Rk, W, L)
     bound_ms, by = bound(n_bytes, 4 * W * Rk)
     log(f"phase 3: K1 R={Rk} K={K} W={W} ring={L}: {K1_SHAPE_ROUNDS} rounds "
         f"across the wrap, fenced and not, bit-identical; kernel {ms:.4f} "
@@ -784,7 +903,6 @@ def phase_step(dev, rng, card: str, steps: int = 64) -> dict:
     from node_replication_torch.core.replica import replicate_state
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         make_pallas_step,
         pallas_hashmap_state,
@@ -817,7 +935,7 @@ def phase_step(dev, rng, card: str, steps: int = 64) -> dict:
     reset_launch_counts()
     lk, sk, rk, tk = run(k_step, pallas_hashmap_state(K, R, dev))
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     if launches["hashmap_replay"] == 0:
         raise AssertionError("the step path never launched K2")
     lc, sc, rc, tc = run(c_step, replicate_state(d.init_state(dev), R))
@@ -946,7 +1064,6 @@ def phase_replica(dev, rng, rounds: int = 36) -> dict:
     from node_replication_torch import NodeReplicated
     from node_replication_torch.models import HM_GET, HM_PUT, make_hashmap
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -991,7 +1108,7 @@ def phase_replica(dev, rng, rounds: int = 36) -> dict:
                 raise AssertionError(f"round {rnd}: read of {k} on "
                                      f"replica {r} differs")
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     nk.sync()
     nc.sync()
     if launches["hashmap_fused_round"] == 0:
@@ -2147,7 +2264,6 @@ def phase_seqreg_serve(dev) -> dict:
     )
     from node_replication_torch.models import SR_GET, SR_SET, make_seqreg
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -2258,7 +2374,7 @@ def phase_seqreg_serve(dev) -> dict:
         settle("grow", fe, nr, r, extra=1)
     out["grow"] = r
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     log(f"phase 12: seqreg grow(1) mid-traffic: {r['completed']} of "
         f"{r['ops']} ops, nothing lost; the new replica serves every "
         f"register; kernel launches {out['launches']} (seqreg runs the "
@@ -2441,7 +2557,7 @@ def served_round_share(nr, models, rng, count) -> dict:
     wall_ms = seg["wall_s"] * 1e3 / rounds
     mean_batch = seg["completed"] / rounds
     k1_bound_ms, k1_bound_by = bound(
-        k1_round_bytes(nr.n_replicas, mean_batch),
+        k1_model_round_bytes(nr.n_replicas, mean_batch),
         4 * mean_batch * nr.n_replicas)
     share = {"R": nr.n_replicas, "rounds": rounds, "round_wall_ms": wall_ms,
              "mean_batch": mean_batch, "k1_bound_ms": k1_bound_ms,
@@ -2473,7 +2589,6 @@ def phase_hashmap_serve(dev, rng) -> dict:
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -2502,10 +2617,10 @@ def phase_hashmap_serve(dev, rng) -> dict:
 
         def during(c, i):
             if depth == 1 and c == 0 and i == SV_PER // 2:
-                grown["launches"] = FUSED_KERNEL.launches
+                grown["launches"] = k1_launches()
                 grown["rids"] = fe.grow(1)
 
-        c0, l0 = count(), FUSED_KERNEL.launches
+        c0, l0 = count(), k1_launches()
         cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001,
                           pipeline_depth=depth)
         with ServeFrontend(nr, cfg, rids=range(SV_RIDS)) as fe:
@@ -2528,7 +2643,7 @@ def phase_hashmap_serve(dev, rng) -> dict:
                  fused=d["nr.exec.engine.pallas_fused"],
                  fallback=d["nr.exec.engine.fused_fallback"],
                  chain_rounds=d["nr.exec.rounds"],
-                 k1_launches=FUSED_KERNEL.launches - l0, served=served)
+                 k1_launches=k1_launches() - l0, served=served)
         if not (r["fused"] == r["rounds"] == r["k1_launches"] > 0
                 and r["fallback"] == 0):
             raise AssertionError(f"phase 13 depth {depth}: not every round "
@@ -2539,7 +2654,7 @@ def phase_hashmap_serve(dev, rng) -> dict:
             if nr.n_replicas != R + 1 or nr._fused.spec.n_replicas != R + 1:
                 raise AssertionError("phase 13: grow(1) did not rebuild K1 "
                                      "for R + 1")
-            r["k1_after_grow"] = FUSED_KERNEL.launches - grown["launches"]
+            r["k1_after_grow"] = k1_launches() - grown["launches"]
             if r["k1_after_grow"] <= 0:
                 raise AssertionError("phase 13: no K1 round after grow(1)")
         out[f"depth{depth}"] = r
@@ -2557,7 +2672,7 @@ def phase_hashmap_serve(dev, rng) -> dict:
         if depth == 0:
             out["round_share"] = served_round_share(nr, models, rng, count)
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     if out["launches"]["hashmap_fused_round"] == 0:
         raise AssertionError("phase 13 never launched K1")
     log(f"phase 13: launches {out['launches']}")
@@ -2640,7 +2755,6 @@ def phase_crash_recovery(dev) -> dict:
 
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -2668,7 +2782,7 @@ def phase_crash_recovery(dev) -> dict:
         rep = fe.recovery_report
         nr = fe.nr
         launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                    "hashmap_fused_round": FUSED_KERNEL.launches}
+                    "hashmap_fused_round": k1_launches()}
         if rep.snapshot is None or rep.wal_records == 0:
             raise AssertionError(f"phase 14: recovery used no snapshot or "
                                  f"replayed nothing: {rep}")
@@ -2908,21 +3022,22 @@ def _apply_model(model, ops):
 
 
 def _k1_at_cnr_windows(dev, rng) -> dict:
-    """K1 against its plain version at the per-log windows of phase 16
-    (W = 32 and 64, R = 4096, a ring of 2^16 wrapping in the window)."""
+    """K1 over the states against its plain version at the per-log
+    windows of phase 16 (W = 32 and 64, R = 4096, a ring of 2^16
+    wrapping in the window)."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     kp = -(-K // 8) * 8
     spec = LogSpec(capacity=1 << 16, n_replicas=R, arg_width=3)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 16)
-    vals, pres = random_planes(gen, dev, kp)
+    states = planes_to_states(*random_planes(gen, dev, kp))
     ring = (torch.zeros(spec.capacity, dtype=torch.int32, device=dev),
             torch.zeros((spec.capacity, 3), dtype=torch.int32, device=dev))
     out = {}
@@ -2936,16 +3051,14 @@ def _k1_at_cnr_windows(dev, rng) -> dict:
         inputs = (spec, torch.tensor(spec.capacity - 7, dtype=torch.int64,
                                      device=dev), count,
                   torch.from_numpy(opc).to(dev),
-                  torch.from_numpy(args).to(dev), *ring, vals, pres, K)
-        err = max_abs_err(hashmap_fused_round(*inputs),
-                          hashmap_fused_round_plain(*inputs))
+                  torch.from_numpy(args).to(dev), *ring, *states, K)
+        err = max_abs_err(k1(*inputs), k1_plain(*inputs))
         if err:
             raise AssertionError(f"phase 16: K1 at W={W} disagrees with "
                                  f"its plain version: {err}")
         out[W] = {"max_abs_err": err,
-                  "ms": cuda_ms(lambda: hashmap_fused_round(*inputs), 10),
-                  "plain_ms": cuda_ms(
-                      lambda: hashmap_fused_round_plain(*inputs), 3)}
+                  "ms": cuda_ms(lambda: k1(*inputs), 10),
+                  "plain_ms": cuda_ms(lambda: k1_plain(*inputs), 3)}
     log(f"phase 16: K1 at the per-log windows R={R}: " + ", ".join(
         f"W={W} bit-identical, kernel {c['ms']:.4f} ms, plain "
         f"{c['plain_ms']:.2f} ms" for W, c in out.items()))
@@ -2966,7 +3079,6 @@ def phase_cnr_rounds(dev, rng):
     from node_replication_torch import MultiLogReplicated
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -3017,7 +3129,7 @@ def phase_cnr_rounds(dev, rng):
         if not g == scan.execute_mut_batch(ops, rid) == want:
             raise AssertionError("phase 16: a profiled batch differs")
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     k1.sync()
     scan.sync()
     st, ss = k1.stats(), scan.stats()
@@ -3060,7 +3172,7 @@ def phase_cnr_rounds(dev, rng):
     dev_ms = sum(e.self_device_time_total for e in k1_ev) / 1e3 / prof_rounds
     pads = [p for _, ops in batches[CNR_ROUNDS + 1:] for p in _pads(ops)]
     mean_w = statistics.mean(pads)
-    bound_ms, by = bound(k1_round_bytes(R, mean_w), 4 * mean_w * R)
+    bound_ms, by = bound(k1_model_round_bytes(R, mean_w), 4 * mean_w * R)
     top = sorted(((e.self_device_time_total / 1e3 / prof_rounds,
                    e.count / prof_rounds, e.key[:60]) for e in k1_ev),
                  reverse=True)[:6]
@@ -3105,7 +3217,6 @@ def phase_cnr_serve(dev, rng, k1) -> dict:
 
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -3134,7 +3245,7 @@ def phase_cnr_serve(dev, rng, k1) -> dict:
             return (None if resp == want else
                     f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
 
-        b0, l0, f0 = count(), FUSED_KERNEL.launches, \
+        b0, l0, f0 = count(), k1_launches(), \
             k1.stats()["fused_rounds"]
         with ServeFrontend(k1, cfg, rids=range(SV_RIDS)) as fe:
             if seg == "profiled":
@@ -3169,7 +3280,7 @@ def phase_cnr_serve(dev, rng, k1) -> dict:
             r["read_s"] = time.perf_counter() - t0
         st = k1.stats()
         r.update(rounds=count() - b0,
-                 k1_launches=FUSED_KERNEL.launches - l0,
+                 k1_launches=k1_launches() - l0,
                  fused=st["fused_rounds"] - f0,
                  exec_rounds=st["exec_rounds"])
         r["mean_batch"] = r["completed"] / max(1, r["rounds"])
@@ -3192,7 +3303,8 @@ def phase_cnr_serve(dev, rng, k1) -> dict:
     k1_launch_ms = (sum(e.self_device_time_total for e in k1_ev) / 1e3
                     / k1_n if k1_n else None)
     sub_w = p["completed"] / max(1, p["k1_launches"])
-    k1_bound_ms, k1_by = bound(k1_round_bytes(R, sub_w), 4 * sub_w * R)
+    k1_bound_ms, k1_by = bound(k1_model_round_bytes(R, sub_w),
+                               4 * sub_w * R)
     wall_ms = p["wall_s"] * 1e3 / rounds
     p.update(round_wall_ms=wall_ms, device_ms=dev_ms or None,
              k1_ms=k1_ms or None, k1_launch_ms=k1_launch_ms,
@@ -3200,7 +3312,7 @@ def phase_cnr_serve(dev, rng, k1) -> dict:
              k1_bound_ms=k1_bound_ms, k1_bound_by=k1_by,
              device_busy=dev_ms / wall_ms if dev_ms else None)
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     s = out["serve"]
     log(f"phase 17: CNR served R={R} K={K} L={CNR_L} rids {SV_RIDS}: "
         f"{s['completed']} ops acked by {SV_CLIENTS} clients, every "
@@ -3628,15 +3740,16 @@ def _same_fleets(a, b, label: str) -> None:
 
 
 def _k1_shard_check(dev, rng, Rl: int) -> dict:
-    """K1 against its plain version at a shard's shape (R / shards
-    replicas, W = 256, a 2^16 ring wrapping in the window), unfenced and
-    fenced, with its event and device time and its bound."""
+    """K1 over the states against its plain version at a shard's shape
+    (R / shards replicas, W = 256, a 2^16 ring wrapping in the window),
+    unfenced and fenced, with its event and device time and its
+    bound."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     kp = -(-K // 8) * 8
@@ -3655,23 +3768,23 @@ def _k1_shard_check(dev, rng, Rl: int) -> dict:
     args[:, 0] = rng.integers(-K, 2 * K, W)
     args[:, 1] = rng.integers(1, 1 << 31, W)
     fen = torch.zeros(Rl, dtype=torch.int32, device=dev)
-    fen[[1, Rl // 2, Rl - 1]] = 1
+    fen[[1, 127, 128, Rl // 2, Rl - 1]] = 1
+    states = planes_to_states(vals, pres)
     err = 0
     for f in (None, fen):
         inputs = (spec, torch.tensor(spec.capacity - 100, dtype=torch.int64,
                                      device=dev), W - 5,
                   torch.from_numpy(opc).to(dev),
-                  torch.from_numpy(args).to(dev), *ring, vals, pres, K, f)
-        err = max(err, max_abs_err(hashmap_fused_round(*inputs),
-                                   hashmap_fused_round_plain(*inputs)))
+                  torch.from_numpy(args).to(dev), *ring, *states, K, f)
+        err = max(err, max_abs_err(k1(*inputs), k1_plain(*inputs)))
     if err:
         raise AssertionError(f"phase 19: K1 at R={Rl} disagrees with its "
                              f"plain version: {err}")
     inputs = inputs[:-1] + (None,)
-    ms = cuda_ms(lambda: hashmap_fused_round(*inputs), 10)
-    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*inputs), 2)
-    dt = {"device_ms": queued_ms(lambda: hashmap_fused_round(*inputs))}
-    n_bytes = k1_round_bytes(Rl, W)
+    ms = cuda_ms(lambda: k1(*inputs), 10)
+    plain_ms = cuda_ms(lambda: k1_plain(*inputs), 2)
+    dt = {"device_ms": queued_ms(lambda: k1(*inputs))}
+    n_bytes = k1_model_round_bytes(Rl, W)
     bound_ms, by = bound(n_bytes, 4 * W * Rl)
     log(f"phase 19: K1 at a shard's shape R={Rl} K={K} W={W} ring 2^16 "
         f"(wrapping), fenced and not: bit-identical; kernel {ms:.4f} ms, "
@@ -3699,7 +3812,6 @@ def phase_mesh_fused(dev, rng):
     from node_replication_torch.models import HM_GET, HM_PUT, make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -3748,13 +3860,13 @@ def phase_mesh_fused(dev, rng):
     def drive(rnd, rid, ops, timed=True):
         got = {}
         for name, f in fleets.items():
-            before = FUSED_KERNEL.launches
+            before = k1_launches()
             t0 = time.perf_counter()
             got[name] = f.execute_mut_batch(ops, rid)
             if timed:
                 lat[name].append(time.perf_counter() - t0)
             if name == "mesh":
-                n = FUSED_KERNEL.launches - before
+                n = k1_launches() - before
                 if n != MESH_SHARDS or f.last_round_tier != "mesh_fused":
                     raise AssertionError(
                         f"phase 19: round {rnd}: {n} K1 launches, tier "
@@ -3770,7 +3882,7 @@ def phase_mesh_fused(dev, rng):
                 f.clone_replica_from(fenced_rid, donor=0)
                 f.unfence_replica(fenced_rid)
         want = _apply_model(model, ops)
-        l0 = FUSED_KERNEL.launches
+        l0 = k1_launches()
         got = drive(rnd, rid, ops)
         mesh_launches += MESH_SHARDS
         del l0
@@ -3810,7 +3922,7 @@ def phase_mesh_fused(dev, rng):
         if not g == outs[0] == outs[1] == want:
             raise AssertionError("phase 19: a profiled round differs")
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     for f in fleets.values():
         f.sync()
     sm = nm.stats()
@@ -3889,7 +4001,6 @@ def phase_mesh_chain(dev, rng) -> dict:
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -3971,7 +4082,7 @@ def phase_mesh_chain(dev, rng) -> dict:
         del nm, nu
         torch.cuda.empty_cache()
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     if any(out["launches"].values()):
         raise AssertionError(f"phase 20: a chain tier launched a kernel: "
                              f"{out['launches']}")
@@ -4126,7 +4237,6 @@ def phase_mesh_serve(dev, rng, nm) -> dict:
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -4176,7 +4286,7 @@ def phase_mesh_serve(dev, rng, nm) -> dict:
         st_fe = fe.stats()
     st = nm.stats()
     r.update(rounds=count() - b0, fused=st["fused_rounds"] - f0,
-             k1_launches=FUSED_KERNEL.launches)
+             k1_launches=k1_launches())
     r["mean_batch"] = r["completed"] / max(1, r["rounds"])
     if dev_map != want_map or st_fe["mesh"]["device_of_rid"] != want_map \
             or sum(st_fe["mesh"]["replicas_per_device"].values()) != SV_RIDS:
@@ -4198,7 +4308,7 @@ def phase_mesh_serve(dev, rng, nm) -> dict:
         f"reads from other rids; replicas equal the dicts")
     out = {"serve": r, "launches": {
         "hashmap_replay": REPLAY_KERNEL.launches,
-        "hashmap_fused_round": FUSED_KERNEL.launches}}
+        "hashmap_fused_round": k1_launches()}}
     del nm
     torch.cuda.empty_cache()
     # CNR on a ('replica', 'log') = (2, 2) mesh, the scan engine
@@ -4345,18 +4455,18 @@ def repl_primary(directory: str) -> int:
 def _k1_record_check(dev, counts, mean_record: float,
                      label: str = "phase 23",
                      shape: str = "the follower's record shape") -> dict:
-    """K1 against its plain version at the follower's record shape: R =
-    4096 and the window a record of `n` ops gets (the next power of
-    two), for each record size in `counts`, from a tail a few entries
-    below 2^16 so that the rounds cross the ring's wrap, unfenced and
-    fenced in turn; then its event, profiler and plain time and its
-    bound at the mean record."""
+    """K1 over the states against its plain version at the follower's
+    record shape: R = 4096 and the window a record of `n` ops gets (the
+    next power of two), for each record size in `counts`, from a tail a
+    few entries below 2^16 so that the rounds cross the ring's wrap,
+    unfenced and fenced in turn; then its event, profiler and plain time
+    and its bound at the mean record."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     kp = -(-K // 8) * 8
@@ -4369,8 +4479,8 @@ def _k1_record_check(dev, counts, mean_record: float,
     ring = (torch.zeros(L, dtype=torch.int32, device=dev),
             torch.zeros((L, 3), dtype=torch.int32, device=dev))
     fen = torch.zeros(R, dtype=torch.int32, device=dev)
-    fen[[0, 63, 64, R // 2, R - 1]] = 1
-    kern = plain = (*ring, vals, pres)
+    fen[[0, 127, 128, R // 2, R - 1]] = 1
+    kern = plain = (*ring, *planes_to_states(vals, pres))
     tail, err = L - 2 * sum(counts) // 3, 0
 
     def inputs(n, tail):
@@ -4386,8 +4496,8 @@ def _k1_record_check(dev, counts, mean_record: float,
     for rnd, n in enumerate(counts):
         x = inputs(n, tail)
         f = fen if rnd % 2 else None
-        out_k = hashmap_fused_round(*x, *kern, K, f)
-        out_p = hashmap_fused_round_plain(*x, *plain, K, f)
+        out_k = k1(*x, *kern, K, f)
+        out_p = k1_plain(*x, *plain, K, f)
         e = max_abs_err(out_k, out_p)
         if e:
             raise AssertionError(
@@ -4400,10 +4510,10 @@ def _k1_record_check(dev, counts, mean_record: float,
         raise AssertionError(f"{label}: the record rounds never wrapped")
     n = max(1, round(mean_record))
     x = (*inputs(n, tail), *kern, K, None)
-    ms = cuda_ms(lambda: hashmap_fused_round(*x), reps=10, warmup=2)
-    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*x), reps=2)
-    dt = device_time(lambda: hashmap_fused_round(*x))
-    bound_ms, by = bound(k1_round_bytes(R, mean_record),
+    ms = cuda_ms(lambda: k1(*x), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: k1_plain(*x), reps=2)
+    dt = device_time(lambda: k1(*x))
+    bound_ms, by = bound(k1_model_round_bytes(R, mean_record),
                          4 * mean_record * R)
     log(f"{label}: K1 at {shape} (R={R}, "
         f"{len(counts)} records of {min(counts)}-{max(counts)} ops across "
@@ -4435,7 +4545,6 @@ def phase_repl(dev) -> dict:
     from node_replication_torch.models import HM_GET, make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -4556,7 +4665,7 @@ def phase_repl(dev) -> dict:
         except EpochFencedError:
             pass
         c_pro = count()
-        k1_pre = FUSED_KERNEL.launches
+        k1_pre = k1_launches()
         applied_recs = c_pro["repl.applied_records"] - \
             c0["repl.applied_records"]
         if c_pro["nr.exec.engine.fused_fallback"] \
@@ -4654,7 +4763,7 @@ def phase_repl(dev) -> dict:
         torch.cuda.empty_cache()
 
         # the promoted F1 serves on: durable acks, one K1 a round
-        l0, c1 = FUSED_KERNEL.launches, count()
+        l0, c1 = k1_launches(), count()
         post = [hm_client_ops(rrng, c, REPL_POST) for c in range(SV_CLIENTS)]
 
         def check(c, i, resp):
@@ -4672,7 +4781,7 @@ def phase_repl(dev) -> dict:
                                  f"{served['errors']}")
         c2 = count()
         rounds = c2["serve.batches"] - c1["serve.batches"]
-        k1_post = FUSED_KERNEL.launches - l0
+        k1_post = k1_launches() - l0
         fused = (c2["nr.exec.engine.pallas_fused"]
                  - c1["nr.exec.engine.pallas_fused"])
         if not (rounds == k1_post == fused > 0):
@@ -4730,7 +4839,7 @@ def phase_repl(dev) -> dict:
         fp.close()
         fp = None
         launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                    "hashmap_fused_round": FUSED_KERNEL.launches}
+                    "hashmap_fused_round": k1_launches()}
         peak = torch.cuda.max_memory_allocated()
         phase_s = time.perf_counter() - t_phase
         torch.cuda.empty_cache()
@@ -4739,7 +4848,7 @@ def phase_repl(dev) -> dict:
         mean_record = float(np.mean(sizes))
         k1 = _k1_record_check(dev, sizes[:8] + [max(sizes)] * 2,
                               mean_record)
-        k1_bound_ms, k1_by = bound(k1_round_bytes(R, mean_record),
+        k1_bound_ms, k1_by = bound(k1_model_round_bytes(R, mean_record),
                                    4 * mean_record * R)
         t_first = next((s for s, tail, _ in samples if tail > 0), None)
         window = (t_kill - t_phase - t_first) if t_first is not None else 0
@@ -4933,7 +5042,6 @@ def phase_shard(dev, rng, serve13) -> dict:
     from node_replication_torch.models import HM_GET, make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -5003,7 +5111,7 @@ def phase_shard(dev, rng, serve13) -> dict:
 
         def snap():
             settle()
-            return count(), FUSED_KERNEL.launches, totals()
+            return count(), k1_launches(), totals()
 
         def k1_leg(label, s0, refused=0):
             # `refused`: ops whose round ran on the killed primary but
@@ -5505,13 +5613,13 @@ def phase_shard(dev, rng, serve13) -> dict:
             prof.step()
             time.sleep(0.05)
             c0 = count()
-            l0 = FUSED_KERNEL.launches
+            l0 = k1_launches()
             t0 = time.perf_counter()
             run_segment(SH_PROFILED, 2 * SH_PROFILED)
             torch.cuda.synchronize()
             seg_s = time.perf_counter() - t0
             c1 = count()
-            l1 = FUSED_KERNEL.launches
+            l1 = k1_launches()
         leg_p = k1_leg("profiled segment", s_p)
         rounds = c1["serve.batches"] - c0["serve.batches"]
         seg_k1 = l1 - l0
@@ -5523,7 +5631,7 @@ def phase_shard(dev, rng, serve13) -> dict:
                  if k1_n else None)
         dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
         mean_batch = SV_CLIENTS * SH_PROFILED / max(1, rounds)
-        k1_bound_ms, k1_by = bound(k1_round_bytes(R, mean_batch),
+        k1_bound_ms, k1_by = bound(k1_model_round_bytes(R, mean_batch),
                                    4 * mean_batch * R)
         out["profiled"] = {
             "ops": SV_CLIENTS * SH_PROFILED, "rounds": rounds,
@@ -5569,7 +5677,7 @@ def phase_shard(dev, rng, serve13) -> dict:
         sizes = [r.count for r in list(g.primaries[2].wal.records(
             g.primaries[2].wal.base))[-8:]]
         launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                    "hashmap_fused_round": FUSED_KERNEL.launches}
+                    "hashmap_fused_round": k1_launches()}
         k1chk = _k1_record_check(dev, sizes + [max(sizes)] * 2, mean_batch,
                                  label="phase 24",
                                  shape="the sharded rounds' batches")
@@ -5660,7 +5768,6 @@ def phase_txn(dev) -> dict:
 
     from node_replication_torch.models import HM_GET
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -5690,13 +5797,13 @@ def phase_txn(dev) -> dict:
                     f"phase 25 round {r}: the child exited "
                     f"{child.returncode}, not by SIGKILL at {site} hit "
                     f"{after}: {child.stdout[-2000:]} {child.stderr[-2000:]}")
-            l0 = FUSED_KERNEL.launches
+            l0 = k1_launches()
             t1 = time.perf_counter()
             g = _txn_group(str(rdir), dev, recover=True)
             try:
                 recover_s = time.perf_counter() - t1
                 replayed = sum(p.recovery.wal_records for p in g.primaries)
-                k1 = FUSED_KERNEL.launches - l0
+                k1 = k1_launches() - l0
                 if k1 < replayed:
                     raise AssertionError(f"phase 25 round {r}: {replayed} WAL "
                                          f"records replayed in {k1} K1 "
@@ -5786,7 +5893,7 @@ def phase_txn(dev) -> dict:
                 grp.close()
         parity = done[True] / done[False]
         launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                    "hashmap_fused_round": FUSED_KERNEL.launches}
+                    "hashmap_fused_round": k1_launches()}
         out = {"rounds": rounds, "parity": parity,
                "parity_ops": {"with_txn": done[True],
                               "without": done[False]},
@@ -5861,7 +5968,6 @@ def obs_primary(directory: str) -> int:
     from node_replication_torch.durable.wal import durable_publish
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
-    from node_replication_torch.ops.replay import FUSED_KERNEL
     from node_replication_torch.repl import (
         DirectoryFeed,
         FeedServer,
@@ -5905,7 +6011,7 @@ def obs_primary(directory: str) -> int:
     for f in files:
         f.close()
     durable_publish(str(d / "done"), json.dumps({
-        "tail": feed.tail_pos(), "k1_launches": FUSED_KERNEL.launches,
+        "tail": feed.tail_pos(), "k1_launches": k1_launches(),
         "serve": r}).encode(), fsync=False)
     _wait_file(d / "stop", "the primary's stop", timeout=600)
     srv.close()
@@ -5927,7 +6033,6 @@ def obs_leaf(directory: str) -> int:
     from node_replication_torch.durable.wal import durable_publish
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
-    from node_replication_torch.ops.replay import FUSED_KERNEL
     from node_replication_torch.repl import Follower, SocketFeed
 
     if not torch.cuda.is_available():
@@ -5963,7 +6068,7 @@ def obs_leaf(directory: str) -> int:
         check["ok"] = True
     except AssertionError as e:
         check["ok"], check["error"] = False, str(e)
-    check["k1_launches"] = FUSED_KERNEL.launches
+    check["k1_launches"] = k1_launches()
     check["records"] = get_registry().counter("repl.applied_records").value
     durable_publish(str(d / "leaf_check"), json.dumps(check).encode(),
                     fsync=False)
@@ -6090,7 +6195,6 @@ def _obs_scrape_and_trace(nr, models, rng, c0: dict) -> dict:
     `stats()`, the registry and K1's launch count."""
     from node_replication_torch.obs import export
     from node_replication_torch.obs.profile import KNOWN_ROLES
-    from node_replication_torch.ops.replay import FUSED_KERNEL
     from node_replication_torch.serve import ServeConfig, ServeFrontend
 
     tracer = _obs_tracer()
@@ -6136,7 +6240,7 @@ def _obs_scrape_and_trace(nr, models, rng, c0: dict) -> dict:
             time.sleep(0.05)
         doc = export.scrape(host, port)
         stats = json.loads(json.dumps(fe.stats()))
-        k1 = FUSED_KERNEL.launches
+        k1 = k1_launches()
     tracer.disable()
     if doc["stats"]["serve"] != stats:
         raise AssertionError("phase 26: the scrape's serve stats differ from "
@@ -6165,8 +6269,8 @@ def _obs_scrape_and_trace(nr, models, rng, c0: dict) -> dict:
                              f"{fused - c0['fused']}, K1 launched "
                              f"{k1 - c0['k1']} times")
     mean_batch = r["completed"] / max(1, rounds)
-    k1_bound_ms, k1_bound_by = bound(k1_round_bytes(R, mean_batch),
-                                     4 * mean_batch * R)
+    k1_bound_ms, k1_bound_by = bound(
+        k1_model_round_bytes(R, mean_batch), 4 * mean_batch * R)
     out = {"serve": r, "rounds": rounds, "mean_batch": mean_batch,
            "k1_launches": k1 - c0["k1"], "series": n_series,
            "lock_wait_s": lock_wait,
@@ -6352,7 +6456,6 @@ def phase_obs(dev, rng) -> dict:
     from node_replication_torch.models import make_hashmap
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -6369,13 +6472,13 @@ def phase_obs(dev, rng) -> dict:
     out = {"profiler": _obs_profiled_pairs(nr, models, rng)}
     c0 = {"serve.batches": reg.counter("serve.batches").value,
           "fused": reg.counter("nr.exec.engine.pallas_fused").value,
-          "k1": FUSED_KERNEL.launches}
+          "k1": k1_launches()}
     out["scrape"] = _obs_scrape_and_trace(nr, models, rng, c0)
     check_fleet_state(nr, models, "phase 26")
     del nr
     torch.cuda.empty_cache()
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     out["tree"] = _obs_tree()
     out["launches"]["hashmap_fused_round"] += sum(
         out["tree"]["child_k1_launches"].values())
@@ -6443,7 +6546,6 @@ def phase_harness(dev, rng) -> dict:
     from node_replication_torch.native import MODEL_HASHMAP
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -6497,7 +6599,7 @@ def phase_harness(dev, rng) -> dict:
         f"({R} serial writes; out of the sweep, cut for time)")
 
     # 2. measure_kernel on one device: K1 once a pallas_fused round
-    bound_ms = k1_round_bytes(R, W_ROUND) / HBM_BYTES_PER_S * 1e3
+    bound_ms = k1_model_round_bytes(R, W_ROUND) / HBM_BYTES_PER_S * 1e3
     pts = mk.measure_kernel(K, R, W_ROUND, duration_s=HN_KERNEL_S,
                             device=dev)
     want = {"pallas_fused": 1, "combined": 2, "scan": 2}
@@ -6509,7 +6611,7 @@ def phase_harness(dev, rng) -> dict:
     # the profiler over a short pallas_fused call: verify, warm-up and
     # three timed rounds, each a hashmap_round_kernel (the scan chain
     # it is held against runs first and warms the tracer up)
-    l0 = FUSED_KERNEL.launches
+    l0 = k1_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -6518,7 +6620,7 @@ def phase_harness(dev, rng) -> dict:
                                   tiers=("pallas_fused",), verify_rounds=2,
                                   device=dev)
         torch.cuda.synchronize()
-    launched = FUSED_KERNEL.launches - l0
+    launched = k1_launches() - l0
     k1_ev = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
              and "hashmap_round" in e.key]
@@ -6587,7 +6689,7 @@ def phase_harness(dev, rng) -> dict:
                 f"client {c} op {i} {ops[c][i]}: {resp}, model {want}")
 
     c0 = {n: reg.counter(n).value for n in counters}
-    k0 = FUSED_KERNEL.launches
+    k0 = k1_launches()
     cfg = ServeConfig(batch_max_ops=256, batch_linger_s=0.001)
     with ServeFrontend(fleet, cfg, rids=range(SV_RIDS)) as fe:
         sres = mk.measure_serve(fe, lambda c, i: ops[c][i],
@@ -6595,7 +6697,7 @@ def phase_harness(dev, rng) -> dict:
                                 rid_of=lambda c: c % SV_RIDS, check=check,
                                 name="flagship")
     d = {n: reg.counter(n).value - c0[n] for n in counters}
-    k1 = FUSED_KERNEL.launches - k0
+    k1 = k1_launches() - k0
     if (sres.errors or sres.transport_errors
             or sres.completed != HN_CLIENTS * HN_PER
             or not d["serve.batches"] == d["nr.exec.engine.pallas_fused"]
@@ -6638,7 +6740,7 @@ def phase_harness(dev, rng) -> dict:
         f"{HN_NATIVE_S} s: {nres.client_mops:.3f} Mops, replicas equal")
 
     out["launches"] = {"hashmap_replay": REPLAY_KERNEL.launches,
-                       "hashmap_fused_round": FUSED_KERNEL.launches}
+                       "hashmap_fused_round": k1_launches()}
     if out["launches"]["hashmap_fused_round"] == 0:
         raise AssertionError("phase 27 never launched K1")
     out["seconds"] = time.perf_counter() - t_phase
@@ -6744,7 +6846,6 @@ def _sim_parity(dev) -> dict:
     with equal digests; the card's K1 launches and rounds per tier."""
     from node_replication_torch.obs.metrics import get_registry
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -6766,7 +6867,7 @@ def _sim_parity(dev) -> dict:
     on_card = {s: run_case(generate_case(s), dev) for s in seeds}
     card_s = time.perf_counter() - t0
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     c1 = count()
     t1 = time.perf_counter()
     on_cpu = {s: run_case(generate_case(s), "cpu") for s in seeds}
@@ -6804,16 +6905,17 @@ def _sim_parity(dev) -> dict:
 
 
 def _k1_sim_check(dev) -> dict:
-    """Leg B2: K1 against its plain version at the sim's fleets (R = 1-3,
-    K = 32, a 256-slot ring with gc_slack 32), W = 1 and 16, fenced and
-    unfenced, over rounds across the ring's wrap; its time a launch from
-    CUDA events over queued calls (launch latency at these sizes)."""
+    """Leg B2: K1 over the states against its plain version at the sim's
+    fleets (R = 1-3, K = 32, a 256-slot ring with gc_slack 32), W = 1
+    and 16, fenced and unfenced, over rounds across the ring's wrap; its
+    time a launch from CUDA events over queued calls (launch latency at
+    these sizes)."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     rng = np.random.default_rng(SEED + 28)
@@ -6832,7 +6934,7 @@ def _k1_sim_check(dev) -> dict:
                                 device=dev))
             fen = torch.zeros(Rs, dtype=torch.int32, device=dev)
             fen[Rs - 1] = 1
-            kern = plain = (*ring, vals, pres)
+            kern = plain = (*ring, *planes_to_states(vals, pres, SIM_KEYS))
             tail = SIM_RING - 3 * W - 2
             rnd = 0
             while tail <= SIM_RING + W:
@@ -6848,9 +6950,8 @@ def _k1_sim_check(dev) -> dict:
                           count, torch.from_numpy(opc).to(dev),
                           torch.from_numpy(args).to(dev))
                 f = fen if rnd % 2 else None
-                out_k = hashmap_fused_round(*inputs, *kern, SIM_KEYS, f)
-                out_p = hashmap_fused_round_plain(*inputs, *plain,
-                                                  SIM_KEYS, f)
+                out_k = k1(*inputs, *kern, SIM_KEYS, f)
+                out_p = k1_plain(*inputs, *plain, SIM_KEYS, f)
                 e = max_abs_err(out_k, out_p)
                 if e:
                     raise AssertionError(
@@ -6862,10 +6963,9 @@ def _k1_sim_check(dev) -> dict:
                 tail += count
                 rnd += 1
             call = (*inputs, *kern, SIM_KEYS, None)
-            ms = queued_ms(lambda: hashmap_fused_round(*call))
-            plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*call),
-                               reps=10, warmup=2)
-            n_bytes = k1_round_bytes(Rs, W, SIM_RING, SIM_KEYS)
+            ms = queued_ms(lambda: k1(*call))
+            plain_ms = cuda_ms(lambda: k1_plain(*call), reps=10, warmup=2)
+            n_bytes = k1_model_round_bytes(Rs, W, SIM_RING, SIM_KEYS)
             bound_ms, by = bound(n_bytes, 4 * W * Rs)
             shapes[f"R{Rs}_W{W}"] = {
                 "R": Rs, "W": W, "rounds": rnd, "ms": ms,
@@ -6888,7 +6988,6 @@ def _sim_canaries(dev) -> dict:
     import io
 
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -6913,7 +7012,7 @@ def _sim_canaries(dev) -> dict:
         out[name] = {"rc": rc, "s": secs, "caught": caught[0]}
     (OUT_DIR / "phase28_canaries.txt").write_text("\n".join(texts))
     launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                "hashmap_fused_round": FUSED_KERNEL.launches}
+                "hashmap_fused_round": k1_launches()}
     log("phase 28 B3: every canary caught on the card and replayed "
         "byte-identically: " + "; ".join(
             f"{n} ({v['caught'].split(' [')[0]}, {v['s']:.1f} s)"
@@ -6946,7 +7045,6 @@ def _sim_flagship_crash(dev) -> dict:
     )
     from node_replication_torch.models import HM_GET, make_hashmap
     from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
         REPLAY_KERNEL,
         reset_launch_counts,
     )
@@ -7027,7 +7125,7 @@ def _sim_flagship_crash(dev) -> dict:
             run_s = time.perf_counter() - t0
             writes = 1 + sum(1 for _, n, _ in sched.trace if n == "write")
             launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                        "hashmap_fused_round": FUSED_KERNEL.launches}
+                        "hashmap_fused_round": k1_launches()}
             sk = nr.stats()
             if not (launches["hashmap_fused_round"] == writes
                     == sk["fused_rounds"] > 0 and sk["exec_rounds"] == 0):
@@ -7061,7 +7159,7 @@ def _sim_flagship_crash(dev) -> dict:
             torch.cuda.synchronize()
             recover_s = time.perf_counter() - t1
             rec_launches = {"hashmap_replay": REPLAY_KERNEL.launches,
-                            "hashmap_fused_round": FUSED_KERNEL.launches}
+                            "hashmap_fused_round": k1_launches()}
         T = int(rep.tail)
         if T < durable:
             raise AssertionError(f"phase 28 C: durable-ack-survival: "
@@ -7189,7 +7287,6 @@ def lockcheck_child(directory: str) -> int:
     from node_replication_torch.models import HM_GET, make_hashmap
     from node_replication_torch.obs import export
     from node_replication_torch.obs.metrics import get_registry
-    from node_replication_torch.ops.replay import FUSED_KERNEL
     from node_replication_torch.repl import (
         DirectoryFeed,
         Follower,
@@ -7318,7 +7415,7 @@ def lockcheck_child(directory: str) -> int:
     times["child_s"] = time.perf_counter() - t_start
     seen = locks.current_violations() + len(escaped)
     nodes = locks.current_nodes()
-    out = {"k1_launches": FUSED_KERNEL.launches,
+    out = {"k1_launches": k1_launches(),
            "acked_ops_per_s": r["acked_ops_per_s"], "completed":
            r["completed"], "p50_ms": r["p50_ms"], "p99_ms": r["p99_ms"],
            "scrapes": len(scrapes), "scraped_fused": fused,
@@ -7327,7 +7424,7 @@ def lockcheck_child(directory: str) -> int:
            "escaped": escaped[:5], "errors": errors[:10],
            "edges": len(locks.current_edges()), "nodes": nodes, **times}
     print(json.dumps(out), flush=True)
-    return 1 if errors or seen or not FUSED_KERNEL.launches else 0
+    return 1 if errors or seen or not k1_launches() else 0
 
 
 def phase_lockcheck(dev, serve13) -> dict:
@@ -7522,16 +7619,17 @@ def _run_example(name: str) -> dict:
 
 
 def _k1_examples_check(dev, shape, rng) -> dict:
-    """K1 against its plain version at one of the examples' fleets,
-    `shape` = (R, K, ring, gc_slack, W), fenced (the last replica) and
-    unfenced, over rounds across the ring's wrap; its time a launch from
-    CUDA events over 20 queued calls (launch latency at these sizes)."""
+    """K1 over the states against its plain version at one of the
+    examples' fleets, `shape` = (R, K, ring, gc_slack, W), fenced (the
+    last replica) and unfenced, over rounds across the ring's wrap; its
+    time a launch from CUDA events over 20 queued calls (launch latency
+    at these sizes)."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
     from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_plain,
+        hashmap_fused_round_model as k1,
+        hashmap_fused_round_model_plain as k1_plain,
     )
 
     r, k, ring_n, slack, w = shape
@@ -7546,7 +7644,7 @@ def _k1_examples_check(dev, shape, rng) -> dict:
             torch.zeros((ring_n, 3), dtype=torch.int32, device=dev))
     fen = torch.zeros(r, dtype=torch.int32, device=dev)
     fen[r - 1] = 1
-    kern = plain = (*ring, vals, pres)
+    kern = plain = (*ring, *planes_to_states(vals, pres, k))
     err, rnd = 0, 0
     tail = ring_n - 8
     while tail <= ring_n + 8:
@@ -7558,8 +7656,8 @@ def _k1_examples_check(dev, shape, rng) -> dict:
                   w, torch.from_numpy(opc).to(dev),
                   torch.from_numpy(args).to(dev))
         f = fen if rnd % 2 else None
-        out_k = hashmap_fused_round(*inputs, *kern, k, f)
-        out_p = hashmap_fused_round_plain(*inputs, *plain, k, f)
+        out_k = k1(*inputs, *kern, k, f)
+        out_p = k1_plain(*inputs, *plain, k, f)
         e = max_abs_err(out_k, out_p)
         if e:
             raise AssertionError(
@@ -7571,10 +7669,9 @@ def _k1_examples_check(dev, shape, rng) -> dict:
         tail += w
         rnd += 1
     call = (*inputs, *kern, k, None)
-    ms = queued_ms(lambda: hashmap_fused_round(*call))
-    plain_ms = cuda_ms(lambda: hashmap_fused_round_plain(*call), reps=10,
-                       warmup=2)
-    n_bytes = k1_round_bytes(r, w, ring_n, k)
+    ms = queued_ms(lambda: k1(*call))
+    plain_ms = cuda_ms(lambda: k1_plain(*call), reps=10, warmup=2)
+    n_bytes = k1_model_round_bytes(r, w, ring_n, k)
     bound_ms, by = bound(n_bytes, 4 * w * r)
     return {"R": r, "K": k, "ring": ring_n, "gc_slack": slack, "W": w,
             "rounds": rnd, "max_abs_err": err, "ms": ms,
@@ -7954,6 +8051,8 @@ def main() -> int:
         **({"examples": p["examples"]} if "examples" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
+        # K1 over the planes (`raw_round`'s instance; no path launches it)
+        **({"planes": p["planes"]} if "planes" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

@@ -439,8 +439,6 @@ class MultiLogReplicated(_FusedTier):
                 resps_np = _readback(resps[rid, :n])
                 sp.fence(self.ml, self.states)
         dt = time.perf_counter() - t0
-        if pending is None:
-            eng.settle()
         if timing:
             self._note_fused_sample("pallas_fused", pad, dt)
         # the round ran the engine's round fn directly, so report
@@ -524,8 +522,6 @@ class MultiLogReplicated(_FusedTier):
         if pending.fused_resps is not None:
             resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
-            if self._fused is not None:
-                self._fused.settle()
             for j, tid in enumerate(pending.tids):
                 self._resps[(rid, tid)].append(int(resps_np[j]))
             self.last_round_tier = "pallas_fused"

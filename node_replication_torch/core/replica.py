@@ -1305,8 +1305,6 @@ class NodeReplicated(_FusedTier):
                 # fence; only replica `rid`'s row is delivered
                 resps_np = _readback(resps[rid, :n])
                 sp.fence(*self._fleet_trees())
-        if pending is None:
-            eng.settle()
         if timing:
             self._note_fused_sample(
                 "pallas_fused", pad, time.perf_counter() - t0, fkey
@@ -1414,8 +1412,6 @@ class NodeReplicated(_FusedTier):
         if pending.fused_resps is not None:
             resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
-            if self._fused is not None:
-                self._fused.settle()
             with span("deliver"):
                 for j, tid in enumerate(pending.tids):
                     self._contexts[(rid, tid)].enqueue_resps(

@@ -1226,9 +1226,8 @@ def measure_kernel(
     (`combined`/`scan`) run the round the wrapper's
     `_append_and_replay` actually runs — an append, a host boundary,
     then one exec over the appended window — and the `pallas_fused`
-    tier runs the `FusedHashmapEngine` raw round (K1) with
-    TRANSPOSED-RESIDENT state (state stays in kernel layout across
-    rounds — the flagship configuration), 1 launch a round.
+    tier runs the `FusedHashmapEngine` round fn (K1 over the model's
+    `[R, K]` states, as `NodeReplicated` runs it), 1 launch a round.
 
     `devices` may also be a device count above 1, a device list or a
     `MachineTopology` (`mesh_devices`; N shards may share one card).
@@ -1356,9 +1355,7 @@ def measure_kernel(
                 f"fused engine rejects window {W} at capacity "
                 f"{spec.capacity}"
             )
-        raw = eng.raw_round(W)
-        K = n_keys
-        kp = eng.kp
+        fn = eng.round_fn(W)
 
         class Fused:
             def __init__(self):
@@ -1366,33 +1363,26 @@ def measure_kernel(
 
             def reset(self):
                 self.log = log_init(spec, home)
-                st = replicate_state(d.init_state(home), n_replicas)
-                self.vals = torch.zeros((kp, n_replicas), dtype=torch.int32,
-                                        device=home)
-                self.vals[:K] = st["values"].T
-                self.pres = torch.zeros_like(self.vals)
-                self.pres[:K] = st["present"].T.to(torch.int32)
+                self.states = replicate_state(d.init_state(home),
+                                              n_replicas)
 
             def round(self, opc, args):
                 t0 = time.perf_counter()
-                self.log, self.vals, self.pres, resps = raw(
-                    self.log, self.vals, self.pres, opc, args, W
+                self.log, self.states, resps = fn(
+                    self.log, self.states, opc, args, W
                 )
-                # the bench embeds raw_round in its own loop, so the
+                # the bench embeds round_fn in its own loop, so the
                 # engine's round() wrapper never runs — report through
                 # the same instrumentation hook (kernel.launches et
                 # al.; one contract, never two)
                 eng.note_round(W, W, time.perf_counter() - t0)
-                return resps.T  # [R, W], the chain layout
+                return resps  # [R, W], the chain layout
 
             def model_states(self):
-                return {
-                    "values": self.vals[:K].T,
-                    "present": self.pres[:K].T > 0,
-                }
+                return self.states
 
             def fence_all(self):
-                fence(self.log, self.vals, self.pres)
+                fence(self.log, self.states)
 
         return Fused()
 

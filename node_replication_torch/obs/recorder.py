@@ -128,7 +128,6 @@ class Tracer:
     def emit(self, event: str, **fields: Any) -> None:
         # racy-but-benign fast path: one word read; worst case one
         # event races an enable/disable
-        # nrlint: disable=lock-discipline
         if not self.enabled:
             return
         rec = {

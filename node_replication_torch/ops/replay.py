@@ -1,28 +1,34 @@
 """The hashmap's replay and fused-round kernels, their plain versions,
 and the engines built on them (PyTorch + CUDA).
 
-The port of `node_replication_tpu/ops/pallas_replay.py`. State is laid
-out transposed, `[Kp, R]` (keys on rows, replicas on columns, Kp = K
-rounded up to 8), as in the reference: replay touches one key per
-entry but every replica at once.
+The port of `node_replication_tpu/ops/pallas_replay.py`. The
+reference lays state out transposed, `[Kp, R]` planes (keys on rows,
+replicas on columns, Kp = K rounded up to 8): replay touches one key
+per entry but every replica at once. The model's own layout is
+`[R, K]` int32 values and bool present.
 
 Two kernels, one CUDA source and one body (`csrc/hashmap_replay.cu`,
 whose header says what bounds them and how they are laid out). A block
-owns a tile of key rows x replica columns of both planes in shared
-memory (`replay_tile()`): it copies the tile in, scans the window once
-and keeps, in window order, the entries whose key lies in its rows,
-replays them against shared memory, writes their response segments and
-copies the tile out. Both are bound by device-memory bytes (the state
-in and out and the responses); one launch a call.
+owns a tile of keys x replicas of both planes in shared memory
+(`replay_tile()` for the planes): it copies the tile in, scans the
+window once and keeps, in window order, the entries whose key lies in
+its tile, replays them against shared memory, writes their responses
+and copies the tile out. Both are bound by device-memory bytes (the
+state in and out and the responses); one launch a call.
 
 - `hashmap_replay` (replaces `_replay_kernel`, K2): in-order replay of
-  a window into every replica's column; used by `make_hashmap_replay`
-  and `make_pallas_step`.
+  a window into every replica's column of the planes; used by
+  `make_hashmap_replay` and `make_pallas_step`.
 - `hashmap_fused_round` (replaces `_fused_hashmap_kernel`, K1): one
-  whole combiner round in one launch — the ring append (done by the
-  first blocks while their tiles land), the replay, and the fenced
-  columns' tiles taken back from the input; used by
-  `FusedHashmapEngine`.
+  whole combiner round in one launch over the planes — the ring append
+  (done by the first blocks while their tiles land), the replay, and
+  the fenced columns' tiles taken back from the input; used by
+  `FusedHashmapEngine.raw_round`.
+- `hashmap_fused_round_model` (K1 over the model's `[R, K]` states, the
+  same body with its layout fixed by this entry): the same round with
+  responses `[R, W]`, a fenced replica's state kept and its responses
+  0; used by `FusedHashmapEngine.round_fn`, so a round does no layout
+  work.
 
 Each wrapper takes its plain PyTorch version (a Python loop over the
 window doing row operations on the planes) for CPU tensors ONLY; for
@@ -31,7 +37,8 @@ device it raises. The kernels are built with nvcc into a shared library
 with a plain C interface at first use (`ops/kernel_lib.py`), loaded with
 ctypes, and launched on the current stream; each launch's
 `cudaGetLastError()` is checked, and each wrapper counts its launches
-(`REPLAY_KERNEL.launches`, `FUSED_KERNEL.launches`).
+(`REPLAY_KERNEL.launches`; `FUSED_KERNEL.launches` every K1 launch in
+either layout, `FUSED_MODEL_KERNEL.launches` those over the states).
 """
 
 from __future__ import annotations
@@ -61,11 +68,13 @@ def _round_up(x: int, m: int) -> int:
 
 REPLAY_KERNEL = Kernel("hashmap_replay")
 FUSED_KERNEL = Kernel("hashmap_fused_round")
+FUSED_MODEL_KERNEL = Kernel("hashmap_fused_round_model")
 
 
 def reset_launch_counts() -> None:
     REPLAY_KERNEL.launches = 0
     FUSED_KERNEL.launches = 0
+    FUSED_MODEL_KERNEL.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -78,6 +87,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nr_hashmap_fused_round.argtypes = [
         p, p, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p, p]
     lib.nr_hashmap_fused_round.restype = i
+    lib.nr_hashmap_fused_round_model.argtypes = [
+        p, p, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p, p]
+    lib.nr_hashmap_fused_round_model.restype = i
 
 
 def _library() -> ctypes.CDLL:
@@ -187,6 +199,30 @@ def hashmap_fused_round_plain(spec: LogSpec, tail, count: int, opcodes,
     return ring_opc, ring_args, v, p, resps
 
 
+def _check_round(spec: LogSpec, tail, count: int, opcodes, args,
+                 ring_opc, ring_args, fenced, R: int) -> list:
+    """K1's checks beside the state's: the batch, the ring, the cursor,
+    the fenced mask. Returns every tensor the round takes but the
+    state."""
+    W = opcodes.shape[0]
+    A = spec.arg_width
+    L = spec.capacity
+    expect(args, "args", (W, A), torch.int32)
+    expect(ring_opc, "ring_opc", (L,), torch.int32)
+    expect(ring_args, "ring_args", (L, A), torch.int32)
+    expect(tail, "tail", (), torch.int64)
+    if A < 2:
+        raise ValueError("the hashmap needs arg_width >= 2 (key, value)")
+    if not (0 <= count <= W and fused_window_ok(L, W)):
+        raise ValueError(f"count {count} / window {W} do not fit a ring "
+                         f"of {L} (fused_window_ok)")
+    tensors = [tail, opcodes, args, ring_opc, ring_args]
+    if fenced is not None:
+        expect(fenced, "fenced", (R,), torch.int32)
+        tensors.append(fenced)
+    return tensors
+
+
 def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
                         ring_opc, ring_args, values, present, n_keys: int,
                         fenced=None):
@@ -200,22 +236,11 @@ def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
     A = spec.arg_width
     L = spec.capacity
     kp, R = _check_planes(opcodes, values, present, W)
-    expect(args, "args", (W, A), torch.int32)
-    expect(ring_opc, "ring_opc", (L,), torch.int32)
-    expect(ring_args, "ring_args", (L, A), torch.int32)
-    expect(tail, "tail", (), torch.int64)
-    if A < 2:
-        raise ValueError("the hashmap needs arg_width >= 2 (key, value)")
-    if not (0 <= count <= W and fused_window_ok(L, W)):
-        raise ValueError(f"count {count} / window {W} do not fit a ring "
-                         f"of {L} (fused_window_ok)")
+    tensors = _check_round(spec, tail, count, opcodes, args, ring_opc,
+                           ring_args, fenced, R)
     if not 0 < n_keys <= kp:
         raise ValueError(f"n_keys {n_keys} outside (0, Kp={kp}]")
-    tensors = [tail, opcodes, args, ring_opc, ring_args, values, present]
-    if fenced is not None:
-        expect(fenced, "fenced", (R,), torch.int32)
-        tensors.append(fenced)
-    if route(*tensors) == "cpu":
+    if route(*tensors, values, present) == "cpu":
         return hashmap_fused_round_plain(
             spec, tail, count, opcodes, args, ring_opc, ring_args, values,
             present, n_keys, fenced)
@@ -239,6 +264,80 @@ def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
         raise RuntimeError(f"hashmap_fused_round launch failed: CUDA "
                            f"error {err}")
     FUSED_KERNEL.launches += 1
+    return ro, ra, v_out, p_out, resps
+
+
+def hashmap_fused_round_model_plain(spec: LogSpec, tail, count: int,
+                                    opcodes, args, ring_opc, ring_args,
+                                    values, present, n_keys: int,
+                                    fenced=None):
+    """Plain version of the fused round over the model's states: the
+    planes' plain round with the layout copies around it (the states
+    into zeroed `[Kp, R]` planes, then back, the responses transposed,
+    a fenced replica's responses zeroed)."""
+    R = values.shape[0]
+    kp = _round_up(n_keys, 8)
+    vals_t = torch.zeros((kp, R), dtype=torch.int32, device=values.device)
+    vals_t[:n_keys] = values.T
+    pres_t = torch.zeros_like(vals_t)
+    pres_t[:n_keys] = present.T
+    ring_opc, ring_args, vals_t, pres_t, resps = hashmap_fused_round_plain(
+        spec, tail, count, opcodes, args, ring_opc, ring_args, vals_t,
+        pres_t, n_keys, fenced)
+    resps = resps.T.contiguous()
+    if fenced is not None:
+        resps = torch.where((fenced > 0)[:, None], torch.zeros_like(resps),
+                            resps)
+    return (ring_opc, ring_args, vals_t[:n_keys].T.contiguous(),
+            (pres_t[:n_keys] > 0).T.contiguous(), resps)
+
+
+def hashmap_fused_round_model(spec: LogSpec, tail, count: int, opcodes,
+                              args, ring_opc, ring_args, values, present,
+                              n_keys: int, fenced=None):
+    """`hashmap_fused_round` over the model's states, `values int32[R,
+    n_keys]` and `present bool[R, n_keys]`: one K1 launch, no layout
+    copy. A fenced replica (`fenced int32[R]`, > 0 = fenced) keeps its
+    state and answers 0. Returns `(ring_opc, ring_args, values, present,
+    resps int32[R, W])`, all new tensors."""
+    W = opcodes.shape[0]
+    L = spec.capacity
+    if values.dim() != 2:
+        raise ValueError(f"values: expected [R, K], got "
+                         f"{tuple(values.shape)}")
+    R = values.shape[0]
+    expect(opcodes, "opcodes", (W,), torch.int32)
+    expect(values, "values", (R, n_keys), torch.int32)
+    expect(present, "present", (R, n_keys), torch.bool)
+    tensors = _check_round(spec, tail, count, opcodes, args, ring_opc,
+                           ring_args, fenced, R)
+    if n_keys < 1:
+        raise ValueError(f"n_keys {n_keys} < 1")
+    if route(*tensors, values, present) == "cpu":
+        return hashmap_fused_round_model_plain(
+            spec, tail, count, opcodes, args, ring_opc, ring_args, values,
+            present, n_keys, fenced)
+    lib = _library()
+    ro = torch.empty_like(ring_opc)
+    ra = torch.empty_like(ring_args)
+    v_out = torch.empty_like(values)
+    p_out = torch.empty_like(present)
+    resps = torch.empty((R, W), dtype=torch.int32, device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = lib.nr_hashmap_fused_round_model(
+            opcodes.data_ptr(), args.data_ptr(), spec.arg_width, W, n_keys,
+            R, values.data_ptr(), present.data_ptr(),
+            v_out.data_ptr(), p_out.data_ptr(), resps.data_ptr(),
+            None if fenced is None else fenced.data_ptr(),
+            tail.data_ptr(), int(count), L, ring_opc.data_ptr(),
+            ring_args.data_ptr(), ro.data_ptr(), ra.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"hashmap_fused_round_model launch failed: "
+                           f"CUDA error {err}")
+    FUSED_KERNEL.launches += 1
+    FUSED_MODEL_KERNEL.launches += 1
     return ro, ra, v_out, p_out, resps
 
 
@@ -340,13 +439,9 @@ class FusedHashmapEngine(FusedEngineHost):
     (`core/replica._try_fused_round`).
 
     States cross the boundary in model layout (`[R, K]` values + bool
-    present); the transposes to the kernel's `[Kp, R]` planes happen in
-    `round_fn`. `raw_round` is the transposed-resident form.
-
-    While the metrics registry is on, `round_fn` records CUDA events
-    around its layout copies (the planes in, the states and responses
-    out) and `settle()` adds their device time, once the round's events
-    have completed, to `nr.fused.copies_device_s`: no sync of its own.
+    present), and `round_fn` hands them to K1 as they are
+    (`hashmap_fused_round_model`). `raw_round` is the transposed-resident
+    form, over the reference's `[Kp, R]` planes.
     """
 
     supports_fenced = True
@@ -362,38 +457,6 @@ class FusedHashmapEngine(FusedEngineHost):
         self.device = resolve_device(device)
         self.kp = _round_up(self.n_keys, 8)
         self._init_host()
-        from node_replication_torch.obs.metrics import get_registry
-
-        self._reg = get_registry()
-        self._m_copies = self._reg.histogram("nr.fused.copies_device_s")
-        #: per round: CUDA events before and after the copies in, then
-        #: the copies out, oldest first, until `settle` reads them; read
-        #: ones wait in `_free_marks` for a later round
-        self._copy_marks: list[tuple] = []
-        self._free_marks: list[tuple] = []
-
-    def _marks(self, dev: torch.device):
-        """Four timing events for this round's copies, or None: the
-        registry off (no event is made) or the planes on the CPU."""
-        if not self._reg.enabled or dev.type != "cuda":
-            return None
-        if self._copy_marks:
-            self.settle()
-        if self._free_marks:
-            return self._free_marks.pop()
-        return tuple(torch.cuda.Event(enable_timing=True)
-                     for _ in range(4))
-
-    def settle(self) -> None:
-        """Observe the copies' device time of each round whose events
-        have completed; a round still on the card waits for a later
-        call (`Event.query` does not block)."""
-        marks = self._copy_marks
-        while marks and marks[0][3].query():
-            e0, e1, e2, e3 = done = marks.pop(0)
-            self._m_copies.observe(
-                (e0.elapsed_time(e1) + e2.elapsed_time(e3)) * 1e-3)
-            self._free_marks.append(done)
 
     def supports(self, window: int) -> bool:
         """Window fits the reference's ring-span rule and the
@@ -407,6 +470,15 @@ class FusedHashmapEngine(FusedEngineHost):
         del window
         return 1
 
+    @staticmethod
+    def _check_call(window: int, fenced: bool, opcodes, fenced_vec):
+        if opcodes.shape[0] != window:
+            raise ValueError(f"round built for window {window}, got "
+                             f"{opcodes.shape[0]}")
+        if (fenced_vec is not None) != fenced:
+            raise ValueError("fenced mask given to an unfenced round "
+                             "or missing from a fenced one")
+
     def raw_round(self, window: int, fenced: bool = False):
         """Round fn over TRANSPOSED planes: `(log, vals_t, pres_t,
         opcodes, args, count[, fenced_vec]) -> (log, vals_t, pres_t,
@@ -415,12 +487,7 @@ class FusedHashmapEngine(FusedEngineHost):
 
         def raw(log, vals_t, pres_t, opcodes, args, count: int,
                 fenced_vec=None):
-            if opcodes.shape[0] != window:
-                raise ValueError(f"round built for window {window}, got "
-                                 f"{opcodes.shape[0]}")
-            if (fenced_vec is not None) != fenced:
-                raise ValueError("fenced mask given to an unfenced round "
-                                 "or missing from a fenced one")
+            self._check_call(window, fenced, opcodes, fenced_vec)
             fen = (None if fenced_vec is None
                    else torch.as_tensor(fenced_vec).to(
                        device=vals_t.device, dtype=torch.int32))
@@ -439,40 +506,22 @@ class FusedHashmapEngine(FusedEngineHost):
         """MODEL-layout round fn: `(log, states, opcodes, args, count[,
         fenced_vec]) -> (log, states, resps[R, W])`, `resps[r, j]`
         answering window offset j, fenced rows zeroed."""
-        raw = self.raw_round(window, fenced)
-        K, kp = self.n_keys, self.kp
+        spec, n_keys = self.spec, self.n_keys
 
         def fn(log, states, opcodes, args, count: int, fenced_vec=None):
-            R = states["values"].shape[0]
-            dev = states["values"].device
-            marks = self._marks(dev)
-            if marks is not None:
-                stream = torch.cuda.current_stream(dev)
-                marks[0].record(stream)
-            vals_t = torch.zeros((kp, R), dtype=torch.int32, device=dev)
-            vals_t[:K] = states["values"].T
-            pres_t = torch.zeros_like(vals_t)
-            pres_t[:K] = states["present"].T
-            if marks is not None:
-                marks[1].record(stream)
-            log, vals_t, pres_t, resps = raw(
-                log, vals_t, pres_t, opcodes, args, count, fenced_vec
-            )
-            if marks is not None:
-                marks[2].record(stream)
-            states = {
-                "values": vals_t[:K].T.contiguous(),
-                "present": (pres_t[:K] > 0).T.contiguous(),
-            }
-            resps = resps.T.contiguous()  # [R, W]
-            if fenced_vec is not None:
-                fen = torch.as_tensor(fenced_vec).to(device=dev,
-                                                     dtype=torch.bool)
-                resps = torch.where(fen[:, None], torch.zeros_like(resps),
-                                    resps)
-            if marks is not None:
-                marks[3].record(stream)
-                self._copy_marks.append(marks)
-            return log, states, resps
+            self._check_call(window, fenced, opcodes, fenced_vec)
+            values = states["values"].contiguous()
+            fen = (None if fenced_vec is None
+                   else torch.as_tensor(fenced_vec).to(
+                       device=values.device, dtype=torch.int32))
+            ring_opc, ring_args, values, present, resps = \
+                hashmap_fused_round_model(
+                    spec, log.tail, int(count), opcodes, args,
+                    log.opcodes, log.args, values,
+                    states["present"].contiguous(), n_keys, fen,
+                )
+            log = log._replace(opcodes=ring_opc, args=ring_args)
+            log = fused_cursor_lattice(log, count, fenced_vec)
+            return log, {"values": values, "present": present}, resps
 
         return fn

@@ -61,10 +61,9 @@ def append_window_planes(mask: int, ring_opc, ring_args, opcodes, args,
 class FusedEngineHost:
     """Host-side plumbing of the fused engines: the `kernel.launches`
     counter, the `log.engine.pallas_fused` (or `mesh_fused`) tier
-    counter and the `kernel-launch` trace event, and `settle()`, which
-    the wrapper calls once a round's responses are on the host. The
-    reference also caches a jitted round function per window here; the
-    port runs eagerly and caches nothing but the built kernel library
+    counter and the `kernel-launch` trace event. The reference also
+    caches a jitted round function per window here; the port runs
+    eagerly and caches nothing but the built kernel library
     (`ops/replay.py`). Subclasses provide `round_fn(window, fenced)`,
     `launches(window)`, `supports(window)` and a `supports_fenced`
     class flag."""
@@ -77,11 +76,6 @@ class FusedEngineHost:
         from node_replication_torch.obs.metrics import get_registry
 
         self._m_launches = get_registry().counter("kernel.launches")
-
-    def settle(self) -> None:
-        """Record what the engine measured on the device during rounds
-        whose results the host has read back (nothing here; see
-        `FusedHashmapEngine`). Never waits for the card."""
 
     def note_round(self, window: int, count: int, duration_s: float,
                    fenced: bool = False) -> None:

@@ -338,10 +338,6 @@ class MeshFusedEngine(FusedEngineHost):
     def supports(self, window: int) -> bool:
         return self.inner.supports(window)
 
-    def settle(self) -> None:
-        for eng in self._inner.values():
-            eng.settle()
-
     def launches(self, window: int) -> int:
         """Kernel launches per round PER DEVICE (shard)."""
         return self.inner.launches(window)

@@ -1341,9 +1341,11 @@ class TestRepoIsClean:
         assert project.is_device_scope(put)
         for f in nested(fn("core.step", "make_step")):
             assert project.is_device_scope(f)
-        for f in nested(fn("ops.replay", "raw_round", "FusedHashmapEngine")):
-            assert project.is_device_scope(f)
-        for name in ("hashmap_fused_round", "hashmap_replay"):
+        for maker in ("raw_round", "round_fn"):
+            for f in nested(fn("ops.replay", maker, "FusedHashmapEngine")):
+                assert project.is_device_scope(f)
+        for name in ("hashmap_fused_round", "hashmap_fused_round_model",
+                     "hashmap_replay"):
             assert project.is_device_scope(fn("ops.replay", name))
         for mod, name in (("ops.vspace", "vspace_fused_round"),
                           ("ops.oahashmap", "oahashmap_replay")):
@@ -1351,8 +1353,9 @@ class TestRepoIsClean:
         assert not project.is_device_scope(fn("core.replica", "_readback"))
         assert not project.is_device_scope(fn("utils.fence", "fence"))
         # the plain versions run only on the CPU route
-        assert not project.is_device_scope(
-            fn("ops.replay", "hashmap_fused_round_plain"))
+        for name in ("hashmap_fused_round_plain",
+                     "hashmap_fused_round_model_plain"):
+            assert not project.is_device_scope(fn("ops.replay", name))
 
 class TestHostTransferInShardedPath:
     def test_state_gather_in_exec_path_fires(self, tmp_path):

@@ -4,7 +4,10 @@ run through the plain version on the CPU) against the reference engine
 built with `interpret=True`, in the shape of
 `tests/test_pallas_fused.py::TestFusedRoundBitIdentity`: 30 rounds, two
 ring wraps, a fence/repair cycle. Ring planes, cursors, states and the
-`round_fn` responses must be bit-identical."""
+`round_fn` responses must be bit-identical. Then `round_fn` (K1 over
+the model's `[R, K]` states, `hashmap_fused_round_model`) at edge
+shapes against the reference engine's round and against `raw_round`
+over the `[Kp, R]` planes with the transposes around it."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,9 @@ from node_replication_torch.models import make_hashmap as t_make_hashmap
 from node_replication_torch.ops.encoding import encode_ops as t_encode
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
+    FUSED_MODEL_KERNEL,
     hashmap_fused_round,
+    hashmap_fused_round_model,
 )
 from node_replication_torch.ops.ring import fused_window_ok, window_rows
 
@@ -189,3 +194,129 @@ def test_wrapper_routes_cpu_to_plain_and_counts_no_launch():
     with pytest.raises(ValueError):  # wrong dtype is refused
         hashmap_fused_round(spec, log.tail, 2, to, ta, log.opcodes,
                             log.args, vals.long(), vals, K)
+
+
+def _mid_stream_log(spec, rng, tail=300):
+    """A reference log whose ring is past one wrap and holds old
+    entries, every cursor at the tail."""
+    L, R = spec.capacity, spec.n_replicas
+    return j_log_init(spec)._replace(
+        opcodes=jnp.asarray(rng.integers(0, 3, L).astype(np.int32)),
+        args=jnp.asarray(
+            rng.integers(-9, 9, (L, spec.arg_width)).astype(np.int32)),
+        tail=jnp.int64(tail), ctail=jnp.int64(tail), head=jnp.int64(tail),
+        ltails=jnp.full((R,), tail, jnp.int64))
+
+
+# (K, R, W, count, fenced replicas): K not a multiple of 8 (the planes'
+# padding rows), R % 4 != 0, two fenced replicas, windows of 1 and 8
+# with NOOP padding past `count` (down to an empty round); every window
+# has keys below 0 and at or above K, and inert opcodes
+MODEL_CASES = {
+    "kp_pad": (13, 4, 8, 8, ()),
+    "r_odd": (16, 5, 8, 8, ()),
+    "fenced": (13, 6, 8, 7, (1, 4)),
+    "fenced_r_odd": (9, 7, 8, 8, (0, 6)),
+    "w1": (11, 3, 1, 1, ()),
+    "w1_fenced": (11, 3, 1, 1, (0, 2)),
+    "w8_padded": (24, 4, 8, 3, ()),
+    "empty": (13, 5, 8, 0, (1, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_model_layout_round_equals_raw_round_transposed(case):
+    K, R, W, count, fen_rows = MODEL_CASES[case]
+    spec = TSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
+    jspec = JSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
+    eng = t_make_hashmap(K).fused_factory(spec, device=CPU)
+    jeng = j_make_hashmap(K).fused_factory(jspec, interpret=True)
+    rng = np.random.default_rng(list(MODEL_CASES).index(case))
+    opc = np.zeros(W, np.int32)
+    args = np.zeros((W, 3), np.int32)
+    opc[:count] = rng.choice(np.array([1, 1, 2, 2, 7], np.int32), count)
+    args[:count, 0] = rng.integers(-2 * K, 3 * K, count)
+    args[:count, 1] = rng.integers(-1000, 1000, count)
+    if count >= 2:
+        args[0, 0], args[1, 0] = -K - 3, K + 2
+    opc_t, args_t = torch.from_numpy(opc), torch.from_numpy(args)
+    values = rng.integers(-50, 50, (R, K)).astype(np.int32)
+    present = rng.random((R, K)) < 0.5
+    jl = _mid_stream_log(jspec, rng)
+    log = interop.log_from_numpy(jl, CPU)
+    fenced = None
+    if fen_rows:
+        fenced = np.zeros(R, bool)
+        fenced[list(fen_rows)] = True
+    extra = () if fenced is None else (torch.from_numpy(fenced),)
+    before = FUSED_MODEL_KERNEL.launches, FUSED_KERNEL.launches
+    lm, sm, rm = eng.round_fn(W, fenced is not None)(
+        log, {"values": torch.from_numpy(values),
+              "present": torch.from_numpy(present)},
+        opc_t, args_t, count, *extra)
+    # the plain version ran: no launch counted
+    assert (FUSED_MODEL_KERNEL.launches, FUSED_KERNEL.launches) == before
+    # the reference engine's round over the same model-layout states
+    jl, js, jr = jeng.round(
+        jl, {"values": jnp.asarray(values), "present": jnp.asarray(present)},
+        jnp.asarray(opc), jnp.asarray(args), count, fenced=fenced)
+    _log_eq(jl, lm, case)
+    _eq(js["values"], sm["values"], "values")
+    _eq(js["present"], sm["present"], "present")
+    _eq(jr, rm, "resps")
+    vt = torch.zeros((eng.kp, R), dtype=torch.int32)
+    vt[:K] = torch.from_numpy(values).T
+    pt = torch.zeros_like(vt)
+    pt[:K] = torch.from_numpy(present).T
+    lr, vt, pt, rr = eng.raw_round(W, fenced is not None)(
+        log, vt, pt, opc_t, args_t, count, *extra)
+    for f in lr._fields:
+        a, b = getattr(lm, f), getattr(lr, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert sm["values"].dtype == torch.int32
+    assert sm["present"].dtype == torch.bool
+    assert torch.equal(sm["values"], vt[:K].T)
+    assert torch.equal(sm["present"], (pt[:K] > 0).T)
+    want = rr.T.clone()
+    if fenced is not None:
+        want[torch.from_numpy(fenced)] = 0
+        # a fenced replica keeps its input and answers 0
+        assert np.array_equal(sm["values"].numpy()[fenced], values[fenced])
+        assert np.array_equal(sm["present"].numpy()[fenced],
+                              present[fenced])
+    assert rm.dtype == torch.int32 and torch.equal(rm, want)
+    assert not rm[:, count:].any()  # NOOP padding answers 0
+    if fenced is None and count:
+        assert int(lm.tail) == 300 + count and torch.equal(
+            lm.ltails, lm.tail.expand(R))
+
+
+def test_model_wrapper_checks_the_states_and_round_fn_takes_views():
+    K, R, W = 10, 4, 8
+    spec = TSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
+    log = t_log_init(spec, CPU)
+    to, ta, _ = t_encode([(1, 3, 9), (2, 3), (1, -4, 5)], 3, pad_to=W,
+                         device=CPU)
+    vals = torch.arange(R * K, dtype=torch.int32).reshape(R, K)
+    pres = (vals % 3) == 0
+    ring = (log.tail, 3, to, ta, log.opcodes, log.args)
+    out = hashmap_fused_round_model(spec, *ring, vals, pres, K)
+    assert out[4].shape == (R, W) and out[4][:, 1].tolist() == [1] * R
+    assert out[2][:, 3].tolist() == [0] * R and out[2][:, 6].tolist() \
+        == [5] * R
+    for bad in ((vals, pres.int()), (vals.long(), pres),
+                (vals.T.contiguous(), pres.T.contiguous()),
+                (vals.T.contiguous().T, pres)):
+        with pytest.raises(ValueError):
+            hashmap_fused_round_model(spec, *ring, *bad, K)
+    with pytest.raises(ValueError):  # n_keys other than the states'
+        hashmap_fused_round_model(spec, *ring, vals, pres, K + 1)
+    # round_fn hands K1 contiguous states, whatever view it was given
+    eng = t_make_hashmap(K).fused_factory(spec, device=CPU)
+    views = {"values": vals.T.contiguous().T,
+             "present": pres.T.contiguous().T}
+    assert not views["values"].is_contiguous()
+    _, st, resps = eng.round_fn(W)(log, views, to, ta, 3)
+    assert torch.equal(st["values"], out[2])
+    assert torch.equal(st["present"], out[3])
+    assert torch.equal(resps, out[4])

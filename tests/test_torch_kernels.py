@@ -6,9 +6,11 @@ the flagship shapes is `chip_smoke.py`; these cover the edges at small
 shapes: replica counts that are not a multiple of a warp or of 4,
 planes that are not 16-byte aligned, windows past one shared-memory
 chunk, one key for the whole window, hot keys, negative keys, ring
-wrap, fenced lanes, and for the flat vspace kernels spans that end at
-P-1 or wrap through 0, int32 wrap near 2^31, n = 0, both state layouts,
-hot tiles, spans across tile edges and partial last tiles.
+wrap, fenced lanes, K1 over the model's `[R, K]` states (at the
+flagship shape too) and `round_fn`'s one launch of it, and for the flat
+vspace kernels spans that end at P-1 or wrap through 0, int32 wrap near
+2^31, n = 0, both state layouts, hot tiles, spans across tile edges and
+partial last tiles.
 Every value is an integer, so the tolerance is 0.
 
 This file imports torch and the port only, so it runs on a machine
@@ -22,8 +24,11 @@ import torch
 from node_replication_torch.core.log import LogSpec
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
+    FUSED_MODEL_KERNEL,
     REPLAY_KERNEL,
     hashmap_fused_round,
+    hashmap_fused_round_model,
+    hashmap_fused_round_model_plain,
     hashmap_fused_round_plain,
     hashmap_replay,
     hashmap_replay_plain,
@@ -157,6 +162,130 @@ def test_fused_kernel_equals_plain_across_ring_wrap(dev, case, fenced):
         tail += count
     assert FUSED_KERNEL.launches == before + 12
     assert tail0 < L < tail
+
+
+# K1 over the model's [R, K] states tiles 64 keys x 128 replica rows:
+# the flagship (R = 4096, K = 10000, W = 256), a mesh shard's R = 1024,
+# R = 4097 (a last tile of one replica row), K = 10001 (the scalar path),
+# K = 1000 (16-byte values, present in 4-byte runs), K = 37 (scalar), the
+# sim's R = 3, K = 32 at W = 1, states 4 and 1 bytes past an aligned
+# address (scalar), and an empty window (count 0: all NOOP padding). The
+# fields: R, K, W, rounds, and "unaligned" or "empty" where the case is
+# one. Each first tail makes the rounds cross the wrap of a 4096 ring.
+K1_MODEL_CASES = {
+    "flagship": (4096, 10000, 256, 3),
+    "shard": (1024, 10000, 256, 3),
+    "r4097": (4097, 10000, 256, 3),
+    "k10001": (4096, 10001, 256, 3),
+    "k1000": (300, 1000, 64, 6),
+    "k37": (70, 37, 64, 6),
+    "sim_r3_w1": (3, 32, 1, 6),
+    "unaligned": (260, 64, 64, 6, "unaligned"),
+    "empty": (600, 1000, 8, 3, "empty"),
+}
+
+
+def _k1_model_inputs(rng, R, K, W, count, dev):
+    """A round's batch (NOOP padding past `count` with junk keys and
+    values) over keys in [-3K, 3K)."""
+    opc = np.zeros(W, np.int32)
+    opc[:count] = rng.choice(np.array([0, 1, 1, 2, 2, 7], np.int32), count)
+    args = np.stack([rng.integers(-3 * K, 3 * K, W),
+                     rng.integers(-(1 << 31), 1 << 31, W),
+                     rng.integers(-9, 9, W)], 1).astype(np.int32)
+    return torch.from_numpy(opc).to(dev), torch.from_numpy(args).to(dev)
+
+
+@pytest.mark.parametrize("fenced", [False, True])
+@pytest.mark.parametrize("case", list(K1_MODEL_CASES))
+def test_model_layout_k1_equals_plain(dev, case, fenced):
+    R, K, W, rounds, *kind = K1_MODEL_CASES[case]
+    spec = LogSpec(capacity=4096, n_replicas=R, arg_width=3, gc_slack=64)
+    L = spec.capacity
+    rng = np.random.default_rng(
+        11 + fenced + 10 * list(K1_MODEL_CASES).index(case))
+    ring_opc = torch.from_numpy(
+        rng.integers(0, 3, L).astype(np.int32)).to(dev)
+    ring_args = torch.from_numpy(
+        rng.integers(-9, 9, (L, 3)).astype(np.int32)).to(dev)
+    v = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, (R, K)).astype(np.int32)).to(dev)
+    p = torch.from_numpy(rng.random((R, K)) < 0.5).to(dev)
+    if kind == ["unaligned"]:
+        v, p = _unaligned(v), _unaligned(p)
+    fen = None
+    if fenced:
+        fen = torch.zeros(R, dtype=torch.int32, device=dev)
+        fen[[r for r in (0, 31, 127, 128, R // 2, R - 1) if r < R]] = 1
+    kern = plain = (ring_opc, ring_args, v, p)
+    tail = tail0 = L - max(1, rounds * W // 4)
+    before = FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches
+    for rnd in range(rounds):
+        count = 0 if kind == ["empty"] else \
+            int(rng.integers(W // 2, W + 1)) if W > 1 else 1
+        opc, args = _k1_model_inputs(rng, R, K, W, count, dev)
+        t = torch.tensor(tail, dtype=torch.int64, device=dev)
+        out_k = hashmap_fused_round_model(spec, t, count, opc, args, *kern,
+                                          K, fen)
+        out_p = hashmap_fused_round_model_plain(spec, t, count, opc, args,
+                                                *plain, K, fen)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert a.dtype == b.dtype and torch.equal(a, b), rnd
+        if fen is not None:
+            assert not out_k[4][fen > 0].any()
+        kern, plain = out_k[:4], out_p[:4]
+        tail += count
+    assert (FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches) == (
+        before[0] + rounds, before[1] + rounds)
+    assert tail == tail0 if kind == ["empty"] else tail0 < L < tail
+
+
+@pytest.mark.parametrize("fenced", [False, True])
+def test_round_fn_is_one_model_layout_launch_equal_to_the_planes(dev,
+                                                                 fenced):
+    """One `round_fn` call moves `FUSED_KERNEL.launches` and
+    `FUSED_MODEL_KERNEL.launches` by exactly 1, and equals `raw_round`
+    (K1 over the `[Kp, R]` planes) with the transposes around it."""
+    from node_replication_torch.core.log import log_init
+    from node_replication_torch.models import make_hashmap
+
+    R, K, W, count = 600, 1001, 64, 50
+    spec = LogSpec(capacity=4096, n_replicas=R, arg_width=3, gc_slack=64)
+    eng = make_hashmap(K).fused_factory(spec, device=dev)
+    rng = np.random.default_rng(3 + fenced)
+    log = log_init(spec, dev)
+    states = {
+        "values": torch.from_numpy(rng.integers(
+            -1000, 1000, (R, K)).astype(np.int32)).to(dev),
+        "present": torch.from_numpy(rng.random((R, K)) < 0.5).to(dev),
+    }
+    opc, args = _k1_model_inputs(rng, R, K, W, count, dev)
+    extra = ()
+    if fenced:
+        mask = torch.zeros(R, dtype=torch.bool, device=dev)
+        mask[[0, 127, 128, R - 1]] = True
+        extra = (mask,)
+    before = FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches
+    lm, sm, rm = eng.round_fn(W, fenced)(log, states, opc, args, count,
+                                         *extra)
+    assert (FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    vt = torch.zeros((eng.kp, R), dtype=torch.int32, device=dev)
+    vt[:K] = states["values"].T
+    pt = torch.zeros_like(vt)
+    pt[:K] = states["present"].T
+    lr, vt, pt, rr = eng.raw_round(W, fenced)(log, vt, pt, opc, args,
+                                              count, *extra)
+    torch.cuda.synchronize()
+    for f in lr._fields:
+        assert torch.equal(getattr(lm, f), getattr(lr, f)), f
+    assert torch.equal(sm["values"], vt[:K].T)
+    assert torch.equal(sm["present"], (pt[:K] > 0).T)
+    want = rr.T.clone()
+    if fenced:
+        want[extra[0]] = 0
+    assert torch.equal(rm, want)
 
 
 # ------------------------------------------------- flat vspace (K4, K7a, K5)

@@ -220,51 +220,6 @@ class TestSpanTree:
         _with_mem_tracer(body)
 
 
-class _Event:
-    """A stand-in for `torch.cuda.Event`: its time in ms and whether the
-    card has passed it."""
-
-    def __init__(self, ms, done=True):
-        self.ms, self.done = ms, done
-
-    def query(self):
-        return self.done
-
-    def elapsed_time(self, end):
-        return end.ms - self.ms
-
-
-def test_copy_events_settle_only_rounds_the_card_has_passed():
-    nr = NodeReplicated(make_hashmap(16), 2, log_entries=512,
-                        engine="pallas", device="cpu")
-    eng = nr._fused
-    reg = get_registry()
-    hist = reg.histogram("nr.fused.copies_device_s")
-    was = reg.enabled
-    reg.enable()
-    try:
-        n0, s0 = hist.count, hist.sum
-        last = _Event(30.0, done=False)
-        eng._copy_marks = [
-            (_Event(0.0), _Event(1.0), _Event(3.0), _Event(4.5)),
-            (_Event(10.0), _Event(12.0), _Event(20.0), last),
-        ]
-        eng.settle()  # the second round is still on the card
-        assert hist.count - n0 == 1
-        assert hist.sum - s0 == pytest.approx(2.5e-3)
-        last.done = True
-        eng.settle()
-        assert hist.count - n0 == 2
-        assert hist.sum - s0 == pytest.approx(2.5e-3 + 12e-3)
-        assert eng._copy_marks == []
-        assert len(eng._free_marks) == 2  # kept for later rounds
-        # the planes on the CPU: no event is made
-        nr.execute_mut_batch([(HM_PUT, 1, 2)], 0)
-        assert eng._copy_marks == []
-    finally:
-        reg.enabled = was
-
-
 class TestAttributeIdle:
     #: a chrome trace: the window mark over [1000, 1100] us and device
     #: work that leaves it idle over [1010, 1030], [1040, 1080] and
