@@ -196,6 +196,9 @@ class MultiLogReplicated(_FusedTier):
         self._pending_batch: dict[int, _PendingCnrBatch] = {}
         self._log_selected = [0] * nlogs
         self._combine_rounds = [0] * nlogs
+        # entries appended to all logs: the sum of their tails, kept on
+        # the host (a batch's `mut-batch` span carries it as its `round`)
+        self._appended = 0
         self._exec_rounds = 0
         self._idle_rounds = 0
         reg = get_registry()
@@ -279,8 +282,8 @@ class MultiLogReplicated(_FusedTier):
 
     def _cursors(self, log_idx: int) -> tuple[np.ndarray, int]:
         """One readback of log `log_idx`'s `(ltails, tail)`."""
-        cur = torch.cat([self.ml.ltails[log_idx],
-                         self.ml.tail[log_idx].reshape(1)]).cpu().numpy()
+        cur = _readback(torch.cat([self.ml.ltails[log_idx],
+                                   self.ml.tail[log_idx].reshape(1)]))
         return cur[:-1], int(cur[-1])
 
     @_locked
@@ -446,11 +449,13 @@ class MultiLogReplicated(_FusedTier):
         eng.note_round(pad, n, dt)
         self._fused_rounds += 1
         self._m_engine_fused.inc()
+        self._appended += n
         if pending is not None:
             pending.fused_resps = resps
             return True
-        for j, tid in enumerate(tids):
-            self._resps[(rid, tid)].append(int(resps_np[j]))
+        with span("deliver", log=log_idx):
+            for j, tid in enumerate(tids):
+                self._resps[(rid, tid)].append(int(resps_np[j]))
         self.last_round_tier = "pallas_fused"
         self._tier_by_rid[rid] = "pallas_fused"
         self._pos_by_rid[rid] = pos0
@@ -474,15 +479,16 @@ class MultiLogReplicated(_FusedTier):
         rounds = 0
         while (
             self.spec.capacity - self.spec.gc_slack
-            - int(self.ml.tail[log_idx] - self.ml.head[log_idx])
+            - int(_readback(self.ml.tail[log_idx] - self.ml.head[log_idx]))
         ) < n:
             self._exec_round(log_idx)
             rounds = self._watchdog(rounds, log_idx, "append-gc")
-        pos0 = int(self.ml.tail[log_idx])
+        pos0 = int(_readback(self.ml.tail[log_idx]))
         pad = 1 << (max(n, 1) - 1).bit_length()
-        opcodes, args, _ = encode_ops(
-            ops, self.spec.arg_width, pad_to=pad, device=self.device
-        )
+        with span("encode", log=log_idx):
+            opcodes, args, _ = encode_ops(
+                ops, self.spec.arg_width, pad_to=pad, device=self.device
+            )
         timing = self._fused_calibrating()
         defer = defer and not timing
         pending = _PendingRound(rid, list(tids), n, pos0, batch=batch,
@@ -504,6 +510,7 @@ class MultiLogReplicated(_FusedTier):
                 self.spec.one_log(), log_view(self.ml, log_idx),
                 opcodes, args, n))
             sp.fence(self.ml)
+        self._appended += n
         infl = self._inflight.setdefault((rid, log_idx), deque())
         for j, tid in enumerate(tids):
             infl.append((pos0 + j, tid))
@@ -522,8 +529,9 @@ class MultiLogReplicated(_FusedTier):
         if pending.fused_resps is not None:
             resps_np = _readback(pending.fused_resps[rid, :pending.n])
             pending.fused_resps = None
-            for j, tid in enumerate(pending.tids):
-                self._resps[(rid, tid)].append(int(resps_np[j]))
+            with span("deliver", log=log_idx):
+                for j, tid in enumerate(pending.tids):
+                    self._resps[(rid, tid)].append(int(resps_np[j]))
             self.last_round_tier = "pallas_fused"
             self._tier_by_rid[rid] = "pallas_fused"
             self._pos_by_rid[rid] = pending.pos0
@@ -671,38 +679,41 @@ class MultiLogReplicated(_FusedTier):
         MAPPED LOG (in log order) and return responses in submission
         order. A failure in log h's pass leaves later logs' sub-batches
         unappended (the serial contract; `begin_mut_batch` appends them
-        all up front)."""
-        if not 0 <= rid < self.n_replicas:
-            raise ValueError(f"replica {rid} out of range")
-        if self._pending_batch.get(rid) is not None:
-            raise RuntimeError(
-                f"replica {rid} already has a batch in flight; "
-                f"finish_mut_batch it before executing another"
-            )
-        n = len(ops)
-        if n == 0:
-            return []
-        groups = self._batch_groups(ops, rid)
-        sink = self._resps[(rid, BATCH_TID)]
-        out: list = [None] * n
-        try:
-            for h in sorted(groups):
-                idxs = groups[h]
-                self._append_and_replay_log(
-                    h, rid, [ops[i] for i in idxs],
-                    [BATCH_TID] * len(idxs), batch=True,
+        all up front). The batch runs inside a `mut-batch` span whose
+        `round` (the entries appended to all logs before it, the sum of
+        their tails) every span of the batch carries."""
+        with span("mut-batch", rid=rid, n=len(ops), round=self._appended):
+            if not 0 <= rid < self.n_replicas:
+                raise ValueError(f"replica {rid} out of range")
+            if self._pending_batch.get(rid) is not None:
+                raise RuntimeError(
+                    f"replica {rid} already has a batch in flight; "
+                    f"finish_mut_batch it before executing another"
                 )
-                if len(sink) != len(idxs):
-                    raise RuntimeError(
-                        f"log {h} delivered {len(sink)} responses for "
-                        f"{len(idxs)} ops"
+            n = len(ops)
+            if n == 0:
+                return []
+            groups = self._batch_groups(ops, rid)
+            sink = self._resps[(rid, BATCH_TID)]
+            out: list = [None] * n
+            try:
+                for h in sorted(groups):
+                    idxs = groups[h]
+                    self._append_and_replay_log(
+                        h, rid, [ops[i] for i in idxs],
+                        [BATCH_TID] * len(idxs), batch=True,
                     )
-                for i in idxs:
-                    out[i] = sink.popleft()
-            return out
-        except BaseException:
-            self._drop_batch_inflight(rid)
-            raise
+                    if len(sink) != len(idxs):
+                        raise RuntimeError(
+                            f"log {h} delivered {len(sink)} responses for "
+                            f"{len(idxs)} ops"
+                        )
+                    for i in idxs:
+                        out[i] = sink.popleft()
+                return out
+            except BaseException:
+                self._drop_batch_inflight(rid)
+                raise
 
     @_locked
     def sync(self, rid: int | None = None) -> None:

@@ -21,7 +21,8 @@ is known, then `sp.add(round=pos)`) holds its descendants' events and
 emits them at its own exit, each stamped with its `round`, then its
 own event: the spans of one combiner round share an identifier
 (`core/replica.py:execute_mut_batch`'s `mut-batch`, `round` = the
-round's first log position). While a torch profiler records in the
+round's first log position; `core/cnr.py`'s, the entries appended to
+all logs before the batch). While a torch profiler records in the
 process, such a span also enters a profiler record of its name, so the
 profiler's trace places each round on the trace's own clock (and its
 descendants, by their offsets from it).
