@@ -188,8 +188,10 @@ class MultiLogReplicated(_FusedTier):
         self._threads_per_replica = [0] * n_replicas
         # staged ops: (rid, tid) -> deque[(log, opcode, args)]
         self._pending: dict[tuple[int, int], deque] = {}
-        # appended-but-unanswered: (rid, log) -> deque[(pos, tid)]
-        self._inflight: dict[tuple[int, int], deque] = {}
+        # appended-but-unanswered, per log: {rid: deque[(pos, tid)]},
+        # a replica present only while it is owed a response on that
+        # log, so "is anything owed on log h" is `bool(_inflight[h])`
+        self._inflight: list[dict[int, deque]] = [{} for _ in range(nlogs)]
         # delivered responses per thread, in enqueue order per log
         self._resps: dict[tuple[int, int], deque] = {}
         # at most ONE begun-but-unfinished batch per replica
@@ -217,6 +219,10 @@ class MultiLogReplicated(_FusedTier):
             raise ValueError(f"unknown engine {engine!r}")
         self._init_fused_tier(engine, dispatch, reg, "cnr",
                               mesh=self.mesh)
+        # the fused fallbacks the owed-response test alone sends to the
+        # chain (`cnr.exec.engine.fused_fallback` counts every fallback)
+        self._m_fused_fallback_inflight = reg.counter(
+            "cnr.exec.engine.fused_fallback.inflight")
         if self.mesh is not None:
             self._m_mesh_round = reg.counter("cnr.exec.mesh.gspmd")
             self._m_mesh_sync_bytes = reg.counter("mesh.sync_bytes")
@@ -417,9 +423,9 @@ class MultiLogReplicated(_FusedTier):
         if not eng.supports(pad):
             self._m_fused_fallback.inc()
             return False
-        if any(self._inflight.get((r, log_idx))
-               for r in range(self.n_replicas)):
+        if self._inflight[log_idx]:
             self._m_fused_fallback.inc()
+            self._m_fused_fallback_inflight.inc()
             return False
         lts, tail = self._cursors(log_idx)
         if not (int(lts.min()) == tail == int(lts.max())):
@@ -511,9 +517,8 @@ class MultiLogReplicated(_FusedTier):
                 opcodes, args, n))
             sp.fence(self.ml)
         self._appended += n
-        infl = self._inflight.setdefault((rid, log_idx), deque())
-        for j, tid in enumerate(tids):
-            infl.append((pos0 + j, tid))
+        self._inflight[log_idx].setdefault(rid, deque()).extend(
+            (pos0 + j, tid) for j, tid in enumerate(tids))
         return pending
 
     @_locked
@@ -566,12 +571,12 @@ class MultiLogReplicated(_FusedTier):
     def _drop_batch_inflight(self, rid: int) -> None:
         """Failed-batch hygiene: drop every pending BATCH_TID delivery
         of this replica on every log and clear its sink."""
-        for key in [(rid, h) for h in range(self.nlogs)
-                    if (rid, h) in self._inflight]:
-            self._inflight[key] = deque(
-                (p, t) for p, t in self._inflight[key]
-                if t != BATCH_TID
-            )
+        for owed in self._inflight:
+            if rid in owed:
+                q = deque((p, t) for p, t in owed.pop(rid)
+                          if t != BATCH_TID)
+                if q:
+                    owed[rid] = q
         sink = self._resps.get((rid, BATCH_TID))
         if sink is not None:
             sink.clear()
@@ -852,15 +857,15 @@ class MultiLogReplicated(_FusedTier):
             self._m_mesh_round.inc()
             self._m_mesh_sync_bytes.inc(resps_np.nbytes + lt_before.nbytes
                                         + 8 + lt_after.nbytes)
-        for r in range(self.n_replicas):
-            q = self._inflight.get((r, log_idx))
-            if not q:
-                continue
+        owed = self._inflight[log_idx]
+        for r, q in list(owed.items()):
             while q and q[0][0] < int(lt_after[r]):
                 pos, tid = q.popleft()
                 self._resps[(r, tid)].append(
                     int(resps_np[r, pos - int(lt_before[r])])
                 )
+            if not q:
+                del owed[r]
 
     @_locked
     def _mesh_exec_log(self, log_idx: int, window: int):

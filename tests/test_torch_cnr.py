@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+import node_replication_torch.fault as tfault
 import node_replication_torch.models as tmods
+import node_replication_tpu.fault as jfault
 import node_replication_tpu.models as jm
 from node_replication_torch.core.cnr import MultiLogReplicated
 from node_replication_torch.core.replica import NodeReplicated
@@ -291,6 +293,154 @@ def test_op_stream_bit_identical(engine):
     j.sync()
     _same(j, t)
     assert t.snapshot()["logs"] == j.snapshot()["logs"]
+
+
+def _owed_alike(j, t):
+    """The port's per-log record of owed responses names, for each log,
+    exactly the replicas whose queue in the reference's `(rid, log)`
+    record is non-empty, with the same queues, and holds no empty
+    queue."""
+    assert len(t._inflight) == t.nlogs
+    for h, owed in enumerate(t._inflight):
+        assert all(owed.values()), (h, owed)
+        want = {r: list(q) for (r, l), q in j._inflight.items()
+                if l == h and q}
+        assert {r: list(q) for r, q in owed.items()} == want, h
+
+
+#: replica 3's first batch, all on log 0: more ops than the fused
+#: tier's largest window on a 256-slot ring (128), so the round takes
+#: the chain on either engine and, begun and not finished, leaves
+#: replica 3 owed responses on log 0
+OWED_LOG0 = 130
+
+
+def _owed_steps(path):
+    """The steps of one path, each `step(fleet, scratch)`: replica 3
+    begins a batch that leaves it owed responses, then `path` runs
+    beside it, then every batch is finished and the fleet synced."""
+    K = 16
+
+    def ops(seed, n):
+        rng = np.random.default_rng(seed)
+        return [(1, int(k), int(rng.integers(1 << 20)))
+                if rng.random() < 0.7 else (2, int(k))
+                for k in rng.integers(0, K, n)]
+
+    def setup(c, s):
+        s["tok"] = [c.register(r) for r in range(4)]
+        s["p3"] = c.begin_mut_batch(
+            [(1, 2 * (i % 8), i) for i in range(OWED_LOG0)], rid=3)
+
+    def finish3(c, s):
+        return c.finish_mut_batch(s["p3"])
+
+    def enqueue(c, s):
+        for r in (1, 2, 3):
+            for op in ops(10 + r, 5):
+                c.enqueue_mut(op, s["tok"][r])
+
+    def combine0(c, s):
+        c.combine(0, 0)
+        c.combine(0, 1)
+
+    def flush(c, s):
+        c.flush()
+        return [c.responses(s["tok"][r]) for r in range(4)]
+
+    def batch1(c, s):
+        return c.execute_mut_batch(ops(20, 12), rid=1)
+
+    def begin2(c, s):
+        s["p2"] = c.begin_mut_batch(ops(30, 10), rid=2)
+
+    def finish2(c, s):
+        return c.finish_mut_batch(s["p2"])
+
+    def abort2(c, s):
+        c.abort_mut_batch(s["p2"])
+
+    def abort3(c, s):
+        c.abort_mut_batch(s["p3"])
+
+    def faulted(c, s):
+        # replica 2's batch fails at its second log's append: its first
+        # sub-round was appended and owes replica 2 its answers until
+        # `_drop_batch_inflight` drops them
+        fault = tfault if isinstance(c, MultiLogReplicated) else jfault
+        plan = fault.FaultPlan([fault.FaultSpec(
+            site="append", action="raise", rid=2, after=1)])
+        with plan.armed(), pytest.raises(RuntimeError,
+                                         match="injected fault"):
+            c.begin_mut_batch(ops(40, 10), rid=2)
+        return c.execute_mut_batch(ops(41, 4), rid=2)
+
+    def sync(c, s):
+        c.sync()
+
+    def read(c, s):
+        return [c.execute((1, k), s["tok"][0]) for k in (0, 2, 5)]
+
+    body = {
+        "enqueue-combine": [enqueue, combine0, flush, finish3],
+        "execute-mut-batch": [batch1, finish3, batch1],
+        "begin-finish": [begin2, finish3, finish2],
+        "begin-abort": [begin2, abort2, abort3, batch1],
+        "fault": [faulted, finish3],
+        "sync": [sync, finish3],
+        "read": [read, finish3, read],
+    }[path]
+    return [setup] + body + [sync]
+
+
+@pytest.mark.parametrize("engine", ["scan", "pallas"])
+@pytest.mark.parametrize("path", ["enqueue-combine", "execute-mut-batch",
+                                  "begin-finish", "begin-abort", "fault",
+                                  "sync", "read"])
+def test_owed_responses_record_per_log(path, engine):
+    """Paths that leave responses owed on a log, through both packages:
+    after every step the port's per-log record holds exactly the
+    replicas owed something, and the round's tier, answers, rings,
+    cursors and states are the reference's. On the fused tier a
+    per-log round that the reference's scan of every replica finds
+    owed responses on is counted in
+    `cnr.exec.engine.fused_fallback.inflight`, and no other."""
+    kw = dict(nlogs=2, n_replicas=4, log_entries=256, gc_slack=32,
+              exec_window=16, engine=engine)
+    j, t = twins(lambda m: m.make_hashmap(16), **kw)
+    owed_rounds = []
+    try_fused = j._try_fused_round_log
+
+    def scanned(log_idx, rid, ops, tids, n, pos0, pad, *a, **k):
+        eng = j._fused_tier_wanted(pad)
+        if eng is not None and eng.supports(pad):
+            owed_rounds.append(any(j._inflight.get((r, log_idx))
+                                   for r in range(j.n_replicas)))
+        return try_fused(log_idx, rid, ops, tids, n, pos0, pad, *a, **k)
+
+    j._try_fused_round_log = scanned
+    scratch = {id(j): {}, id(t): {}}
+    reg = get_registry()
+    was = reg.enabled
+    reg.enable()
+    try:
+        ctr = reg.counter("cnr.exec.engine.fused_fallback.inflight")
+        before = ctr.value
+        for step in _owed_steps(path):
+            both(j, t, lambda c: step(c, scratch[id(c)]))
+            _owed_alike(j, t)
+            assert t.last_round_tier == j.last_round_tier
+            assert ctr.value - before == sum(owed_rounds)
+            if step.__name__ == "setup":
+                assert set(t._inflight[0]) == {3}
+    finally:
+        reg.enabled = was
+    assert t._inflight == [{}, {}]
+    assert t.stats() == j.stats()
+    assert t.replicas_equal()
+    # `sync` and `read` drain replica 3's queue before any round
+    assert (sum(owed_rounds) > 0) == (
+        engine == "pallas" and path not in ("sync", "read"))
 
 
 class TestCNRFused:

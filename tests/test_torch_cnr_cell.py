@@ -55,8 +55,10 @@ def test_the_cell_runs_correct_on_the_cpu(seed, trace):
     # the window's counters, reset as it opened: every per-log round
     # took the fused tier
     c = _counters("cnr.combine.rounds", "cnr.exec.engine.pallas_fused",
-                  "cnr.exec.engine.fused_fallback")
+                  "cnr.exec.engine.fused_fallback",
+                  "cnr.exec.engine.fused_fallback.inflight")
     assert c["cnr.exec.engine.fused_fallback"] == 0
+    assert c["cnr.exec.engine.fused_fallback.inflight"] == 0
     assert c["cnr.exec.engine.pallas_fused"] == c["cnr.combine.rounds"] > 0
 
 
@@ -188,6 +190,65 @@ def test_a_fused_per_log_round_reads_the_card_four_times(nlogs):
     assert d["cnr.exec.engine.pallas_fused"] == 3 * nlogs
     assert d["cnr.exec.engine.fused_fallback"] == 0
     assert d["nr.d2h.reads"] == 4 * 3 * nlogs
+
+
+@pytest.mark.parametrize("owing", [1, 2, 3])
+def test_each_round_refused_for_owed_responses_is_counted(owing):
+    """Replica 0 begins a batch of 130 ops on log 0, more than the
+    largest fused window of a 256-slot ring (128): that round takes the
+    chain and, unfinished, leaves replica 0 owed responses on log 0.
+    Then `owing` other replicas each begin a batch of two ops on log 0:
+    each round is refused the fused tier for the responses owed there
+    and counted once in `cnr.exec.engine.fused_fallback.inflight`. Once
+    every batch is finished nothing is owed, and the next rounds, on
+    logs 0 and 1, are fused. The answers are a scan fleet's."""
+    names = ("cnr.combine.rounds", "cnr.exec.engine.pallas_fused",
+             "cnr.exec.engine.fused_fallback",
+             "cnr.exec.engine.fused_fallback.inflight")
+
+    def run(engine):
+        nr = MultiLogReplicated(make_hashmap(KEYS), lambda o, a: a[0],
+                                nlogs=2, n_replicas=REPLICAS,
+                                log_entries=256, gc_slack=32, exec_window=16,
+                                engine=engine, device="cpu")
+        pend = [nr.begin_mut_batch(
+            [(HM_PUT, 2 * (i % 8), i) for i in range(130)], 0)]
+        assert list(nr._inflight[0]) == [0] and nr._inflight[1] == {}
+        for r in range(1, owing + 1):
+            pend.append(nr.begin_mut_batch(
+                [(HM_PUT, 2 * r, r), (HM_REMOVE, 2 * r + 2)], r))
+        owed = [sorted(o) for o in nr._inflight]
+        after_begin = _counters(*names)
+        out = [nr.finish_mut_batch(p) for p in pend]
+        assert nr._inflight == [{}, {}]
+        out.append(nr.execute_mut_batch([(HM_PUT, 4, 9), (HM_PUT, 5, 9)], 0))
+        return nr, owed, after_begin, out
+
+    reg = get_registry()
+    was = reg.enabled
+    reg.enable()
+    try:
+        before = _counters(*names)
+        nr, owed, after_begin, out = run("pallas")
+        end = _counters(*names)
+    finally:
+        reg.enabled = was
+    assert owed == [list(range(owing + 1)), []]
+    d = {n: after_begin[n] - before[n] for n in names}
+    assert d["cnr.exec.engine.fused_fallback.inflight"] == owing
+    assert d["cnr.exec.engine.fused_fallback"] == 1 + owing
+    assert d["cnr.exec.engine.pallas_fused"] == 0
+    assert d["cnr.combine.rounds"] == 1 + owing
+    # finishing is no round; the last batch's two rounds are fused
+    d = {n: end[n] - after_begin[n] for n in names}
+    assert d["cnr.exec.engine.fused_fallback"] == 0
+    assert d["cnr.exec.engine.pallas_fused"] == d["cnr.combine.rounds"] == 2
+    scan, _, _, want = run("scan")
+    assert out == want
+    nr.sync()
+    scan.sync()
+    for f in ("values", "present"):
+        assert torch.equal(nr.states[f], scan.states[f])
 
 
 def test_each_log_ends_at_its_ops_and_every_cursor_at_its_tail(monkeypatch):
