@@ -25,10 +25,8 @@ CNR and the other models. The replicated hashmap at the flagship width
    states (the instance `round_fn` launches, on every path), fenced and
    unfenced, against its plain version over rounds of W = 256 that wrap
    a 2^16 ring; its device time beside its bound
-   (`k1_model_round_bytes`); then K1 over the `[Kp, R]` planes
-   (`raw_round`'s instance), K1 over the states bit-identical to it with
-   the transposes around it, and its time; then K1 over the states at R
-   = 1024 (a mesh shard) and R = 4097 (a fleet grown by one) over 4
+   (`k1_model_round_bytes`) and its ptxas registers and spills; then K1
+   at R = 1024 (a mesh shard) and R = 4097 (a fleet grown by one) over 4
    rounds across the wrap, each with its event, profiler and queued
    device time;
 4. the lock-step step path: 64 steps of `make_pallas_step` (K2) and of
@@ -469,15 +467,6 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_round_bytes(R: int, W: float, L: int = 1 << 16,
-                   n_keys: int = K) -> float:
-    """Bytes one K1 round over the planes must move: both `[Kp, R]` int32
-    state planes in and out, the `[W, R]` responses, the ring's opcodes
-    and args in and out, and the window of W entries."""
-    kp = -(-n_keys // 8) * 8
-    return 4 * (4 * kp * R + W * R + 2 * L * 4 + W * 4)
-
-
 def k1_model_round_bytes(R: int, W: float, L: int = 1 << 16,
                          n_keys: int = K) -> float:
     """Bytes one K1 round over the model's states must move: the int32
@@ -488,20 +477,9 @@ def k1_model_round_bytes(R: int, W: float, L: int = 1 << 16,
 
 
 def k1_launches() -> int:
-    """K1's launches since the counters were last reset, after checking
-    that every one went over the model's states (`round_fn`'s instance,
-    counted by `FUSED_MODEL_KERNEL`): no path launches K1 over the
-    planes."""
-    from node_replication_torch.ops.replay import (
-        FUSED_KERNEL,
-        FUSED_MODEL_KERNEL,
-    )
+    """K1's launches since the counters were last reset."""
+    from node_replication_torch.ops.replay import FUSED_KERNEL
 
-    if FUSED_MODEL_KERNEL.launches != FUSED_KERNEL.launches:
-        raise AssertionError(
-            f"{sys._getframe(1).f_code.co_name}: {FUSED_KERNEL.launches} "
-            f"K1 launches, {FUSED_MODEL_KERNEL.launches} of them over the "
-            f"states")
     return FUSED_KERNEL.launches
 
 
@@ -646,11 +624,12 @@ def phase_replay(dev, rng, gen) -> dict:
 def phase_fused(dev, rng, gen) -> dict:
     """K1 over the model's states (the instance `round_fn` launches),
     unfenced and fenced, against its plain version, W = 256, over enough
-    rounds to wrap a 2^16-slot ring; then K1 over the planes against it,
-    and K1 at the other fleets' shapes."""
+    rounds to wrap a 2^16-slot ring; then K1 at the other fleets'
+    shapes."""
     import torch
 
     from node_replication_torch.core.log import LogSpec
+    from node_replication_torch.ops import kernel_lib
     from node_replication_torch.ops.replay import (
         hashmap_fused_round_model,
         hashmap_fused_round_model_plain,
@@ -716,91 +695,19 @@ def phase_fused(dev, rng, gen) -> dict:
         f"{ms_f:.4f}), plain {plain_ms:.2f} ms (fenced {plain_ms_f:.2f}), "
         f"bound {bound_ms:.4f} ms ({n_bytes:.0f} bytes)")
     log_device("phase 3: K1", dt)
-    del plain, out_k, out_p
-    planes = _k1_planes_check(dev, spec, kern, tail)
-    del kern
+    ptxas = ptxas_report(kernel_lib.BUILD_LOG.get("hashmap_replay.cu", ""),
+                         "hashmap_round_kernel")
+    for line in ptxas:
+        log(f"  ptxas hashmap_round_kernel: {line}")
+    del plain, out_k, out_p, kern
     shapes = {Rk: _k1_shape_check(dev, Rk) for Rk in K1_SHAPES}
-    return {"max_abs_err": max([err, planes["max_abs_err"]]
-                               + [c["max_abs_err"]
-                                  for c in shapes.values()]),
+    return {"max_abs_err": max([err] + [c["max_abs_err"]
+                                        for c in shapes.values()]),
             "ms": ms, "ms_fenced": ms_f, **dt,
             "plain_ms": plain_ms, "plain_ms_fenced": plain_ms_f,
             "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
             "rounds": rounds, "tail": tail, "R": R, "K": K, "W": W,
-            "capacity": L, "shapes": shapes, "planes": planes}
-
-
-def _k1_planes_check(dev, spec, model, tail: int,
-                     rounds: int = 8) -> dict:
-    """K1 over the `[Kp, R]` planes (`hashmap_fused_round`, which
-    `raw_round` launches) at the flagship shape, from phase 3's last ring
-    and states: `rounds` rounds of W = 256, every second one fenced, K1
-    over the states bit-identical to it with the transposes around it (a
-    fenced replica's responses zeroed); then its event and profiler time
-    and its bound. Its own seed."""
-    import torch
-
-    from node_replication_torch.ops import kernel_lib
-    from node_replication_torch.ops.replay import (
-        hashmap_fused_round,
-        hashmap_fused_round_model,
-    )
-
-    W, L = W_ROUND, spec.capacity
-    kp = -(-K // 8) * 8
-    rng = np.random.default_rng(SEED + 3)
-    ring_opc, ring_args, values, present = model
-    vt = torch.zeros((kp, R), dtype=torch.int32, device=dev)
-    vt[:K] = values.T
-    pt = torch.zeros_like(vt)
-    pt[:K] = present.T.to(torch.int32)
-    fen = torch.zeros(R, dtype=torch.int32, device=dev)
-    fen[[0, 127, 128, R // 2, R - 1]] = 1
-    err = 0
-    for rnd in range(rounds):
-        count = int(rng.integers(W // 2, W + 1))
-        opc = np.zeros(W, np.int32)
-        opc[:count] = rng.choice(np.array([1, 2], np.int32), count)
-        args = np.zeros((W, 3), np.int32)
-        args[:count, 0] = rng.integers(-K, 2 * K, count)
-        args[:count, 1] = rng.integers(1, 1 << 31, count)
-        f = fen if rnd % 2 else None
-        inputs = (spec, torch.tensor(tail, dtype=torch.int64, device=dev),
-                  count, torch.from_numpy(opc).to(dev),
-                  torch.from_numpy(args).to(dev))
-        out_m = hashmap_fused_round_model(*inputs, *model, K, f)
-        ro, ra, vt, pt, resps = hashmap_fused_round(*inputs, ring_opc,
-                                                    ring_args, vt, pt, K, f)
-        resps = resps.T.contiguous()
-        if f is not None:
-            resps[f > 0] = 0
-        want = (ro, ra, *planes_to_states(vt, pt), resps)
-        e = max_abs_err(out_m, want)
-        if e or any(a.dtype != b.dtype for a, b in zip(out_m, want)):
-            raise AssertionError(
-                f"phase 3: K1 over the states disagrees with K1 over the "
-                f"planes in round {rnd} (fenced={f is not None}): {e}")
-        err = max(err, e)
-        model, ring_opc, ring_args = out_m[:4], ro, ra
-        tail += count
-    x = (*inputs, ring_opc, ring_args, vt, pt, K, None)
-    ms = cuda_ms(lambda: hashmap_fused_round(*x), reps=10, warmup=2)
-    dt = device_time(lambda: hashmap_fused_round(*x))
-    q_ms = queued_ms(lambda: hashmap_fused_round(*x))
-    n_bytes = k1_round_bytes(R, W, L)
-    bound_ms, by = bound(n_bytes, 4 * W * R)
-    ptxas = ptxas_report(kernel_lib.BUILD_LOG.get("hashmap_replay.cu", ""),
-                         "hashmap_round_kernel")
-    log(f"phase 3: K1 over the planes R={R} K={K} W={W}: {rounds} rounds, "
-        f"K1 over the states bit-identical to it with the transposes "
-        f"around it; kernel {ms:.4f} ms, queued {q_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({n_bytes:.0f} bytes)")
-    log_device("phase 3: K1 over the planes", dt)
-    for line in ptxas:
-        log(f"  ptxas hashmap_round_kernel: {line}")
-    return {"max_abs_err": err, "ms": ms, "queued_ms": q_ms, **dt,
-            "bytes": n_bytes, "bound_ms": bound_ms, "bound_by": by,
-            "rounds": rounds, "R": R, "K": K, "W": W, "ptxas": ptxas}
+            "capacity": L, "shapes": shapes, "ptxas": ptxas}
 
 
 def _k1_shape_check(dev, Rk: int) -> dict:
@@ -8051,8 +7958,6 @@ def main() -> int:
         **({"examples": p["examples"]} if "examples" in p else {}),
         **({"mesh": p["mesh"]} if "mesh" in p else {}),
         **({"shapes": p["shapes"]} if "shapes" in p else {}),
-        # K1 over the planes (`raw_round`'s instance; no path launches it)
-        **({"planes": p["planes"]} if "planes" in p else {}),
     } for kname, src, ref, p, launches in table]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(

@@ -23,7 +23,7 @@ Three pieces of project knowledge live here so the rules stay small:
    - the closures returned by the step and round makers
      (`DEVICE_PATH_MAKERS`: `core/step.py:make_step`,
      `core/multilog.py:make_multilog_step`, the fused engines'
-     `raw_round` / `round_fn`);
+     `round_fn`);
    - the kernel wrappers: module-level functions of `ops/replay.py`,
      `ops/vspace.py` and `ops/oahashmap.py` that count a kernel launch
      (`<KERNEL>.launches += 1`).
@@ -62,7 +62,6 @@ PROJECT_PACKAGE = "node_replication_torch"
 DEVICE_PATH_MAKERS = frozenset({
     "core.step.make_step",
     "core.multilog.make_multilog_step",
-    "ops.replay.FusedHashmapEngine.raw_round",
     "ops.replay.FusedHashmapEngine.round_fn",
     "ops.vspace.FusedVspaceEngine.round_fn",
     "parallel.collectives.MeshFusedEngine.round_fn",

@@ -11,8 +11,12 @@ dormant_replica)` from the watchdog when a log's replay stalls.
 The batch path is `core/multilog.make_multilog_step`; this wrapper is
 the per-op surface over the same stacked log (`core/multilog.py`),
 with the split round (`begin_mut_batch`/`finish_mut_batch`) the serve
-frontend drives and the fused per-log tier: a lock-step per-log
-sub-batch of a model with a fused engine (the hashmap's K1,
+frontend drives. Each per-log combiner pass is the one combiner-round
+protocol `NodeReplicated` runs (`core/replica.py:_FusedTier`) on that
+log: this wrapper supplies the log's row of the stacked ring, the
+per-log record of owed responses and the per-thread answer queues. So
+the fused per-log tier is NR's: a lock-step per-log sub-batch of a
+model with a fused engine (the hashmap's K1,
 `ops/replay.py:FusedHashmapEngine`) appends, replays and answers in
 ONE kernel launch on that log's row of the stacked ring.
 
@@ -33,7 +37,6 @@ cursors, states and every delivered response are the same.
 from __future__ import annotations
 
 import logging
-import time
 from collections import deque
 from typing import Any, Callable
 
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from node_replication_torch.analysis.locks import make_rlock
-from node_replication_torch.core.log import WARN_ROUNDS, LogSpec, log_append
+from node_replication_torch.core.log import WARN_ROUNDS, LogSpec
 from node_replication_torch.core.multilog import (
     LogMapper,
     MultiLogSpec,
@@ -57,8 +60,8 @@ from node_replication_torch.core.replica import (
     _FusedTier,
     _locked,
     _PendingRound,
+    _read_cursors,
     _readback,
-    hit_replay_site,
     replicate_state,
     states_equal,
 )
@@ -67,7 +70,6 @@ from node_replication_torch.obs.metrics import COUNT_BUCKETS, get_registry
 from node_replication_torch.ops.encoding import (
     Dispatch,
     apply_read,
-    encode_ops,
 )
 from node_replication_torch.utils.device import resolve_device
 from node_replication_torch.utils.trace import get_tracer, span
@@ -98,9 +100,24 @@ def _store_log(ml, log_idx: int, log):
     return ml
 
 
+def _scatter(log_idx: int, idxs: list[int], sink: deque, out: list) -> None:
+    """Move log `log_idx`'s answers from the batch's sink to their
+    submission indices `idxs` of `out`, all of them or none."""
+    if len(sink) != len(idxs):
+        raise RuntimeError(
+            f"log {log_idx} delivered {len(sink)} responses for "
+            f"{len(idxs)} ops"
+        )
+    for i in idxs:
+        out[i] = sink.popleft()
+
+
 class MultiLogReplicated(_FusedTier):
     """N replicas of one `Dispatch` behind L commutativity-partitioned
     logs."""
+
+    #: the chain's replay engine: every per-log round scans its window
+    engine = "scan"
 
     def __init__(
         self,
@@ -157,6 +174,8 @@ class MultiLogReplicated(_FusedTier):
             arg_width=dispatch.arg_width,
             gc_slack=gc_slack,
         )
+        # every log's own spec: one fused engine serves all their rounds
+        self._log_spec = self.spec.one_log()
         self.dispatch = dispatch
         self.log_mapper = log_mapper
         self.exec_window = int(exec_window)
@@ -219,10 +238,6 @@ class MultiLogReplicated(_FusedTier):
             raise ValueError(f"unknown engine {engine!r}")
         self._init_fused_tier(engine, dispatch, reg, "cnr",
                               mesh=self.mesh)
-        # the fused fallbacks the owed-response test alone sends to the
-        # chain (`cnr.exec.engine.fused_fallback` counts every fallback)
-        self._m_fused_fallback_inflight = reg.counter(
-            "cnr.exec.engine.fused_fallback.inflight")
         if self.mesh is not None:
             self._m_mesh_round = reg.counter("cnr.exec.mesh.gspmd")
             self._m_mesh_sync_bytes = reg.counter("mesh.sync_bytes")
@@ -288,9 +303,7 @@ class MultiLogReplicated(_FusedTier):
 
     def _cursors(self, log_idx: int) -> tuple[np.ndarray, int]:
         """One readback of log `log_idx`'s `(ltails, tail)`."""
-        cur = _readback(torch.cat([self.ml.ltails[log_idx],
-                                   self.ml.tail[log_idx].reshape(1)]))
-        return cur[:-1], int(cur[-1])
+        return _read_cursors(self.ml.ltails[log_idx], self.ml.tail[log_idx])
 
     @_locked
     def register(self, rid: int = 0) -> ReplicaToken:
@@ -402,170 +415,50 @@ class MultiLogReplicated(_FusedTier):
         if not ops:
             self._exec_round(log_idx)
             return
-        self._append_and_replay_log(log_idx, rid, ops, tids)
+        self._append_and_replay(log_idx, ops, rid, tids)
 
-    def _fused_log_spec(self) -> LogSpec:
-        """The single-log `LogSpec` the fused engine is built against:
-        every log shares it, so ONE engine serves all per-log rounds."""
-        return self.spec.one_log()
+    # ---------------------------------------- the combiner round's hooks
 
-    @_locked
-    def _try_fused_round_log(self, log_idx: int, rid: int, ops, tids,
-                             n: int, pos0: int, pad: int,
-                             opcodes, args, pending=None) -> bool:
-        """Route one per-log combiner pass through the fused engine
-        when the log is lock-step eligible (every replica at the log's
-        tail, no responses owed on it). With `pending` (the split round)
-        the response readback waits for `_finish_round_log`."""
-        eng = self._fused_tier_wanted(pad)
-        if eng is None:
-            return False
-        if not eng.supports(pad):
-            self._m_fused_fallback.inc()
-            return False
-        if self._inflight[log_idx]:
-            self._m_fused_fallback.inc()
-            self._m_fused_fallback_inflight.inc()
-            return False
-        lts, tail = self._cursors(log_idx)
-        if not (int(lts.min()) == tail == int(lts.max())):
-            self._m_fused_fallback.inc()
-            return False
-        timing = self._fused_calibrating()
-        t0 = time.perf_counter()
-        extra = {"deferred": True} if pending is not None else {}
-        with span("fused-round", log=log_idx, rid=rid, n=n, pos0=pos0,
-                  window=pad, **extra) as sp:
-            # the engine's model-layout round (one K1 launch for the
-            # hashmap) on the log's row of the stacked ring, then the
-            # new ring row and cursors copied back into that row
-            log, self.states, resps = eng.round_fn(pad, fenced=False)(
-                log_view(self.ml, log_idx), self.states, opcodes, args, n)
-            _store_log(self.ml, log_idx, log)
-            if pending is None:
-                # the readback is also the round's host fence; only
-                # replica `rid`'s row is delivered
-                resps_np = _readback(resps[rid, :n])
-                sp.fence(self.ml, self.states)
-        dt = time.perf_counter() - t0
-        if timing:
-            self._note_fused_sample("pallas_fused", pad, dt)
-        # the round ran the engine's round fn directly, so report
-        # through the engine's instrumentation hook
-        eng.note_round(pad, n, dt)
-        self._fused_rounds += 1
-        self._m_engine_fused.inc()
-        self._appended += n
-        if pending is not None:
-            pending.fused_resps = resps
-            return True
-        with span("deliver", log=log_idx):
-            for j, tid in enumerate(tids):
-                self._resps[(rid, tid)].append(int(resps_np[j]))
-        self.last_round_tier = "pallas_fused"
-        self._tier_by_rid[rid] = "pallas_fused"
-        self._pos_by_rid[rid] = pos0
-        return True
+    def _round_spec(self) -> LogSpec:
+        return self._log_spec
+
+    def _round_log(self, log_idx: int):
+        return log_view(self.ml, log_idx)
 
     @_locked
-    def _begin_round_log(self, log_idx: int, rid: int,
-                         ops: list[tuple], tids: list[int],
-                         batch: bool = False,
-                         defer: bool = False) -> _PendingRound:
-        """First half of the per-log combiner pass: wait for ring space
-        on this log, encode and append (or launch the fused round),
-        record each op's in-flight response destination. `defer=True`
-        leaves the replay-to-target (or the fused readback) for
-        `_finish_round_log`; calibration rounds ignore it."""
-        fault_hook("append", rid, self)
-        n = len(ops)
-        self._combine_rounds[log_idx] += 1
-        self._m_combine.inc()
-        self._m_batch.observe(n)
-        rounds = 0
-        while (
-            self.spec.capacity - self.spec.gc_slack
-            - int(_readback(self.ml.tail[log_idx] - self.ml.head[log_idx]))
-        ) < n:
-            self._exec_round(log_idx)
-            rounds = self._watchdog(rounds, log_idx, "append-gc")
-        pos0 = int(_readback(self.ml.tail[log_idx]))
-        pad = 1 << (max(n, 1) - 1).bit_length()
-        with span("encode", log=log_idx):
-            opcodes, args, _ = encode_ops(
-                ops, self.spec.arg_width, pad_to=pad, device=self.device
-            )
-        timing = self._fused_calibrating()
-        defer = defer and not timing
-        pending = _PendingRound(rid, list(tids), n, pos0, batch=batch,
-                                log_idx=log_idx)
-        pending.pad = pad
-        if self._try_fused_round_log(log_idx, rid, ops, tids, n, pos0,
-                                     pad, opcodes, args,
-                                     pending if defer else None):
-            pending.fused = True
-            if pending.fused_resps is None:
-                pending.done = True  # ran eagerly end to end
-            return pending
-        if timing:
-            pending.t_chain = time.perf_counter()
-        extra = {"batch": True} if batch else {}
-        with span("append", log=log_idx, rid=rid, n=n, pos0=pos0,
-                  **extra) as sp:
-            self.ml = _store_log(self.ml, log_idx, log_append(
-                self.spec.one_log(), log_view(self.ml, log_idx),
-                opcodes, args, n))
-            sp.fence(self.ml)
-        self._appended += n
+    def _set_round_log(self, log_idx: int, log) -> None:
+        self.ml = _store_log(self.ml, log_idx, log)
+
+    def _log_attrs(self, log_idx: int) -> dict:
+        return {"log": log_idx}
+
+    def _owes_responses(self, log_idx: int) -> bool:
+        return bool(self._inflight[log_idx])
+
+    def _owe_responses(self, log_idx: int, rid: int, pos0: int,
+                       tids: list[int]) -> None:
         self._inflight[log_idx].setdefault(rid, deque()).extend(
             (pos0 + j, tid) for j, tid in enumerate(tids))
-        return pending
+
+    def _deliver_answers(self, rid: int, tids: list[int], resps_np) -> None:
+        for j, tid in enumerate(tids):
+            self._resps[(rid, tid)].append(int(resps_np[j]))
+
+    def _chain_round(self, log_idx: int, rounds: int, where: str) -> int:
+        self._exec_round(log_idx)
+        return self._watchdog(rounds, log_idx, where)
+
+    def _round_ltail(self, log_idx: int, rid: int) -> int:
+        return int(self.ml.ltails[log_idx, rid])
 
     @_locked
-    def _finish_round_log(self, pending: _PendingRound) -> None:
-        """Second half of the per-log combiner pass: replay this log
-        until replica `rid` has applied its own ops, or read back and
-        deliver the fused launch's responses."""
-        hit_replay_site(pending, self)
-        if pending.done:
-            return
-        pending.done = True
-        rid, log_idx = pending.rid, pending.log_idx
-        if pending.fused_resps is not None:
-            resps_np = _readback(pending.fused_resps[rid, :pending.n])
-            pending.fused_resps = None
-            with span("deliver", log=log_idx):
-                for j, tid in enumerate(pending.tids):
-                    self._resps[(rid, tid)].append(int(resps_np[j]))
-            self.last_round_tier = "pallas_fused"
-            self._tier_by_rid[rid] = "pallas_fused"
-            self._pos_by_rid[rid] = pending.pos0
-            return
-        target = pending.target
-        rounds = 0
-        with span("combine-replay", log=log_idx, rid=rid,
-                  target=target) as sp:
-            while int(self.ml.ltails[log_idx, rid]) < target:
-                self._exec_round(log_idx)
-                rounds = self._watchdog(rounds, log_idx, "combine-replay")
-            sp.fence(*self._fleet_trees())
-        self.last_round_tier = "scan"
-        self._tier_by_rid[rid] = "scan"
-        self._pos_by_rid[rid] = pending.pos0
-        if pending.t_chain is not None:
-            self._note_fused_sample("chain", pending.pad,
-                                    time.perf_counter()
-                                    - pending.t_chain)
+    def _count_round(self, log_idx: int) -> None:
+        self._combine_rounds[log_idx] += 1
+        self._m_combine.inc()
 
     @_locked
-    def _append_and_replay_log(self, log_idx: int, rid: int,
-                               ops: list[tuple], tids: list[int],
-                               batch: bool = False) -> None:
-        """`_begin_round_log` + `_finish_round_log` back to back (the
-        combiner pass of `combine` and `execute_mut_batch`)."""
-        self._finish_round_log(
-            self._begin_round_log(log_idx, rid, ops, tids, batch=batch)
-        )
+    def _count_appended(self, n: int) -> None:
+        self._appended += n
 
     @_locked
     def _drop_batch_inflight(self, rid: int) -> None:
@@ -622,8 +515,8 @@ class MultiLogReplicated(_FusedTier):
         try:
             for h in sorted(groups):
                 idxs = groups[h]
-                sub = self._begin_round_log(
-                    h, rid, [ops[i] for i in idxs],
+                sub = self._begin_round(
+                    h, [ops[i] for i in idxs], rid,
                     [BATCH_TID] * len(idxs), batch=True, defer=True,
                 )
                 pend.subs.append((h, idxs, sub))
@@ -648,14 +541,8 @@ class MultiLogReplicated(_FusedTier):
         out: list = [None] * pend.n
         try:
             for h, idxs, sub in pend.subs:
-                self._finish_round_log(sub)
-                if len(sink) != len(idxs):
-                    raise RuntimeError(
-                        f"log {h} delivered {len(sink)} responses for "
-                        f"{len(idxs)} ops"
-                    )
-                for i in idxs:
-                    out[i] = sink.popleft()
+                self._finish_round(sub)
+                _scatter(h, idxs, sink, out)
             return out
         except BaseException:
             self._drop_batch_inflight(rid)
@@ -704,17 +591,11 @@ class MultiLogReplicated(_FusedTier):
             try:
                 for h in sorted(groups):
                     idxs = groups[h]
-                    self._append_and_replay_log(
-                        h, rid, [ops[i] for i in idxs],
+                    self._append_and_replay(
+                        h, [ops[i] for i in idxs], rid,
                         [BATCH_TID] * len(idxs), batch=True,
                     )
-                    if len(sink) != len(idxs):
-                        raise RuntimeError(
-                            f"log {h} delivered {len(sink)} responses for "
-                            f"{len(idxs)} ops"
-                        )
-                    for i in idxs:
-                        out[i] = sink.popleft()
+                    _scatter(h, idxs, sink, out)
                 return out
             except BaseException:
                 self._drop_batch_inflight(rid)

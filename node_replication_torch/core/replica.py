@@ -99,6 +99,13 @@ def _readback(t: torch.Tensor) -> np.ndarray:
     return out
 
 
+def _read_cursors(ltails: torch.Tensor,
+                  tail: torch.Tensor) -> tuple[np.ndarray, int]:
+    """One readback of a log's `(ltails, tail)`."""
+    cur = _readback(torch.cat([ltails, tail.reshape(1)]))
+    return cur[:-1], int(cur[-1])
+
+
 class _BatchSink:
     """Response sink for caller-assembled batches (`execute_mut_batch`):
     the response half of `Context` without the 32-slot pending ring."""
@@ -135,20 +142,19 @@ class _PendingRound:
     fused tier ran, eagerly or deferred, whose `finish` has yet to hit
     the `replay` fault site."""
 
-    __slots__ = ("rid", "tids", "n", "pos0", "target", "batch",
+    __slots__ = ("rid", "tids", "n", "pos0", "target",
                  "fused_resps", "done", "fused", "t_chain", "pad", "fkey",
                  "tier", "log_idx")
 
     def __init__(self, rid: int, tids: list[int], n: int, pos0: int,
-                 batch: bool = False, log_idx: int = 0):
+                 log_idx: int = 0):
         self.rid = rid
-        #: the log a CNR sub-round appended to (`core/cnr.py`)
+        #: the log the round appended to (NodeReplicated's one log is 0)
         self.log_idx = log_idx
         self.tids = tids
         self.n = n
         self.pos0 = pos0
         self.target = pos0 + n
-        self.batch = batch
         #: device tensor of the fused launch awaiting readback
         self.fused_resps = None
         self.done = False
@@ -157,6 +163,13 @@ class _PendingRound:
         self.pad = 0
         self.fkey: tuple = ()
         self.tier: str | None = None
+
+
+def _read_answers(pending: _PendingRound) -> np.ndarray:
+    """A fused round's answers to its replica: row `rid` of the launch's
+    responses, read back (the wait for the card)."""
+    resps, pending.fused_resps = pending.fused_resps, None
+    return _readback(resps[pending.rid, :pending.n])
 
 
 def hit_replay_site(pending: _PendingRound, owner) -> None:
@@ -244,22 +257,41 @@ def states_equal(states) -> bool:
 
 
 class _FusedTier:
-    """Fused-tier plumbing (the reference's `_FusedTier`): lazy
-    spec-bound engine construction, the calibration sampler, and the
-    winner-selection state machine. All methods run under the host's
-    combiner lock."""
+    """The combiner-round protocol both wrappers run (`_begin_round`,
+    `_finish_round`), each round on one log, and the fused-tier plumbing
+    (the reference's `_FusedTier`): lazy spec-bound engine construction,
+    the calibration sampler, and the winner-selection state machine.
+    All methods run under the host's combiner lock.
 
-    def _fused_log_spec(self) -> LogSpec:
+    A wrapper supplies what differs: where a round's log is read from
+    and written to (`_round_log`, `_set_round_log`), who is owed
+    responses (`_owes_responses`, `_owe_responses`), where an answer
+    goes (`_deliver_answers`), the chain's replay round (`_chain_round`,
+    `_round_ltail`) and its own counters (`_count_round`,
+    `_count_appended`). NodeReplicated's one log is log 0; the fence
+    mask, the WAL and the debug checks are its own, and None (off) on
+    MultiLogReplicated."""
+
+    _fenced: np.ndarray | None = None
+    _wal = None
+    debug = False
+
+    def _round_spec(self) -> LogSpec:
+        """The spec of one log, which every round's log shares."""
         return self.spec
 
     def _fused_fence_key(self) -> tuple:
         """Calibration key for the CURRENT quarantine mask: the sorted
         fenced rids (empty when none). Fused and chain timings are only
         comparable under the same mask."""
-        f = getattr(self, "_fenced", None)
+        f = self._fenced
         if f is None:
             return ()
         return tuple(int(r) for r in np.where(f)[0])
+
+    def _is_fenced(self, rid: int) -> bool:
+        f = self._fenced
+        return f is not None and bool(f[rid])
 
     def _init_fused_tier(self, engine: str, dispatch, reg, prefix: str,
                          debug: bool = False, mesh=None,
@@ -294,6 +326,10 @@ class _FusedTier:
         self._m_fused_fallback = reg.counter(
             f"{prefix}.exec.engine.fused_fallback"
         )
+        # the fallbacks the owed-response test alone sends to the chain
+        self._m_fused_fallback_inflight = reg.counter(
+            f"{prefix}.exec.engine.fused_fallback.inflight"
+        )
         if engine == "pallas":
             if dispatch.fused_factory is None:
                 raise ValueError(
@@ -312,7 +348,7 @@ class _FusedTier:
                     "debug=False (the fused round replays inside the "
                     "kernel, outside the checks' reach)"
                 )
-            spec = self._fused_log_spec()
+            spec = self._round_spec()
             self._fused = self._build_fused_engine(spec)
             self._fused_spec = spec
             self._fused_mode = "forced"
@@ -345,7 +381,7 @@ class _FusedTier:
         factory rejection degrades the tier to off with a warning."""
         if self._fused_mode == "off":
             return None
-        spec = self._fused_log_spec()
+        spec = self._round_spec()
         if self._fused is None or self._fused_spec != spec:
             try:
                 self._fused = self._build_fused_engine(spec)
@@ -455,6 +491,202 @@ class _FusedTier:
         return (
             f"auto:{self._fused_tier_name}" if verdict else "auto:chain"
         )
+
+    # ------------------------------------------------- the combiner round
+
+    @_locked
+    def _begin_round(self, log_idx: int, ops: list[tuple], rid: int,
+                     tids: list[int], batch: bool = False,
+                     defer: bool = False) -> _PendingRound:
+        """First half of the combiner-round protocol on log `log_idx`:
+        fence guard, append-site fault hook, help GC until the batch
+        fits, encode + append (or launch the fused round), record
+        in-flight response destinations. `defer=True` leaves the
+        replay-to-target (or the fused readback) for `_finish_round`;
+        calibration rounds ignore it."""
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        fault_hook("append", rid, self)
+        n = len(ops)
+        spec = self._round_spec()
+        max_batch = spec.capacity - spec.gc_slack
+        if n > max_batch:
+            raise LogTooSmallError(
+                f"batch of {n} exceeds appendable capacity {max_batch}"
+            )
+        self._count_round(log_idx)
+        self._m_batch.observe(n)
+        rounds = 0
+        log = self._round_log(log_idx)
+        while max_batch - int(_readback(log.tail - log.head)) < n:
+            rounds = self._chain_round(log_idx, rounds, "append-gc")
+            log = self._round_log(log_idx)
+
+        pos0 = int(_readback(log.tail))
+        pad = 1 << (max(n, 1) - 1).bit_length()
+        at = self._log_attrs(log_idx)
+        with span("encode", **at):
+            opcodes, args, _ = encode_ops(
+                ops, spec.arg_width, pad_to=pad, device=self.device
+            )
+        fkey = self._fused_fence_key()
+        timing = self._fused_calibrating(fkey)
+        pending = _PendingRound(rid, list(tids), n, pos0, log_idx)
+        pending.pad = pad
+        pending.fkey = fkey
+        if self._fused_round(pending, log, ops, opcodes, args,
+                             defer and not timing):
+            return pending
+        if timing:
+            pending.t_chain = time.perf_counter()
+        extra = {"batch": True} if batch else {}
+        with span("append", **at, rid=rid, n=n, pos0=pos0, **extra) as sp:
+            with debug_checks(self.debug):
+                log = log_append(spec, log, opcodes, args, n)
+            self._set_round_log(log_idx, log)
+            sp.fence(log)
+        if self._wal is not None:
+            # WAL write AFTER the device append, under the same lock: a
+            # record exists only for ops that ARE in the in-memory log
+            self._wal.append(pos0, ops)
+        self._count_appended(n)
+        self._owe_responses(log_idx, rid, pos0, tids)
+        return pending
+
+    def _fused_round(self, pending: _PendingRound, log, ops, opcodes,
+                     args, defer: bool) -> bool:
+        """Route the round through the fused engine when eligible (every
+        live cursor of its log at the pre-append tail, no responses
+        owed on that log, a supported window); False falls back to the
+        append+exec chain. Results are bit-identical either way. With
+        `defer` the kernel is launched here and the response readback
+        waits for `_finish_round`."""
+        log_idx, rid, n = pending.log_idx, pending.rid, pending.n
+        pos0, pad, fkey = pending.pos0, pending.pad, pending.fkey
+        eng = self._fused_tier_wanted(pad, fkey)
+        if eng is None:
+            return False
+        fenced = self._fenced
+        if (fenced is not None and not eng.supports_fenced) \
+                or not eng.supports(pad):
+            self._m_fused_fallback.inc()
+            return False
+        if self._owes_responses(log_idx):
+            self._m_fused_fallback.inc()
+            self._m_fused_fallback_inflight.inc()
+            return False
+        lts, tail = _read_cursors(log.ltails, log.tail)
+        live = lts if fenced is None else lts[~fenced]
+        if not (live.size
+                and int(live.min()) == tail == int(live.max())):
+            self._m_fused_fallback.inc()
+            return False
+        timing = self._fused_calibrating(fkey)
+        t0 = time.perf_counter()
+        extra = {"deferred": True} if defer else {}
+        if eng.tier == "mesh_fused":
+            extra["devices"] = eng.devices
+        with span("fused-round", **self._log_attrs(log_idx), rid=rid, n=n,
+                  pos0=pos0, window=pad, **extra) as sp:
+            if self._placed is not None:  # one launch a mesh shard
+                self._placed, resps = eng.round(
+                    self._placed, opcodes, args, n, fenced=fenced)
+            else:
+                log, self.states, resps = eng.round(
+                    log, self.states, opcodes, args, n, fenced=fenced)
+                self._set_round_log(log_idx, log)
+            pending.fused_resps = resps
+            if not defer:
+                # the response readback is also the round's host
+                # fence; only replica `rid`'s row is delivered
+                resps_np = _read_answers(pending)
+                sp.fence(*self._fleet_trees())
+        if timing:
+            self._note_fused_sample(
+                "pallas_fused", pad, time.perf_counter() - t0, fkey
+            )
+        if self._wal is not None:
+            # same order as the chain: journal once the ops ARE in the
+            # in-memory log, before any response is delivered
+            self._wal.append(pos0, ops)
+            if fenced is None or not fenced.any():
+                floor = pos0 + n
+            else:
+                floor = min(int(lts[fenced].min()), pos0 + n)
+            self._wal.maybe_reclaim(floor)
+        self._fused_rounds += 1
+        self._m_engine_fused.inc()
+        if eng.tier == "mesh_fused":
+            # a mesh round by tier, next to the shmap/gspmd chain rounds
+            self._m_mesh_fused_round.inc()
+        self._count_appended(n)
+        pending.fused = True
+        pending.tier = eng.tier
+        if not defer:
+            pending.done = True  # ran eagerly end to end
+            self._hand_out(pending, resps_np)
+        return True
+
+    def _hand_out(self, pending: _PendingRound, resps_np) -> None:
+        """Deliver a fused round's answers, read back, to their threads
+        and record the round's tier."""
+        with span("deliver", **self._log_attrs(pending.log_idx)):
+            self._deliver_answers(pending.rid, pending.tids, resps_np)
+        self._record_tier(pending, pending.tier)
+
+    def _record_tier(self, pending: _PendingRound, tier: str) -> None:
+        self.last_round_tier = tier
+        self._tier_by_rid[pending.rid] = tier
+        self._pos_by_rid[pending.rid] = pending.pos0
+
+    @_locked
+    def _finish_round(self, pending: _PendingRound) -> None:
+        """Second half of the protocol: replay the round's log until
+        replica `rid` has applied its own ops (chain tier), or read back
+        and deliver the fused launch's responses."""
+        hit_replay_site(pending, self)
+        if pending.done:
+            return
+        pending.done = True
+        rid, log_idx = pending.rid, pending.log_idx
+        if self._is_fenced(rid):
+            raise ReplicaFencedError(rid)
+        if pending.fused_resps is not None:
+            self._hand_out(pending, _read_answers(pending))
+            return
+        target = pending.target
+        rounds = 0
+        with span("combine-replay", **self._log_attrs(log_idx), rid=rid,
+                  target=target) as sp:
+            while self._round_ltail(log_idx, rid) < target:
+                rounds = self._chain_round(log_idx, rounds,
+                                           "combine-replay")
+            sp.fence(*self._fleet_trees())
+        self._record_tier(pending, self.engine)
+        if pending.t_chain is not None:
+            self._note_fused_sample("chain", pending.pad,
+                                    time.perf_counter()
+                                    - pending.t_chain, pending.fkey)
+
+    @_locked
+    def _append_and_replay(self, log_idx: int, ops: list[tuple], rid: int,
+                           tids: list[int], batch: bool = False) -> None:
+        """`_begin_round` + `_finish_round` back to back."""
+        self._finish_round(
+            self._begin_round(log_idx, ops, rid, tids, batch=batch)
+        )
+
+    # hooks whose default is NodeReplicated's
+
+    def _log_attrs(self, log_idx: int) -> dict:
+        """The round's log, as its spans name it."""
+        return {}
+
+    def _count_round(self, log_idx: int) -> None:
+        """Count a combiner round on log `log_idx` as it begins."""
+
+    def _count_appended(self, n: int) -> None:
+        """Count `n` entries appended by a round."""
 
 
 class NodeReplicated(_FusedTier):
@@ -814,9 +1046,6 @@ class NodeReplicated(_FusedTier):
         return log_exec_all(self.spec, self.dispatch, self.log,
                             self.states, window, fenced=fenced)
 
-    def _append_call(self, opcodes, args, n):
-        return log_append(self.spec, self.log, opcodes, args, n)
-
     # -------------------------------------------------------------- API
 
     @property
@@ -940,10 +1169,6 @@ class NodeReplicated(_FusedTier):
         return new_rids
 
     # --------------------------------------------------------- fencing
-
-    def _is_fenced(self, rid: int) -> bool:
-        f = self._fenced
-        return f is not None and bool(f[rid])
 
     @property
     def fenced_rids(self) -> list[int]:
@@ -1252,198 +1477,36 @@ class NodeReplicated(_FusedTier):
         if not ops:
             self._exec_round()  # combine with nothing staged still helps
             return
-        self._append_and_replay(ops, rid, tids)
+        self._append_and_replay(0, ops, rid, tids)
+
+    # ---------------------------------------- the combiner round's hooks
+
+    def _round_log(self, log_idx: int):
+        return self.log
 
     @_locked
-    def _try_fused_round(self, ops, rid, tids, n, pos0, pad,
-                         opcodes, args, pending=None,
-                         fkey: tuple = ()) -> bool:
-        """Route one combiner round through the fused engine when
-        eligible (every live cursor at the pre-append tail, no
-        in-flight responses owed, a supported window); False falls
-        back to the append+exec chain. Results are bit-identical
-        either way. With `pending` the kernel is launched here and the
-        response readback waits for `_finish_round`."""
-        eng = self._fused_tier_wanted(pad, fkey)
-        if eng is None:
-            return False
-        if self._fenced is not None and not eng.supports_fenced:
-            self._m_fused_fallback.inc()
-            return False
-        if not eng.supports(pad):
-            self._m_fused_fallback.inc()
-            return False
-        if any(self._inflight):
-            self._m_fused_fallback.inc()
-            return False
-        cur = _readback(torch.cat([self.log.ltails,
-                                   self.log.tail.reshape(1)]))
-        lts, tail = cur[:-1], int(cur[-1])
-        live = lts if self._fenced is None else lts[~self._fenced]
-        if not (live.size
-                and int(live.min()) == tail == int(live.max())):
-            self._m_fused_fallback.inc()
-            return False
-        timing = self._fused_calibrating(fkey)
-        t0 = time.perf_counter()
-        fenced = self._fenced
-        extra = {"deferred": True} if pending is not None else {}
-        if eng.tier == "mesh_fused":
-            extra["devices"] = eng.devices
-        with span("fused-round", rid=rid, n=n, pos0=pos0,
-                  window=pad, **extra) as sp:
-            if self._placed is not None:
-                self._placed, resps = eng.round(
-                    self._placed, opcodes, args, n, fenced=fenced)
-            else:
-                self.log, self.states, resps = eng.round(
-                    self.log, self.states, opcodes, args, n,
-                    fenced=fenced,
-                )
-            if pending is None:
-                # the response readback is also the round's host
-                # fence; only replica `rid`'s row is delivered
-                resps_np = _readback(resps[rid, :n])
-                sp.fence(*self._fleet_trees())
-        if timing:
-            self._note_fused_sample(
-                "pallas_fused", pad, time.perf_counter() - t0, fkey
-            )
-        if self._wal is not None:
-            # same order as the chain: journal once the ops ARE in the
-            # in-memory log, before any response is delivered
-            self._wal.append(pos0, ops)
-            if fenced is None or not fenced.any():
-                floor = pos0 + n
-            else:
-                floor = min(int(lts[fenced].min()), pos0 + n)
-            self._wal.maybe_reclaim(floor)
-        self._fused_rounds += 1
-        self._m_engine_fused.inc()
-        if eng.tier == "mesh_fused":
-            # a mesh round by tier, next to the shmap/gspmd chain rounds
-            self._m_mesh_fused_round.inc()
-        if pending is not None:
-            pending.fused_resps = resps
-            pending.tier = eng.tier
-            return True
-        with span("deliver"):
-            for j, tid in enumerate(tids):
-                self._contexts[(rid, tid)].enqueue_resps(
-                    [int(resps_np[j])])
-        self.last_round_tier = eng.tier
-        self._tier_by_rid[rid] = eng.tier
-        self._pos_by_rid[rid] = pos0
-        return True
+    def _set_round_log(self, log_idx: int, log) -> None:
+        self.log = log
 
-    @_locked
-    def _begin_round(self, ops: list[tuple], rid: int,
-                     tids: list[int], batch: bool = False,
-                     defer: bool = False) -> _PendingRound:
-        """First half of the combiner-round protocol: fence guard,
-        append-site fault hook, help GC until the batch fits, encode +
-        append (or launch the fused round), record in-flight response
-        destinations. `defer=True` leaves the replay-to-target (or the
-        fused readback) for `_finish_round`; calibration rounds ignore
-        it."""
-        if self._is_fenced(rid):
-            raise ReplicaFencedError(rid)
-        fault_hook("append", rid, self)
-        n = len(ops)
-        max_batch = self.spec.capacity - self.spec.gc_slack
-        if n > max_batch:
-            raise LogTooSmallError(
-                f"batch of {n} exceeds appendable capacity {max_batch}"
-            )
-        self._m_batch.observe(n)
-        rounds = 0
-        while int(_readback(log_space(self.spec, self.log))) < n:
-            self._exec_round()
-            rounds = self._watchdog(rounds, "append-gc")
+    def _owes_responses(self, log_idx: int) -> bool:
+        return any(self._inflight)
 
-        pos0 = int(_readback(self.log.tail))
-        pad = 1 << (max(n, 1) - 1).bit_length()
-        with span("encode"):
-            opcodes, args, _ = encode_ops(
-                ops, self.spec.arg_width, pad_to=pad, device=self.device
-            )
-        fkey = self._fused_fence_key()
-        timing = self._fused_calibrating(fkey)
-        defer = defer and not timing
-        pending = _PendingRound(rid, list(tids), n, pos0, batch=batch)
-        pending.pad = pad
-        pending.fkey = fkey
-        if self._try_fused_round(ops, rid, tids, n, pos0, pad,
-                                 opcodes, args,
-                                 pending if defer else None,
-                                 fkey=fkey):
-            pending.fused = True
-            if pending.fused_resps is None:
-                pending.done = True  # ran eagerly end-to-end
-            return pending
-        if timing:
-            pending.t_chain = time.perf_counter()
-        extra = {"batch": True} if batch else {}
-        with span("append", rid=rid, n=n, pos0=pos0, **extra) as sp:
-            with debug_checks(self.debug):
-                self.log = self._append_call(opcodes, args, n)
-            sp.fence(self.log)
-        if self._wal is not None:
-            # WAL write AFTER the device append, under the same lock: a
-            # record exists only for ops that ARE in the in-memory log
-            self._wal.append(pos0, ops)
+    def _owe_responses(self, log_idx: int, rid: int, pos0: int,
+                       tids: list[int]) -> None:
         inflight = self._inflight[rid]
         for j, tid in enumerate(tids):
             inflight.append((pos0 + j, tid))
-        return pending
 
-    @_locked
-    def _finish_round(self, pending: _PendingRound) -> None:
-        """Second half of the protocol: replay until replica `rid` has
-        applied its own ops (chain tier), or read back and deliver the
-        fused launch's responses."""
-        hit_replay_site(pending, self)
-        if pending.done:
-            return
-        pending.done = True
-        rid = pending.rid
-        if self._is_fenced(rid):
-            raise ReplicaFencedError(rid)
-        if pending.fused_resps is not None:
-            resps_np = _readback(pending.fused_resps[rid, :pending.n])
-            pending.fused_resps = None
-            with span("deliver"):
-                for j, tid in enumerate(pending.tids):
-                    self._contexts[(rid, tid)].enqueue_resps(
-                        [int(resps_np[j])]
-                    )
-            tier = pending.tier or "pallas_fused"
-            self.last_round_tier = tier
-            self._tier_by_rid[rid] = tier
-            self._pos_by_rid[rid] = pending.pos0
-            return
-        target = pending.target
-        rounds = 0
-        with span("combine-replay", rid=rid, target=target) as sp:
-            while int(self._ltails_host()[rid]) < target:
-                self._exec_round()
-                rounds = self._watchdog(rounds, "combine-replay")
-            sp.fence(*self._fleet_trees())
-        self.last_round_tier = self.engine
-        self._tier_by_rid[rid] = self.engine
-        self._pos_by_rid[rid] = pending.pos0
-        if pending.t_chain is not None:
-            self._note_fused_sample("chain", pending.pad,
-                                    time.perf_counter()
-                                    - pending.t_chain, pending.fkey)
+    def _deliver_answers(self, rid: int, tids: list[int], resps_np) -> None:
+        for j, tid in enumerate(tids):
+            self._contexts[(rid, tid)].enqueue_resps([int(resps_np[j])])
 
-    @_locked
-    def _append_and_replay(self, ops: list[tuple], rid: int,
-                           tids: list[int], batch: bool = False) -> None:
-        """`_begin_round` + `_finish_round` back-to-back."""
-        self._finish_round(
-            self._begin_round(ops, rid, tids, batch=batch)
-        )
+    def _chain_round(self, log_idx: int, rounds: int, where: str) -> int:
+        self._exec_round()
+        return self._watchdog(rounds, where)
+
+    def _round_ltail(self, log_idx: int, rid: int) -> int:
+        return int(self._ltails_host()[rid])
 
     @_locked
     def _drop_batch_inflight(self, rid: int) -> None:
@@ -1474,16 +1537,14 @@ class NodeReplicated(_FusedTier):
             sink = _BatchSink()
             self._contexts[(rid, BATCH_TID)] = sink
         if n == 0:
-            pending = _PendingRound(rid, [], 0,
-                                    int(_readback(self.log.tail)),
-                                    batch=True)
+            pending = _PendingRound(rid, [], 0, int(_readback(self.log.tail)))
             pending.done = True
             self._pending_batch[rid] = pending
             return pending
         sink.expect(n)
         try:
             pending = self._begin_round(
-                list(ops), rid, [BATCH_TID] * n, batch=True, defer=True,
+                0, list(ops), rid, [BATCH_TID] * n, batch=True, defer=True,
             )
         except BaseException:
             self._drop_batch_inflight(rid)

@@ -5,7 +5,7 @@
 //       (built by make_hashmap_replay, driven by make_pallas_step)
 //   K1  node_replication_tpu/ops/pallas_replay.py:_fused_hashmap_kernel
 //       (built by make_fused_hashmap_calls, driven by FusedHashmapEngine)
-// All run one body, tile_body<MODEL, VEC, APPEND, FENCED>: K2
+// Both run one body, tile_body<MODEL, VEC, APPEND, FENCED>: K2
 // (hashmap_replay_kernel<VEC>) is its APPEND = false, FENCED = false
 // case over the planes with unit key and value strides; K1
 // (hashmap_round_kernel<MODEL, VEC, FENCED>) adds the ring append
@@ -13,11 +13,11 @@
 // reads the key and value at stride arg_w from the batch's args. MODEL
 // is the layout of the state, fixed by the entry point:
 //   planes (MODEL = false): the reference's transposed values/present
-//     int32[Kp, R] and responses int32[W, R]; K2, and K1 through
-//     FusedHashmapEngine.raw_round;
+//     int32[Kp, R] and responses int32[W, R]; K2;
 //   states (MODEL = true): the model's own values int32[R, K], present
 //     bool[R, K] (one byte, 0/1) and responses int32[R, W]; K1 through
 //     FusedHashmapEngine.round_fn, so a round does no layout work.
+// APPEND is true exactly where MODEL is: K1 runs over the states alone.
 //
 // What they compute. A window of W entries (opcode, key, value) is
 // replayed IN ORDER into every replica's copy of the table.
@@ -68,23 +68,18 @@
 //      one coalesced segment resps[i, replicas]; states, resps[r, i] a
 //      thread. Padding rows of the planes (n_keys <= k < Kp) are copied
 //      and never replayed.
-//   5. FENCED, planes: a fenced column replays like every other, so its
-//      responses are a full replay's (as in the reference); its tile
-//      column is then re-read from the input (the caller zeroes its
-//      responses). FENCED, states: a fenced row is not replayed, so it
-//      goes out as it came in, and its responses are written as 0.
+//   5. FENCED (states): a fenced row is not replayed, so it goes out as
+//      it came in, and its responses are written as 0.
 //   6. The tile goes out once, 16-byte streaming stores where it came in
 //      by 16-byte copies.
 //
 // What bounds them: device-memory bytes. The state in and out and the
 // responses (K1: and the ring in and out and the batch) are read or
 // written once; the replay lives in shared memory. K2 at R = 4096,
-// Kp = 10000, W = 4096: 722,518,016 B, 0.216 ms at 3.35 TB/s. K1 over
-// the planes at R = 4096, W = 256: 661,655,552 B, 0.1975 ms; at a mesh
-// shard's R = 1024, W = 256: 166,989,824 B, 0.0498 ms. K1 over the
-// states at R = 4096, K = 10000, W = 256, ring 2^16: 415,895,552 B
-// (int32 values and byte present in and out, the responses, the ring in
-// and out, the batch), 0.1241 ms; the byte present is why it moves less.
+// Kp = 10000, W = 4096: 722,518,016 B, 0.216 ms at 3.35 TB/s. K1 at
+// R = 4096, K = 10000, W = 256, ring 2^16: 415,895,552 B (int32 values
+// and byte present in and out, the responses, the ring in and out, the
+// batch), 0.1241 ms.
 // The window scan reads blocks x W x 4 B of keys (from L2 and L1, not
 // device memory).
 //
@@ -355,18 +350,6 @@ __device__ __forceinline__ void tile_body(const Round& a) {
   cp_async_wait_all();  // an empty window scanned nothing
   __syncthreads();      // every replica's replay is done
 
-  // 5. a fenced column of the planes takes its input back
-  if constexpr (FENCED && !MODEL) {
-    if (fen) {
-      for (int rr = 0; rr < keys; ++rr) {
-        const size_t g = base + static_cast<size_t>(rr) * n_rep + tid;
-        s_v[rr * kT + tid] = __ldg(a.vals_in + g);
-        s_p[rr * kT + tid] = __ldg(pres_in + g);
-      }
-    }
-    __syncthreads();
-  }
-
   // 6. the tile out
   if (VEC) {
     constexpr int q4 = kLine / 4;
@@ -418,7 +401,7 @@ hashmap_replay_kernel(const Round a) {
   tile_body<false, VEC, false, false>(a);
 }
 
-// K1, in either layout
+// K1
 template <bool MODEL, bool VEC, bool FENCED>
 __global__ void __launch_bounds__(Tile<MODEL>::kThreads,
                                   Tile<MODEL>::kBlocksPerSm)
@@ -472,44 +455,6 @@ cudaError_t launch(Round a, cudaStream_t s) {
              : launch_tile<MODEL, false, APPEND, FENCED>(nb, a, s);
 }
 
-// K1's operands in either layout (`kp`: see Round).
-template <bool MODEL>
-int fused_round(const int32_t* opc, const int32_t* batch_args, int arg_w,
-                int window, int n_keys, int kp, int n_rep,
-                const int32_t* vals_in, const void* pres_in,
-                int32_t* vals_out, void* pres_out, int32_t* resps,
-                const int32_t* fenced, const int64_t* tail, int count,
-                int cap, const int32_t* ring_opc_in,
-                const int32_t* ring_args_in, int32_t* ring_opc_out,
-                int32_t* ring_args_out, void* stream) {
-  Round a{};
-  a.opc = opc;
-  a.key = batch_args;
-  a.val = batch_args + 1;
-  a.window = window;
-  a.n_keys = n_keys;
-  a.kp = kp;
-  a.n_rep = n_rep;
-  a.vals_in = vals_in;
-  a.pres_in = pres_in;
-  a.vals_out = vals_out;
-  a.pres_out = pres_out;
-  a.resps = resps;
-  a.fenced = fenced;
-  a.tail = tail;
-  a.count = count;
-  a.cap = cap;
-  a.arg_w = arg_w;
-  a.batch_args = batch_args;
-  a.ring_opc_in = ring_opc_in;
-  a.ring_args_in = ring_args_in;
-  a.ring_opc_out = ring_opc_out;
-  a.ring_args_out = ring_args_out;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(fenced != nullptr ? launch<MODEL, true, true>(a, s)
-                                            : launch<MODEL, true, false>(a, s));
-}
-
 }  // namespace
 
 extern "C" {
@@ -545,22 +490,6 @@ int nr_hashmap_replay(const int32_t* opc, const int32_t* key,
       launch<false, false, false>(a, static_cast<cudaStream_t>(stream)));
 }
 
-// K1 over the planes: values/present int32[kp, n_rep], resps
-// int32[window, n_rep].
-int nr_hashmap_fused_round(
-    const int32_t* opc, const int32_t* batch_args, int arg_w, int window,
-    int n_keys, int kp, int n_rep, const int32_t* vals_in,
-    const int32_t* pres_in, int32_t* vals_out, int32_t* pres_out,
-    int32_t* resps, const int32_t* fenced, const int64_t* tail, int count,
-    int cap, const int32_t* ring_opc_in, const int32_t* ring_args_in,
-    int32_t* ring_opc_out, int32_t* ring_args_out, void* stream) {
-  return fused_round<false>(opc, batch_args, arg_w, window, n_keys, kp,
-                            n_rep, vals_in, pres_in, vals_out, pres_out,
-                            resps, fenced, tail, count, cap, ring_opc_in,
-                            ring_args_in, ring_opc_out, ring_args_out,
-                            stream);
-}
-
 // K1 over the states: values int32[n_rep, n_keys], present
 // bool[n_rep, n_keys] (bytes 0/1), resps int32[n_rep, window]; a fenced
 // replica keeps its state and answers 0.
@@ -571,11 +500,32 @@ int nr_hashmap_fused_round_model(
     const int32_t* fenced, const int64_t* tail, int count, int cap,
     const int32_t* ring_opc_in, const int32_t* ring_args_in,
     int32_t* ring_opc_out, int32_t* ring_args_out, void* stream) {
-  return fused_round<true>(opc, batch_args, arg_w, window, n_keys, n_keys,
-                           n_rep, vals_in, pres_in, vals_out, pres_out,
-                           resps, fenced, tail, count, cap, ring_opc_in,
-                           ring_args_in, ring_opc_out, ring_args_out,
-                           stream);
+  Round a{};
+  a.opc = opc;
+  a.key = batch_args;
+  a.val = batch_args + 1;
+  a.window = window;
+  a.n_keys = n_keys;
+  a.kp = n_keys;
+  a.n_rep = n_rep;
+  a.vals_in = vals_in;
+  a.pres_in = pres_in;
+  a.vals_out = vals_out;
+  a.pres_out = pres_out;
+  a.resps = resps;
+  a.fenced = fenced;
+  a.tail = tail;
+  a.count = count;
+  a.cap = cap;
+  a.arg_w = arg_w;
+  a.batch_args = batch_args;
+  a.ring_opc_in = ring_opc_in;
+  a.ring_args_in = ring_args_in;
+  a.ring_opc_out = ring_opc_out;
+  a.ring_args_out = ring_args_out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(fenced != nullptr ? launch<true, true, true>(a, s)
+                                            : launch<true, true, false>(a, s));
 }
 
 }  // extern "C"

@@ -189,7 +189,7 @@ def recover_fleet(
             # GC-wait, encode, append, replay-to-target (no response
             # destinations — a crash drops in-flight deliveries,
             # exactly like `recover`'s crash semantics)
-            nr._append_and_replay(rec.ops(), 0, [])
+            nr._append_and_replay(0, rec.ops(), 0, [])
             records += 1
             ops_replayed += rec.count
         nr.sync()

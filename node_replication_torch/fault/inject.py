@@ -16,7 +16,7 @@ Design (the `obs/metrics.py` discipline applied to faults):
 
 - **Sites** are host-side choke points named by string — `replay`
   (`NodeReplicated._exec_round` / `MultiLogReplicated._exec_round`),
-  `append` (`_append_and_replay` / `_append_and_replay_log`),
+  `append` (`_FusedTier._begin_round`, the combiner round of both),
   `read-sync` (`execute`), `serve-batch` (`ServeFrontend._run_batch`
   and the pipelined assembly stage's `_assemble`, BEFORE the batch
   touches the wrapper, so an injected kill is guaranteed pre-append

@@ -150,6 +150,16 @@ _STAGE_FUNCS = {
     "combine": "append", "_exec_round": "append", "append": "append",
     "sync_log": "append", "log_catchup_all": "append",
     "_begin_round": "append", "_finish_round": "append",
+    # ... and the round's helpers and wrapper hooks (`core/replica.py`,
+    # `core/cnr.py`)
+    "_fused_round": "append", "_hand_out": "append",
+    "_record_tier": "append", "_read_answers": "append",
+    "_round_log": "append", "_set_round_log": "append",
+    "_owes_responses": "append", "_owe_responses": "append",
+    "_deliver_answers": "append", "_chain_round": "append",
+    "_round_ltail": "append", "_count_round": "append",
+    "_count_appended": "append", "_log_attrs": "append",
+    "_scatter": "append",
     # readback: read-path sync + device->host result fetch
     "execute": "readback", "execute_stale": "readback",
     "read": "readback", "_readback": "readback",

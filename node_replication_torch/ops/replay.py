@@ -19,16 +19,13 @@ state in and out and the responses); one launch a call.
 - `hashmap_replay` (replaces `_replay_kernel`, K2): in-order replay of
   a window into every replica's column of the planes; used by
   `make_hashmap_replay` and `make_pallas_step`.
-- `hashmap_fused_round` (replaces `_fused_hashmap_kernel`, K1): one
-  whole combiner round in one launch over the planes — the ring append
-  (done by the first blocks while their tiles land), the replay, and
-  the fenced columns' tiles taken back from the input; used by
-  `FusedHashmapEngine.raw_round`.
-- `hashmap_fused_round_model` (K1 over the model's `[R, K]` states, the
-  same body with its layout fixed by this entry): the same round with
-  responses `[R, W]`, a fenced replica's state kept and its responses
-  0; used by `FusedHashmapEngine.round_fn`, so a round does no layout
-  work.
+- `hashmap_fused_round_model` (replaces `_fused_hashmap_kernel`, K1):
+  one whole combiner round in one launch over the model's `[R, K]`
+  states — the ring append (done by the first blocks while their tiles
+  land) and the replay, with responses `[R, W]`, a fenced replica's
+  state kept and its responses 0; used by `FusedHashmapEngine.round_fn`,
+  so a round does no layout work. Its plain version is the planes'
+  round (`hashmap_fused_round_plain`) with the layout copies around it.
 
 Each wrapper takes its plain PyTorch version (a Python loop over the
 window doing row operations on the planes) for CPU tensors ONLY; for
@@ -37,8 +34,7 @@ device it raises. The kernels are built with nvcc into a shared library
 with a plain C interface at first use (`ops/kernel_lib.py`), loaded with
 ctypes, and launched on the current stream; each launch's
 `cudaGetLastError()` is checked, and each wrapper counts its launches
-(`REPLAY_KERNEL.launches`; `FUSED_KERNEL.launches` every K1 launch in
-either layout, `FUSED_MODEL_KERNEL.launches` those over the states).
+(`REPLAY_KERNEL.launches`, `FUSED_KERNEL.launches`).
 """
 
 from __future__ import annotations
@@ -68,13 +64,11 @@ def _round_up(x: int, m: int) -> int:
 
 REPLAY_KERNEL = Kernel("hashmap_replay")
 FUSED_KERNEL = Kernel("hashmap_fused_round")
-FUSED_MODEL_KERNEL = Kernel("hashmap_fused_round_model")
 
 
 def reset_launch_counts() -> None:
     REPLAY_KERNEL.launches = 0
     FUSED_KERNEL.launches = 0
-    FUSED_MODEL_KERNEL.launches = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -84,9 +78,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nr_hashmap_replay.argtypes = [
         p, p, p, i, i, i, i, p, p, p, p, p, p]
     lib.nr_hashmap_replay.restype = i
-    lib.nr_hashmap_fused_round.argtypes = [
-        p, p, i, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p, p]
-    lib.nr_hashmap_fused_round.restype = i
     lib.nr_hashmap_fused_round_model.argtypes = [
         p, p, i, i, i, i, p, p, p, p, p, p, p, i, i, p, p, p, p, p]
     lib.nr_hashmap_fused_round_model.restype = i
@@ -199,74 +190,6 @@ def hashmap_fused_round_plain(spec: LogSpec, tail, count: int, opcodes,
     return ring_opc, ring_args, v, p, resps
 
 
-def _check_round(spec: LogSpec, tail, count: int, opcodes, args,
-                 ring_opc, ring_args, fenced, R: int) -> list:
-    """K1's checks beside the state's: the batch, the ring, the cursor,
-    the fenced mask. Returns every tensor the round takes but the
-    state."""
-    W = opcodes.shape[0]
-    A = spec.arg_width
-    L = spec.capacity
-    expect(args, "args", (W, A), torch.int32)
-    expect(ring_opc, "ring_opc", (L,), torch.int32)
-    expect(ring_args, "ring_args", (L, A), torch.int32)
-    expect(tail, "tail", (), torch.int64)
-    if A < 2:
-        raise ValueError("the hashmap needs arg_width >= 2 (key, value)")
-    if not (0 <= count <= W and fused_window_ok(L, W)):
-        raise ValueError(f"count {count} / window {W} do not fit a ring "
-                         f"of {L} (fused_window_ok)")
-    tensors = [tail, opcodes, args, ring_opc, ring_args]
-    if fenced is not None:
-        expect(fenced, "fenced", (R,), torch.int32)
-        tensors.append(fenced)
-    return tensors
-
-
-def hashmap_fused_round(spec: LogSpec, tail, count: int, opcodes, args,
-                        ring_opc, ring_args, values, present, n_keys: int,
-                        fenced=None):
-    """One combiner round: append batch entries `j < count` at ring
-    slots `(tail + j) & mask`, replay the whole NOOP-padded batch into
-    the planes, restore fenced lanes (`fenced int32[R]`, > 0 = fenced)
-    from the input. Returns `(ring_opc, ring_args, values, present,
-    resps int32[W, R])`, all new tensors. `tail` is the int64 cursor as
-    a 0-d tensor on the planes' device; `count` a host int."""
-    W = opcodes.shape[0]
-    A = spec.arg_width
-    L = spec.capacity
-    kp, R = _check_planes(opcodes, values, present, W)
-    tensors = _check_round(spec, tail, count, opcodes, args, ring_opc,
-                           ring_args, fenced, R)
-    if not 0 < n_keys <= kp:
-        raise ValueError(f"n_keys {n_keys} outside (0, Kp={kp}]")
-    if route(*tensors, values, present) == "cpu":
-        return hashmap_fused_round_plain(
-            spec, tail, count, opcodes, args, ring_opc, ring_args, values,
-            present, n_keys, fenced)
-    lib = _library()
-    ro = torch.empty_like(ring_opc)
-    ra = torch.empty_like(ring_args)
-    v_out = torch.empty_like(values)
-    p_out = torch.empty_like(present)
-    resps = torch.empty((W, R), dtype=torch.int32, device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.nr_hashmap_fused_round(
-            opcodes.data_ptr(), args.data_ptr(), A, W, n_keys, kp, R,
-            values.data_ptr(), present.data_ptr(),
-            v_out.data_ptr(), p_out.data_ptr(), resps.data_ptr(),
-            None if fenced is None else fenced.data_ptr(),
-            tail.data_ptr(), int(count), L, ring_opc.data_ptr(),
-            ring_args.data_ptr(), ro.data_ptr(), ra.data_ptr(), stream,
-        )
-    if err:
-        raise RuntimeError(f"hashmap_fused_round launch failed: CUDA "
-                           f"error {err}")
-    FUSED_KERNEL.launches += 1
-    return ro, ra, v_out, p_out, resps
-
-
 def hashmap_fused_round_model_plain(spec: LogSpec, tail, count: int,
                                     opcodes, args, ring_opc, ring_args,
                                     values, present, n_keys: int,
@@ -295,12 +218,16 @@ def hashmap_fused_round_model_plain(spec: LogSpec, tail, count: int,
 def hashmap_fused_round_model(spec: LogSpec, tail, count: int, opcodes,
                               args, ring_opc, ring_args, values, present,
                               n_keys: int, fenced=None):
-    """`hashmap_fused_round` over the model's states, `values int32[R,
-    n_keys]` and `present bool[R, n_keys]`: one K1 launch, no layout
-    copy. A fenced replica (`fenced int32[R]`, > 0 = fenced) keeps its
-    state and answers 0. Returns `(ring_opc, ring_args, values, present,
-    resps int32[R, W])`, all new tensors."""
+    """One combiner round over the model's states, `values int32[R,
+    n_keys]` and `present bool[R, n_keys]`, in one K1 launch: append
+    batch entries `j < count` at ring slots `(tail + j) & mask`, replay
+    the whole NOOP-padded batch. A fenced replica (`fenced int32[R]`,
+    > 0 = fenced) keeps its state and answers 0. Returns `(ring_opc,
+    ring_args, values, present, resps int32[R, W])`, all new tensors.
+    `tail` is the int64 cursor as a 0-d tensor on the states' device;
+    `count` a host int."""
     W = opcodes.shape[0]
+    A = spec.arg_width
     L = spec.capacity
     if values.dim() != 2:
         raise ValueError(f"values: expected [R, K], got "
@@ -309,11 +236,22 @@ def hashmap_fused_round_model(spec: LogSpec, tail, count: int, opcodes,
     expect(opcodes, "opcodes", (W,), torch.int32)
     expect(values, "values", (R, n_keys), torch.int32)
     expect(present, "present", (R, n_keys), torch.bool)
-    tensors = _check_round(spec, tail, count, opcodes, args, ring_opc,
-                           ring_args, fenced, R)
+    expect(args, "args", (W, A), torch.int32)
+    expect(ring_opc, "ring_opc", (L,), torch.int32)
+    expect(ring_args, "ring_args", (L, A), torch.int32)
+    expect(tail, "tail", (), torch.int64)
+    if A < 2:
+        raise ValueError("the hashmap needs arg_width >= 2 (key, value)")
+    if not (0 <= count <= W and fused_window_ok(L, W)):
+        raise ValueError(f"count {count} / window {W} do not fit a ring "
+                         f"of {L} (fused_window_ok)")
+    tensors = [tail, opcodes, args, ring_opc, ring_args, values, present]
+    if fenced is not None:
+        expect(fenced, "fenced", (R,), torch.int32)
+        tensors.append(fenced)
     if n_keys < 1:
         raise ValueError(f"n_keys {n_keys} < 1")
-    if route(*tensors, values, present) == "cpu":
+    if route(*tensors) == "cpu":
         return hashmap_fused_round_model_plain(
             spec, tail, count, opcodes, args, ring_opc, ring_args, values,
             present, n_keys, fenced)
@@ -326,7 +264,7 @@ def hashmap_fused_round_model(spec: LogSpec, tail, count: int, opcodes,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = lib.nr_hashmap_fused_round_model(
-            opcodes.data_ptr(), args.data_ptr(), spec.arg_width, W, n_keys,
+            opcodes.data_ptr(), args.data_ptr(), A, W, n_keys,
             R, values.data_ptr(), present.data_ptr(),
             v_out.data_ptr(), p_out.data_ptr(), resps.data_ptr(),
             None if fenced is None else fenced.data_ptr(),
@@ -337,7 +275,6 @@ def hashmap_fused_round_model(spec: LogSpec, tail, count: int, opcodes,
         raise RuntimeError(f"hashmap_fused_round_model launch failed: "
                            f"CUDA error {err}")
     FUSED_KERNEL.launches += 1
-    FUSED_MODEL_KERNEL.launches += 1
     return ro, ra, v_out, p_out, resps
 
 
@@ -433,15 +370,14 @@ class FusedHashmapEngine(FusedEngineHost):
 
     `round(log, states, opcodes, args, count, fenced=None)` executes
     one whole combiner round — append `count` entries at the tail,
-    replay the batch into every replica, restore fenced lanes — as ONE
-    kernel launch. Requires the lock-step precondition the caller
-    checks on the host: every live cursor at the pre-append tail
-    (`core/replica._try_fused_round`).
+    replay the batch into every unfenced replica — as ONE kernel
+    launch. Requires the lock-step precondition the caller checks on
+    the host: every live cursor at the pre-append tail
+    (`core/replica._FusedTier._fused_round`).
 
     States cross the boundary in model layout (`[R, K]` values + bool
     present), and `round_fn` hands them to K1 as they are
-    (`hashmap_fused_round_model`). `raw_round` is the transposed-resident
-    form, over the reference's `[Kp, R]` planes.
+    (`hashmap_fused_round_model`).
     """
 
     supports_fenced = True
@@ -455,7 +391,6 @@ class FusedHashmapEngine(FusedEngineHost):
         self.n_keys = int(n_keys)
         self.spec = spec
         self.device = resolve_device(device)
-        self.kp = _round_up(self.n_keys, 8)
         self._init_host()
 
     def supports(self, window: int) -> bool:
@@ -478,29 +413,6 @@ class FusedHashmapEngine(FusedEngineHost):
         if (fenced_vec is not None) != fenced:
             raise ValueError("fenced mask given to an unfenced round "
                              "or missing from a fenced one")
-
-    def raw_round(self, window: int, fenced: bool = False):
-        """Round fn over TRANSPOSED planes: `(log, vals_t, pres_t,
-        opcodes, args, count[, fenced_vec]) -> (log, vals_t, pres_t,
-        resps[W, R])`."""
-        spec, n_keys = self.spec, self.n_keys
-
-        def raw(log, vals_t, pres_t, opcodes, args, count: int,
-                fenced_vec=None):
-            self._check_call(window, fenced, opcodes, fenced_vec)
-            fen = (None if fenced_vec is None
-                   else torch.as_tensor(fenced_vec).to(
-                       device=vals_t.device, dtype=torch.int32))
-            ring_opc, ring_args, vals_t, pres_t, resps = \
-                hashmap_fused_round(
-                    spec, log.tail, int(count), opcodes, args,
-                    log.opcodes, log.args, vals_t, pres_t, n_keys, fen,
-                )
-            log = log._replace(opcodes=ring_opc, args=ring_args)
-            log = fused_cursor_lattice(log, count, fenced_vec)
-            return log, vals_t, pres_t, resps
-
-        return raw
 
     def round_fn(self, window: int, fenced: bool = False):
         """MODEL-layout round fn: `(log, states, opcodes, args, count[,

@@ -317,7 +317,7 @@ class Follower:
         # the SAME combiner protocol live traffic uses — and the
         # follower's own attached WAL journals the batch inside it; on
         # a fused hashmap fleet this is one K1 launch
-        self.nr._append_and_replay(ops, 0, [])
+        self.nr._append_and_replay(0, ops, 0, [])
         with self._cond:
             self._applied = expected + len(ops)
             if rec.epoch > self.epoch:

@@ -12,16 +12,15 @@ and `torch.profiler`'s device time. Each shape is checked against its
 plain version once, bit for bit. Prints one JSON object, and writes it
 to `--out` when given.
 
-K1's shapes (K = 10000 keys, a 2^16 ring wrapping in the window):
-phases 3 and 5's flagship rounds (R = 4096, W = 256, fenced and not),
-a served round (W = 2, the served mean batch of ~1.9 padded), a CNR
-per-log round (W = 64, 46 entries), a mesh shard (R = 1024, W = 256 and
-2) and a fleet grown by one (R = 4097, the scalar path of the planes);
-and, where the tree has it, K1 over the model's `[R, K]` states
-(`hashmap_fused_round_model`, what `round_fn` launches) at the same
-shapes from the same tables (`k1_model`). K2 at phase 2's W = 4096,
-R = 4096. The timing helpers and the bounds (bytes over 3.35 TB/s) are
-`chip_smoke.py`'s.
+K1 over the model's `[R, K]` states (`hashmap_fused_round_model`, what
+`round_fn` launches) at its shapes (K = 10000 keys, a 2^16 ring
+wrapping in the window): phases 3 and 5's flagship rounds (R = 4096,
+W = 256, fenced and not), a served round (W = 2, the served mean batch
+of ~1.9 padded), a CNR per-log round (W = 64, 46 entries), a mesh shard
+(R = 1024, W = 256 and 2) and a fleet grown by one (R = 4097, a last
+tile of one replica row). K2 over the `[Kp, R]` planes at phase 2's
+W = 4096, R = 4096. The timing helpers and the bounds (bytes over
+3.35 TB/s) are `chip_smoke.py`'s.
 
 To compare two trees, run this once per tree in one call on one
 card, in the order parent, change, change, parent.
@@ -94,15 +93,13 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    model = hasattr(replay, "hashmap_fused_round_model")
-    out = {"root": str(Path(a.root).resolve()), "card": card, "k1": {},
-           **({"k1_model": {}} if model else {})}
+    out = {"root": str(Path(a.root).resolve()), "card": card, "k1": {}}
     for name, (R, W, count, fenced) in K1_SHAPES.items():
         spec = LogSpec(capacity=1 << 16, n_replicas=R, arg_width=3)
-        vals = torch.randint(-(1 << 30), 1 << 30, (kp, R), generator=gen,
+        vals = torch.randint(-(1 << 30), 1 << 30, (R, K), generator=gen,
                              device=dev, dtype=torch.int32)
-        pres = torch.randint(0, 2, (kp, R), generator=gen, device=dev,
-                             dtype=torch.int32)
+        pres = torch.randint(0, 2, (R, K), generator=gen, device=dev,
+                             dtype=torch.int32) > 0
         ring = (torch.zeros(spec.capacity, dtype=torch.int32, device=dev),
                 torch.zeros((spec.capacity, 3), dtype=torch.int32,
                             device=dev))
@@ -119,33 +116,15 @@ def main() -> int:
                                      dtype=torch.int64, device=dev),
                   count, torch.from_numpy(opc).to(dev),
                   torch.from_numpy(args).to(dev), *ring, vals, pres, K, fen)
-        err = cs.max_abs_err(replay.hashmap_fused_round(*inputs),
-                             replay.hashmap_fused_round_plain(*inputs))
+        err = cs.max_abs_err(replay.hashmap_fused_round_model(*inputs),
+                             replay.hashmap_fused_round_model_plain(*inputs))
         if err:
             raise AssertionError(f"K1 {name} disagrees with plain: {err}")
-        n_bytes = cs.k1_round_bytes(R, W)
-        bound_ms, _ = cs.bound(n_bytes, 4 * W * R)
-        out["k1"][name] = {"R": R, "W": W, "count": count,
-                           "fenced": fenced, "bound_ms": bound_ms,
-                           **_times(cs, lambda: replay.hashmap_fused_round(
-                               *inputs))}
-        if model:
-            m_in = (*inputs[:7], vals[:K].T.contiguous(),
-                    (pres[:K] > 0).T.contiguous(), K, fen)
-            err = cs.max_abs_err(
-                replay.hashmap_fused_round_model(*m_in),
-                replay.hashmap_fused_round_model_plain(*m_in))
-            if err:
-                raise AssertionError(f"K1 over the states {name} "
-                                     f"disagrees with plain: {err}")
-            bound_ms, _ = cs.bound(cs.k1_model_round_bytes(R, W),
-                                   4 * W * R)
-            out["k1_model"][name] = {
-                "R": R, "W": W, "count": count, "fenced": fenced,
-                "bound_ms": bound_ms,
-                **_times(cs, lambda: replay.hashmap_fused_round_model(
-                    *m_in))}
-            del m_in
+        bound_ms, _ = cs.bound(cs.k1_model_round_bytes(R, W), 4 * W * R)
+        out["k1"][name] = {
+            "R": R, "W": W, "count": count, "fenced": fenced,
+            "bound_ms": bound_ms,
+            **_times(cs, lambda: replay.hashmap_fused_round_model(*inputs))}
         del vals, pres, ring, inputs
         torch.cuda.empty_cache()
     R, W = K2_SHAPE

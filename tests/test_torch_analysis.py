@@ -649,14 +649,14 @@ class TestTimeInTraced:
             import time
 
             class FusedHashmapEngine:
-                def raw_round(self, window, fenced=False):
+                def round_fn(self, window, fenced=False):
                     t_build = time.monotonic()  # host: builds the closure
 
-                    def raw(log, vals_t, pres_t, opcodes, args, count):
+                    def fn(log, states, opcodes, args, count):
                         t0 = time.monotonic()
-                        return log, vals_t, pres_t, t0
+                        return log, states, t0
 
-                    return raw
+                    return fn
         """})
         hits = firing(diags, "time-in-traced")
         assert len(hits) == 1 and hits[0].line == 9
@@ -1341,11 +1341,9 @@ class TestRepoIsClean:
         assert project.is_device_scope(put)
         for f in nested(fn("core.step", "make_step")):
             assert project.is_device_scope(f)
-        for maker in ("raw_round", "round_fn"):
-            for f in nested(fn("ops.replay", maker, "FusedHashmapEngine")):
-                assert project.is_device_scope(f)
-        for name in ("hashmap_fused_round", "hashmap_fused_round_model",
-                     "hashmap_replay"):
+        for f in nested(fn("ops.replay", "round_fn", "FusedHashmapEngine")):
+            assert project.is_device_scope(f)
+        for name in ("hashmap_fused_round_model", "hashmap_replay"):
             assert project.is_device_scope(fn("ops.replay", name))
         for mod, name in (("ops.vspace", "vspace_fused_round"),
                           ("ops.oahashmap", "oahashmap_replay")):

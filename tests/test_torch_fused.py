@@ -6,8 +6,10 @@ built with `interpret=True`, in the shape of
 ring wraps, a fence/repair cycle. Ring planes, cursors, states and the
 `round_fn` responses must be bit-identical. Then `round_fn` (K1 over
 the model's `[R, K]` states, `hashmap_fused_round_model`) at edge
-shapes against the reference engine's round and against `raw_round`
-over the `[Kp, R]` planes with the transposes around it."""
+shapes against the reference engine's round and against the planes'
+plain round (`hashmap_fused_round_plain`, over `[Kp, R]` planes) with
+the transposes around it, and that plain round against the reference
+engine's round over the planes."""
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +32,14 @@ from node_replication_torch.models import make_hashmap as t_make_hashmap
 from node_replication_torch.ops.encoding import encode_ops as t_encode
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
-    FUSED_MODEL_KERNEL,
-    hashmap_fused_round,
     hashmap_fused_round_model,
+    hashmap_fused_round_plain,
 )
-from node_replication_torch.ops.ring import fused_window_ok, window_rows
+from node_replication_torch.ops.ring import (
+    fused_cursor_lattice,
+    fused_window_ok,
+    window_rows,
+)
 
 CPU = "cpu"
 
@@ -139,12 +144,11 @@ def test_raw_round_kernel_layout_matches_reference():
     jspec = JSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
     tspec = TSpec(capacity=256, n_replicas=R, arg_width=3, gc_slack=64)
     jeng = j_make_hashmap(K).fused_factory(jspec, interpret=True)
-    teng = t_make_hashmap(K).fused_factory(tspec, device=CPU)
     rng = np.random.default_rng(5)
     ops = _mixed_ops(rng, 8, K)
     jo, ja, _ = j_encode(ops, 3, pad_to=8)
     to, ta, _ = t_encode(ops, 3, pad_to=8, device=CPU)
-    kp = teng.kp
+    kp = _kp(K)
     vals = rng.integers(0, 50, (kp, R)).astype(np.int32)
     pres = (rng.random((kp, R)) < 0.5).astype(np.int32)
     # start mid-stream: a ring past one wrap holding old entries, all
@@ -159,15 +163,13 @@ def test_raw_round_kernel_layout_matches_reference():
     fen[[1, 6]] = True
     for fenced in (None, fen):
         jraw = jeng.raw_round(8, fenced is not None)
-        traw = teng.raw_round(8, fenced is not None)
         extra_j = () if fenced is None else (jnp.asarray(fenced),)
-        extra_t = () if fenced is None else (torch.from_numpy(fenced),)
         jout = jraw(jl, jnp.asarray(vals), jnp.asarray(pres), jo, ja, 7,
                     *extra_j)
         planes = interop.planes_from_numpy({"values": vals,
                                             "present": pres}, CPU)
-        tout = traw(tl, planes["values"], planes["present"], to, ta, 7,
-                    *extra_t)
+        tout = _planes_round(tspec, tl, planes["values"], planes["present"],
+                             to, ta, 7, K, fenced)
         got = interop.log_to_numpy(tout[0])
         for f in jl._fields:
             a = np.asarray(getattr(jout[0], f))
@@ -184,16 +186,36 @@ def test_wrapper_routes_cpu_to_plain_and_counts_no_launch():
     spec = TSpec(capacity=256, n_replicas=R, gc_slack=64)
     log = t_log_init(spec, CPU)
     to, ta, _ = t_encode([(1, 3, 9), (2, 3)], 3, pad_to=2, device=CPU)
-    vals = torch.zeros((8, R), dtype=torch.int32)
+    vals = torch.zeros((R, K), dtype=torch.int32)
+    pres = torch.zeros((R, K), dtype=torch.bool)
     before = FUSED_KERNEL.launches
-    out = hashmap_fused_round(spec, log.tail, 2, to, ta, log.opcodes,
-                              log.args, vals, vals.clone(), K)
+    out = hashmap_fused_round_model(spec, log.tail, 2, to, ta, log.opcodes,
+                                    log.args, vals, pres, K)
     assert FUSED_KERNEL.launches == before  # the plain version ran
-    assert out[0][:2].tolist() == [1, 2] and out[4].tolist() == [[0, 0],
-                                                                 [1, 1]]
+    assert out[0][:2].tolist() == [1, 2] and out[4].tolist() == [[0, 1],
+                                                                 [0, 1]]
     with pytest.raises(ValueError):  # wrong dtype is refused
-        hashmap_fused_round(spec, log.tail, 2, to, ta, log.opcodes,
-                            log.args, vals.long(), vals, K)
+        hashmap_fused_round_model(spec, log.tail, 2, to, ta, log.opcodes,
+                                  log.args, vals.long(), pres, K)
+
+
+def _kp(K: int) -> int:
+    """Key rows of the planes: K rounded up to 8."""
+    return -(-K // 8) * 8
+
+
+def _planes_round(spec, log, vals_t, pres_t, opcodes, args, count, K,
+                  fenced=None):
+    """The planes' plain round as a whole round: `(log, vals_t, pres_t,
+    resps[W, R])`, the ring appended and the cursors joined."""
+    fen = (None if fenced is None
+           else torch.as_tensor(fenced).to(torch.int32))
+    ring_opc, ring_args, vals_t, pres_t, resps = hashmap_fused_round_plain(
+        spec, log.tail, count, opcodes, args, log.opcodes, log.args, vals_t,
+        pres_t, K, fen)
+    log = fused_cursor_lattice(
+        log._replace(opcodes=ring_opc, args=ring_args), count, fenced)
+    return log, vals_t, pres_t, resps
 
 
 def _mid_stream_log(spec, rng, tail=300):
@@ -249,13 +271,13 @@ def test_model_layout_round_equals_raw_round_transposed(case):
         fenced = np.zeros(R, bool)
         fenced[list(fen_rows)] = True
     extra = () if fenced is None else (torch.from_numpy(fenced),)
-    before = FUSED_MODEL_KERNEL.launches, FUSED_KERNEL.launches
+    before = FUSED_KERNEL.launches
     lm, sm, rm = eng.round_fn(W, fenced is not None)(
         log, {"values": torch.from_numpy(values),
               "present": torch.from_numpy(present)},
         opc_t, args_t, count, *extra)
     # the plain version ran: no launch counted
-    assert (FUSED_MODEL_KERNEL.launches, FUSED_KERNEL.launches) == before
+    assert FUSED_KERNEL.launches == before
     # the reference engine's round over the same model-layout states
     jl, js, jr = jeng.round(
         jl, {"values": jnp.asarray(values), "present": jnp.asarray(present)},
@@ -264,12 +286,12 @@ def test_model_layout_round_equals_raw_round_transposed(case):
     _eq(js["values"], sm["values"], "values")
     _eq(js["present"], sm["present"], "present")
     _eq(jr, rm, "resps")
-    vt = torch.zeros((eng.kp, R), dtype=torch.int32)
+    vt = torch.zeros((_kp(K), R), dtype=torch.int32)
     vt[:K] = torch.from_numpy(values).T
     pt = torch.zeros_like(vt)
     pt[:K] = torch.from_numpy(present).T
-    lr, vt, pt, rr = eng.raw_round(W, fenced is not None)(
-        log, vt, pt, opc_t, args_t, count, *extra)
+    lr, vt, pt, rr = _planes_round(spec, log, vt, pt, opc_t, args_t, count,
+                                   K, fenced)
     for f in lr._fields:
         a, b = getattr(lm, f), getattr(lr, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f

@@ -34,7 +34,7 @@ from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
     REPLAY_KERNEL,
     FusedHashmapEngine,
-    hashmap_fused_round,
+    hashmap_fused_round_model,
     hashmap_replay,
     pallas_hashmap_state,
 )
@@ -343,12 +343,14 @@ def test_replay_wrapper_refuses_non_cpu_tensors(no_plain):
 def test_fused_wrapper_refuses_non_cpu_tensors(no_plain):
     spec = LogSpec(n_replicas=4, capacity=256, gc_slack=64)
     log = log_init(spec, "meta")
-    opc, _, _, v, p = _planes("meta")
+    opc = torch.zeros(3, dtype=torch.int32, device="meta")
     args = torch.zeros((3, 3), dtype=torch.int32, device="meta")
+    v = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    p = torch.zeros((4, 8), dtype=torch.bool, device="meta")
     before = FUSED_KERNEL.launches
     with pytest.raises(ValueError, match="CUDA device"):
-        hashmap_fused_round(spec, log.tail, 2, opc, args, log.opcodes,
-                            log.args, v, p, 8)
+        hashmap_fused_round_model(spec, log.tail, 2, opc, args, log.opcodes,
+                                  log.args, v, p, 8)
     assert FUSED_KERNEL.launches == before
 
 

@@ -24,9 +24,7 @@ import torch
 from node_replication_torch.core.log import LogSpec
 from node_replication_torch.ops.replay import (
     FUSED_KERNEL,
-    FUSED_MODEL_KERNEL,
     REPLAY_KERNEL,
-    hashmap_fused_round,
     hashmap_fused_round_model,
     hashmap_fused_round_model_plain,
     hashmap_fused_round_plain,
@@ -92,78 +90,6 @@ def test_replay_kernel_equals_plain(dev, R, K, W, window):
         assert torch.equal(a, b)
 
 
-# K1 runs K2's tile body with the ring append and the fenced restore:
-# (R, K, W, ring, first tail, window). R = 34 is the scalar path, and
-# "unaligned" planes are not 16-byte aligned; R = 600 spans two column
-# tiles (fenced lanes at 511 and 512); Kp = 40 is not a multiple of the
-# 16-row tile; K = 1 puts every entry on one row; W = 1, and W = 1920,
-# the largest fused window of a 2048-slot ring (two scan chunks);
-# "negative" keys only; R = 1024, a mesh shard's shape; R = 1-3 at
-# K = 32 on a 256-slot ring with gc_slack 32, the simulation plane's
-# fleets (one 16 x 512 tile with 1-3 live columns, the scalar path). Each
-# first tail makes the first rounds wrap the ring. A seventh field is
-# the ring's gc_slack (64 when absent).
-K1_CASES = {
-    "base": (70, 29, 64, 256, 200, "mixed"),
-    "scalar": (34, 13, 64, 256, 200, "mixed"),
-    "unaligned": (36, 29, 64, 256, 200, "unaligned"),
-    "two_col_tiles": (600, 100, 128, 256, 160, "mixed"),
-    "kp_ragged": (64, 37, 64, 256, 200, "mixed"),
-    "one_key": (70, 1, 64, 256, 200, "mixed"),
-    "w1": (70, 29, 1, 256, 250, "mixed"),
-    "w_max": (70, 1000, 1920, 2048, 1000, "mixed"),
-    "negative": (70, 29, 64, 256, 200, "negative"),
-    "shard": (1024, 1000, 256, 4096, 3900, "mixed"),
-    "sim_r1": (1, 32, 16, 256, 250, "mixed", 32),
-    "sim_r2": (2, 32, 16, 256, 250, "mixed", 32),
-    "sim_r3": (3, 32, 16, 256, 250, "mixed", 32),
-    "sim_r3_w1": (3, 32, 1, 256, 255, "mixed", 32),
-}
-
-
-@pytest.mark.parametrize("fenced", [False, True])
-@pytest.mark.parametrize("case", list(K1_CASES))
-def test_fused_kernel_equals_plain_across_ring_wrap(dev, case, fenced):
-    R, K, W, L, tail, window, *slack = K1_CASES[case]
-    spec = LogSpec(capacity=L, n_replicas=R, arg_width=3,
-                   gc_slack=slack[0] if slack else 64)
-    rng = np.random.default_rng(7 + fenced + 10 * list(K1_CASES).index(case))
-    ring_opc = torch.from_numpy(
-        rng.integers(0, 3, L).astype(np.int32)).to(dev)
-    ring_args = torch.from_numpy(
-        rng.integers(-9, 9, (L, 3)).astype(np.int32)).to(dev)
-    v, p = _planes(rng, K, R, dev)
-    if window == "unaligned":
-        v, p = _unaligned(v), _unaligned(p)
-    fen = None
-    if fenced:
-        fen = torch.zeros(R, dtype=torch.int32, device=dev)
-        fen[[c for c in (0, 31, 32, 511, 512, R - 1) if c < R]] = 1
-    kern = (ring_opc, ring_args, v, p)
-    plain = (ring_opc, ring_args, v, p)
-    tail0 = tail
-    before = FUSED_KERNEL.launches
-    for rnd in range(12):
-        count = int(rng.integers(0, W + 1)) if W > 1 else 1
-        opc, key, val = _window(rng, W, K, dev)
-        if window == "negative":
-            key = -key.abs() - 1
-        opc[count:] = 0
-        args = torch.stack([key, val, torch.zeros_like(key)], 1)
-        t = torch.tensor(tail, dtype=torch.int64, device=dev)
-        out_k = hashmap_fused_round(spec, t, count, opc, args, *kern, K,
-                                    fen)
-        out_p = hashmap_fused_round_plain(spec, t, count, opc, args,
-                                          *plain, K, fen)
-        torch.cuda.synchronize()
-        for a, b in zip(out_k, out_p):
-            assert torch.equal(a, b), rnd
-        kern, plain = out_k[:4], out_p[:4]
-        tail += count
-    assert FUSED_KERNEL.launches == before + 12
-    assert tail0 < L < tail
-
-
 # K1 over the model's [R, K] states tiles 64 keys x 128 replica rows:
 # the flagship (R = 4096, K = 10000, W = 256), a mesh shard's R = 1024,
 # R = 4097 (a last tile of one replica row), K = 10001 (the scalar path),
@@ -219,7 +145,7 @@ def test_model_layout_k1_equals_plain(dev, case, fenced):
         fen[[r for r in (0, 31, 127, 128, R // 2, R - 1) if r < R]] = 1
     kern = plain = (ring_opc, ring_args, v, p)
     tail = tail0 = L - max(1, rounds * W // 4)
-    before = FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches
+    before = FUSED_KERNEL.launches
     for rnd in range(rounds):
         count = 0 if kind == ["empty"] else \
             int(rng.integers(W // 2, W + 1)) if W > 1 else 1
@@ -236,19 +162,19 @@ def test_model_layout_k1_equals_plain(dev, case, fenced):
             assert not out_k[4][fen > 0].any()
         kern, plain = out_k[:4], out_p[:4]
         tail += count
-    assert (FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches) == (
-        before[0] + rounds, before[1] + rounds)
+    assert FUSED_KERNEL.launches == before + rounds
     assert tail == tail0 if kind == ["empty"] else tail0 < L < tail
 
 
 @pytest.mark.parametrize("fenced", [False, True])
 def test_round_fn_is_one_model_layout_launch_equal_to_the_planes(dev,
                                                                  fenced):
-    """One `round_fn` call moves `FUSED_KERNEL.launches` and
-    `FUSED_MODEL_KERNEL.launches` by exactly 1, and equals `raw_round`
-    (K1 over the `[Kp, R]` planes) with the transposes around it."""
+    """One `round_fn` call moves `FUSED_KERNEL.launches` by exactly 1,
+    and equals the planes' plain round (over `[Kp, R]` planes) with the
+    transposes around it."""
     from node_replication_torch.core.log import log_init
     from node_replication_torch.models import make_hashmap
+    from node_replication_torch.ops.ring import fused_cursor_lattice
 
     R, K, W, count = 600, 1001, 64, 50
     spec = LogSpec(capacity=4096, n_replicas=R, arg_width=3, gc_slack=64)
@@ -266,17 +192,20 @@ def test_round_fn_is_one_model_layout_launch_equal_to_the_planes(dev,
         mask = torch.zeros(R, dtype=torch.bool, device=dev)
         mask[[0, 127, 128, R - 1]] = True
         extra = (mask,)
-    before = FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches
+    before = FUSED_KERNEL.launches
     lm, sm, rm = eng.round_fn(W, fenced)(log, states, opc, args, count,
                                          *extra)
-    assert (FUSED_KERNEL.launches, FUSED_MODEL_KERNEL.launches) == (
-        before[0] + 1, before[1] + 1)
-    vt = torch.zeros((eng.kp, R), dtype=torch.int32, device=dev)
+    assert FUSED_KERNEL.launches == before + 1
+    vt = torch.zeros((-(-K // 8) * 8, R), dtype=torch.int32, device=dev)
     vt[:K] = states["values"].T
     pt = torch.zeros_like(vt)
     pt[:K] = states["present"].T
-    lr, vt, pt, rr = eng.raw_round(W, fenced)(log, vt, pt, opc, args,
-                                              count, *extra)
+    fen = extra[0].to(torch.int32) if fenced else None
+    ro, ra, vt, pt, rr = hashmap_fused_round_plain(
+        spec, log.tail, count, opc, args, log.opcodes, log.args, vt, pt, K,
+        fen)
+    lr = fused_cursor_lattice(log._replace(opcodes=ro, args=ra), count,
+                              *extra)
     torch.cuda.synchronize()
     for f in lr._fields:
         assert torch.equal(getattr(lm, f), getattr(lr, f)), f
@@ -864,16 +793,18 @@ def test_kernels_launch_on_the_card_of_their_tensors(dev):
     ring_args = torch.from_numpy(
         rng.integers(-9, 9, (256, 3)).astype(np.int32)).to(d1)
     v, p = _planes(rng, K, R, d1)
+    vm = v[:K].T.contiguous()
+    pm = (p[:K] > 0).T.contiguous()
     opc, key, val = _window(rng, W, K, d1)
     args = torch.stack([key, val, torch.zeros_like(key)], 1)
     t = torch.tensor(200, dtype=torch.int64, device=d1)
     with torch.cuda.device(0):
-        out_k = hashmap_fused_round(spec, t, W, opc, args, ring_opc,
-                                    ring_args, v, p, K)
+        out_k = hashmap_fused_round_model(spec, t, W, opc, args, ring_opc,
+                                          ring_args, vm, pm, K)
         out_r = hashmap_replay(opc, key, val, v, p, K)
     torch.cuda.synchronize(d1)
-    for a, b in zip(out_k, hashmap_fused_round_plain(
-            spec, t, W, opc, args, ring_opc, ring_args, v, p, K)):
+    for a, b in zip(out_k, hashmap_fused_round_model_plain(
+            spec, t, W, opc, args, ring_opc, ring_args, vm, pm, K)):
         assert a.device == d1 and torch.equal(a, b)
     for a, b in zip(out_r, hashmap_replay_plain(opc, key, val, v, p, K)):
         assert torch.equal(a, b)
