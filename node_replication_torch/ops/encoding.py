@@ -29,6 +29,7 @@ states once before applying, so they stay functional to their callers.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -42,6 +43,13 @@ NOOP = 0
 # Responses are a single int32 lane; "None" is encoded as -1 by the
 # bundled models.
 RESP_DTYPE = torch.int32
+
+# int32 elements in 16 bytes: `encode_ops` starts each view at a multiple
+_ALIGN = 4
+# ops `encode_ops` transposes at once: `zip_longest` holds an iterator per
+# op, and ~700 new objects (`gc.get_threshold()[0]`) set off a collection
+# of the cyclic garbage collector, which would then run on every round
+_CHUNK = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +149,17 @@ def encode_ops(
     on `device` (None means the card).
 
     Returns `(opcodes int32[B], args int32[B, arg_width], count)` where
-    slots past `count` are NOOP padding; `pad_to` fixes B.
+    slots past `count` are NOOP padding and an op's missing fields are 0
+    (an empty op is a NOOP); `pad_to` fixes B.
+
+    The batch is encoded with no loop over ops in Python: `zip_longest`
+    transposes `_CHUNK` ops at a time into columns (ragged ops padded
+    with 0), and one numpy conversion a chunk writes them, so
+    out-of-range values raise `OverflowError` as a numpy assignment
+    does. `opcodes` and `args` are views of one int32 buffer, filled on
+    the host and copied to the device in one transfer; the opcode
+    segment is rounded up to whole 16-byte groups, so `args` is 16-byte
+    aligned wherever `opcodes`, the buffer's start, is.
     """
     from node_replication_torch.utils.device import resolve_device
 
@@ -149,14 +167,19 @@ def encode_ops(
     pad = n if pad_to is None else pad_to
     if n > pad:
         raise ValueError(f"{n} ops do not fit in pad_to={pad}")
-    opcodes = np.full((pad,), NOOP, np.int32)
-    args = np.zeros((pad, arg_width), np.int32)
-    for i, o in enumerate(ops):
-        opcodes[i] = int(o[0])
-        args[i, : len(o) - 1] = o[1:]
-    dev = resolve_device(device)
-    return (
-        torch.from_numpy(opcodes).to(dev),
-        torch.from_numpy(args).to(dev),
-        n,
-    )
+    seg = -(-pad // _ALIGN) * _ALIGN
+    buf = np.zeros(seg + pad * arg_width, np.int32)  # NOOP 0
+    rows = buf[seg:].reshape(pad, arg_width)
+    for lo in range(0, n, _CHUNK):
+        cols = list(itertools.zip_longest(*ops[lo:lo + _CHUNK], fillvalue=0))
+        if len(cols) > 1 + arg_width:
+            raise ValueError(f"an op of {len(cols)} fields does not fit "
+                             f"arg_width={arg_width}")
+        if cols:  # else every op of the chunk is empty, a NOOP
+            block = np.array(cols, np.int32)  # [fields, ops]
+            hi = lo + block.shape[1]
+            buf[lo:hi] = block[0]
+            rows[lo:hi, :len(cols) - 1] = block[1:].T
+    flat = torch.from_numpy(buf).to(resolve_device(device))
+    opcodes, _, args = flat.split((pad, seg - pad, pad * arg_width))
+    return opcodes, args.view(pad, arg_width), n

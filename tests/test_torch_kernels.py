@@ -810,3 +810,30 @@ def test_kernels_launch_on_the_card_of_their_tensors(dev):
         assert torch.equal(a, b)
     cards = [torch.device("cuda", i % 2) for i in range(4)]
     assert _k1_mesh_run(torch.device("cuda", 0), cards, True) >= 20
+
+
+def test_an_encoded_batch_is_one_copy_of_one_aligned_buffer(dev):
+    """`encode_ops` on the card: the host's encoding, both views 16-byte
+    aligned and contiguous in one device buffer, made by one
+    host-to-device copy."""
+    from node_replication_torch.ops.encoding import encode_ops
+
+    rng = np.random.default_rng(5)
+    ops = [(1, int(k), int(k) % 64 + 1, int(k) * 7) if k % 4 else (2, int(k))
+           for k in rng.integers(0, 2**18, 1000)]
+    want = encode_ops(ops, 3, pad_to=1024, device="cpu")
+    encode_ops(ops, 3, pad_to=1024, device=dev)  # warm up the copy path
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        opc, args, n = encode_ops(ops, 3, pad_to=1024, device=dev)
+        torch.cuda.synchronize()
+    assert n == want[2] == 1000
+    for got, ref in zip((opc, args), want[:2]):
+        assert got.device.type == "cuda" and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got.cpu(), ref)
+    assert (opc.untyped_storage().data_ptr()
+            == args.untyped_storage().data_ptr())
+    copies = [e for e in prof.events() if "HtoD" in e.name]
+    assert len(copies) == 1, [e.name for e in copies]
